@@ -1,0 +1,1 @@
+"""Attention paths and the hand-written CUDA kernels with their plain versions."""
