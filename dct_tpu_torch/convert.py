@@ -6,6 +6,9 @@ which is also the layout of a package's ``model.npz``. The port names its
 modules after the flax paths, so a key maps to a parameter by rule: ``/``
 becomes ``.``, a dense ``kernel`` ``[in, out]`` becomes ``weight``
 ``[out, in]`` (transposed), a LayerNorm ``scale`` becomes ``weight``.
+:func:`flax_weights` is the inverse (a model's parameters, or their
+gradients, as a flat flax-path dict), and :func:`init_flax_weights` draws a
+model's initial weights from a numpy seed, the same on every device.
 """
 
 from __future__ import annotations
@@ -78,3 +81,40 @@ def load_flax_weights(model: nn.Module, flat: dict) -> nn.Module:
                 )
             p.copy_(torch.tensor(value).to(p.dtype))
     return model
+
+
+def flax_weights(model: nn.Module, *, grads: bool = False) -> dict:
+    """The inverse of :func:`load_flax_weights`: flax key -> f32 ndarray
+    of each parameter of ``model`` (of its ``.grad`` with ``grads=True``;
+    a missing gradient raises), dense kernels transposed back to
+    ``[in, out]``."""
+    params = dict(model.named_parameters())
+    out = {}
+    for name, (key, transposed) in flax_names(model).items():
+        t = params[name].grad if grads else params[name]
+        if t is None:
+            raise ValueError(f"{name} has no gradient")
+        value = t.detach().float().cpu().numpy()
+        out[key] = value.T if transposed else value
+    return out
+
+
+def init_flax_weights(model: nn.Module, seed: int) -> dict:
+    """Random flax-path-keyed f32 weights for ``model`` from
+    ``np.random.default_rng(seed)``: dense kernels and biases
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (torch's default, as the reference's
+    ``torch_linear_init``), LayerNorm scale 1 and bias 0."""
+    shapes = flax_shapes(model)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key in sorted(shapes):
+        shape = shapes[key]
+        prefix, leaf = key.rsplit("/", 1)
+        if f"{prefix}/scale" in shapes:  # a LayerNorm
+            fill = 1.0 if leaf == "scale" else 0.0
+            out[key] = np.full(shape, fill, np.float32)
+            continue
+        fan_in = shapes[f"{prefix}/kernel"][0]
+        bound = 1.0 / np.sqrt(fan_in)
+        out[key] = rng.uniform(-bound, bound, shape).astype(np.float32)
+    return out

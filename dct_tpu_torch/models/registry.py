@@ -1,8 +1,10 @@
 """Model registry (counterpart of ``dct_tpu/models/registry.py``).
 
-This slice serves the two transformer families. Any other registered name
-of the reference raises :class:`NotImplementedError` naming the ROADMAP
-item that ports it; nothing else is served in its place.
+The two transformer families are ported (served and trained). Any other
+registered name of the reference raises :class:`NotImplementedError`
+naming the ROADMAP item that ports it; nothing else runs in its place.
+Models come back in eval mode, the flax modules' ``train=False``; a
+trainer calls ``model.train()``.
 """
 
 from __future__ import annotations
@@ -27,10 +29,13 @@ def is_causal_model(name: str) -> bool:
 
 
 def get_model(cfg: ModelConfig, *, input_dim: int | None = None,
-              device=None, dtype=torch.float32) -> WeatherTransformer:
-    """Build ``cfg.name`` on ``device`` in ``dtype``. The causal family
-    gets causal attention (with ``attn_window`` when > 0) and the
-    per-position head with ``horizon``."""
+              device=None, dtype=torch.float32,
+              compute_dtype=None) -> WeatherTransformer:
+    """Build ``cfg.name`` on ``device`` with ``dtype`` parameters computing
+    in ``compute_dtype`` (default ``dtype``), with ``cfg.dropout`` and
+    ``cfg.remat`` (``dct_tpu/models/registry.py:135-170, 207-231``). The
+    causal family gets causal attention (with ``attn_window`` when > 0)
+    and the per-position head with ``horizon``."""
     from dct_tpu_torch.ops.attention import make_attention_fn
 
     if cfg.name in _NOT_PORTED:
@@ -51,8 +56,9 @@ def get_model(cfg: ModelConfig, *, input_dim: int | None = None,
         attn_fn=make_attention_fn(causal=causal, window=window),
         per_position=causal, horizon=cfg.horizon if causal else 1,
         n_kv_heads=cfg.n_kv_heads if cfg.n_kv_heads > 0 else None,
-        pos_embed=cfg.pos_embed, device=device, dtype=dtype,
-    )
+        pos_embed=cfg.pos_embed, dropout=cfg.dropout, remat=cfg.remat,
+        device=device, dtype=dtype, compute_dtype=compute_dtype,
+    ).eval()
 
 
 def config_from_meta(meta: dict) -> ModelConfig:

@@ -8,6 +8,8 @@ carries a hash of its source, so an edited kernel is rebuilt and a stale
 library is never loaded. nvcc's output (with ptxas's registers, shared
 memory and spills per kernel) is kept beside the library as
 ``lib<name>-<hash>.log``. A failed build raises with that output attached.
+:func:`load_kernels` starts one ``nvcc`` per missing library, all at once,
+so a process that needs every kernel waits for the slowest build only.
 """
 
 from __future__ import annotations
@@ -56,37 +58,53 @@ def load_kernel(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its library is not built yet, load it
     and return the handle. Thread-safe; a process loads each library once.
     """
+    return load_kernels(name)[name]
+
+
+def load_kernels(*names: str) -> dict[str, ctypes.CDLL]:
+    """:func:`load_kernel` for several kernels, their builds run in
+    parallel (one ``nvcc`` per source)."""
     with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        src = os.path.join(_CSRC, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha1(f.read()).hexdigest()[:12]
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        stem = os.path.join(BUILD_DIR, f"lib{name}-{digest}")
-        out, log_path = f"{stem}.so", f"{stem}.log"
-        built = not (os.path.exists(out) and os.path.exists(log_path))
-        if built:
-            tmp = f"{out}.tmp.{os.getpid()}"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise KernelBuildError(
-                    f"nvcc failed ({proc.returncode}) building {src}:\n"
-                    f"{' '.join(cmd)}\n{log}"
-                )
-            # The log first: a library with its log beside it is complete.
-            tmp_log = f"{log_path}.tmp.{os.getpid()}"
-            with open(tmp_log, "w") as f:
-                f.write(log)
-            os.replace(tmp_log, log_path)
-            os.replace(tmp, out)
-        else:
-            with open(log_path) as f:
-                log = f.read()
-        lib = ctypes.CDLL(out)
-        _libs[name] = lib
-        build_info[name] = {"log": log, "path": out, "built": built}
-        return lib
+        todo = {}
+        for name in names:
+            if name in _libs or name in todo:
+                continue
+            src = os.path.join(_CSRC, f"{name}.cu")
+            with open(src, "rb") as f:
+                digest = hashlib.sha1(f.read()).hexdigest()[:12]
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            stem = os.path.join(BUILD_DIR, f"lib{name}-{digest}")
+            todo[name] = (src, f"{stem}.so", f"{stem}.log")
+        procs = {}
+        for name, (src, out, log_path) in todo.items():
+            if not (os.path.exists(out) and os.path.exists(log_path)):
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", f"{out}.tmp.{os.getpid()}",
+                       src]
+                procs[name] = (cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True,
+                ))
+        logs = {name: (cmd, proc.communicate()[0], proc.returncode)
+                for name, (cmd, proc) in procs.items()}
+        for name, (src, out, log_path) in todo.items():
+            if name in logs:
+                cmd, log, rc = logs[name]
+                if rc != 0:
+                    raise KernelBuildError(
+                        f"nvcc failed ({rc}) building {src}:\n"
+                        f"{' '.join(cmd)}\n{log}"
+                    )
+                # The log first: a library with its log beside it is
+                # complete.
+                tmp_log = f"{log_path}.tmp.{os.getpid()}"
+                with open(tmp_log, "w") as f:
+                    f.write(log)
+                os.replace(tmp_log, log_path)
+                os.replace(f"{out}.tmp.{os.getpid()}", out)
+            else:
+                with open(log_path) as f:
+                    log = f.read()
+            _libs[name] = ctypes.CDLL(out)
+            build_info[name] = {"log": log, "path": out,
+                                "built": name in logs}
+        return {name: _libs[name] for name in names}

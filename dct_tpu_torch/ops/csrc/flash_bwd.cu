@@ -1,0 +1,550 @@
+// Flash-attention backward for Hopper (sm_90a), written by hand in CUDA C++.
+//
+// Replaces: dct_tpu/ops/pallas_attention.py, driven by `_flash_bwd`
+// (:427-544):
+// - `_flash_bwd_dkdv_kernel` (:303-370, the pl.pallas_call at :487) ->
+//   flash_bwd_dkdv_kernel below;
+// - `_flash_bwd_dq_kernel` (:373-424, the pl.pallas_call at :529) ->
+//   flash_bwd_dq_kernel below.
+//
+// Both recover the softmax from the forward's f32 log-sum-exp and compute,
+// per (q, k) pair of a tile:
+//   P  = exp(scale * q.k - lse)          (0 where the causal/window mask drops)
+//   dP = dO.v
+//   dS = P * (dP - delta) * scale,  delta = rowsum(dO * O)
+// then dV += P^T dO and dK += dS^T Q (kernel 2), dQ += dS K (kernel 3), all
+// accumulated in f32.  delta is computed inside each kernel, as the TPU
+// kernels do (:333, :392): each q tile's rows read their O row once and
+// reduce dO*O in f32 across the 16 lanes of the row group; no pre-pass and
+// no [B*H, T] side buffer.  bf16 rounding happens exactly where the TPU
+// kernel casts: P is rounded to dO's dtype before P^T dO, dS to the input
+// dtype before dS^T Q and dS K; lse and delta stay f32.
+//
+// Grouped-query attention: q head h reads kv head h / (H / G) (group-major,
+// as the forward).  Kernel 2 gives one block one KV tile of one KV head and
+// loops over the group's q heads and their q tiles, so the group's
+// contributions land in one register accumulator: no atomics, and the sum
+// order is fixed (deterministic).  This in-block loop is the TPU's
+// sequential third grid axis (`group * n_q`, :492).  Kernel 3 gives one
+// block one q tile of one q head and loops over the KV tiles.
+//
+// Causal and window skip are loop bounds.  Kernel 2: the q tiles that reach
+// KV tile j start at j*BK/BQ and, with a window, end at
+// (window + (j+1)*BK - 2) / BQ -- the clamped index map at :473-480.
+// Kernel 3: the forward's j_lo/j_hi (:512-523).  The masks of :338-344 and
+// :397-406 stay for the edge tiles and for a ragged T.
+//
+// What bounds it on this card.  At the training shape (B=32, H=G=8, T=1024,
+// D=64, not causal) kernel 2 does 8*D flops per (q, k) pair (S, dP, dV, dK)
+// = 137 GFLOP and kernel 3 does 6*D = 103 GFLOP (S and dP are recomputed
+// in both, as on the TPU); their compulsory traffic is 5 [B*H, T, D] inputs
+// plus lse and one or two outputs, about 0.47 GB in f32.  On the H100's
+// datasheet rates (67 TFLOP/s f32 without tensor cores, 989 TFLOP/s bf16
+// dense, 3.35 TB/s) both are bound by operations: 2.05 and 1.54 ms in f32,
+// 0.14 and 0.10 ms in bf16 (against 0.07 and 0.06 ms of bytes).
+//
+// What the design does about it.  As in flash_fwd.cu, nothing O(T^2)
+// reaches device memory: a block's K and V tiles (kernel 2) or Q and dO
+// tiles (kernel 3) stay in shared memory for its life, the other operands
+// stream through in 64-row tiles, and each of the 256 threads holds a 4x4
+// block of S and dP and a 4 x D/16 block of each accumulator in registers.
+// The transposed products read P and dS back from shared memory.  Tiles
+// are widened to f32 in shared memory (bf16 products are exact in f32) and
+// every product runs on the f32 FMA units, for both dtypes: the simple
+// kernel that is right.  Reaching the bf16 bound needs tensor cores
+// (mma.sync, then wgmma with TMA-fed tiles), which is later work.
+// Shared memory: 100.5 KiB (kernel 2) and 83.5 KiB (kernel 3) at D=64,
+// 165 KiB and 148 KiB at D=128, under the 227 KB a block may use, with
+// 64-row tiles at every head dim.
+//
+// Each C entry point returns cudaGetLastError() after its launch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int BQ = 64;        // q rows per tile
+constexpr int BK = 64;        // keys per tile
+constexpr int NT = 256;       // threads: 16 row groups x 16 column lanes
+constexpr int RPT = BQ / 16;  // tile rows per thread
+constexpr int CPT = BK / 16;  // score columns per thread
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// Round an f32 value to T and back (the TPU kernel's `.astype(dtype)`).
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+template <>
+__device__ __forceinline__ float round_to<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float sum16(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// Shared-memory row strides (as flash_fwd.cu): row tiles padded by 4 floats
+// so the two row groups of a warp (rows 4 apart) fall in opposite halves of
+// the banks; transposed tiles padded by 1 so column reads spread.
+template <int D>
+struct Strides {
+  static constexpr int QS = D + 4;   // Q, dO: [BQ][QS]
+  static constexpr int KS = BK + 1;  // K^T, V^T: [D][KS]
+  static constexpr int PS = BK + 4;  // P, dS: [BQ][PS]
+};
+
+template <int D>
+struct DkdvSmem {
+  using S = Strides<D>;
+  static constexpr int floats = 2 * D * S::KS + 2 * BQ * S::QS + 2 * BQ * S::PS;
+  static constexpr size_t bytes = sizeof(float) * floats;
+};
+
+template <int D>
+struct DqSmem {
+  using S = Strides<D>;
+  static constexpr int floats = 2 * D * S::KS + 2 * BQ * S::QS + BQ * S::PS;
+  static constexpr size_t bytes = sizeof(float) * floats;
+};
+
+__device__ __forceinline__ bool keep_pair(int qp, int kp, int seq, int causal,
+                                          int window) {
+  bool kk = qp < seq && kp < seq;
+  if (causal) {
+    kk = kk && qp >= kp;
+    if (window > 0) kk = kk && qp - kp < window;
+  }
+  return kk;
+}
+
+// Load a [rows][D] tile starting at row r0 of a [seq][D] head into shared
+// memory as f32 with row stride `ld` (rows past seq are zero).
+template <typename T, int D>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
+                                          int r0, int seq, int tid) {
+  for (int i = tid; i < BQ * D; i += NT) {
+    const int r = i / D, d = i % D;
+    dst[r * ld + d] = r0 + r < seq ? to_float(src[(size_t)(r0 + r) * D + d]) : 0.f;
+  }
+}
+
+// Load the K and V tiles starting at key k0, transposed: Kt[d][c], Vt[d][c].
+template <typename T, int D>
+__device__ __forceinline__ void load_kv_t(float* Kt, float* Vt, const T* kb,
+                                          const T* vb, int k0, int seq,
+                                          int tid) {
+  constexpr int KS = Strides<D>::KS;
+  for (int i = tid; i < BK * D; i += NT) {
+    const int c = i / D, d = i % D;
+    const bool ok = k0 + c < seq;
+    const size_t g = (size_t)(k0 + c) * D + d;
+    Kt[d * KS + c] = ok ? to_float(kb[g]) : 0.f;
+    Vt[d * KS + c] = ok ? to_float(vb[g]) : 0.f;
+  }
+}
+
+// Per-row lse and delta = rowsum(dO * O) for the thread's RPT rows of the q
+// tile at q0 (dO already in shared memory; O read from device memory).
+template <typename T, int D>
+__device__ __forceinline__ void row_stats(float (&lse_r)[RPT],
+                                          float (&delta_r)[RPT],
+                                          const float* dOs, const T* ob,
+                                          const float* lseb, int q0, int seq,
+                                          int ty, int tx) {
+  constexpr int QS = Strides<D>::QS;
+  constexpr int DPT = D / 16;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int row = ty * RPT + i;
+    const int qp = q0 + row;
+    float part = 0.f;
+    if (qp < seq) {
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) {
+        const int d = tx + 16 * j;
+        part = fmaf(dOs[row * QS + d], to_float(ob[(size_t)qp * D + d]), part);
+      }
+    }
+    delta_r[i] = sum16(part);
+    lse_r[i] = qp < seq ? lseb[qp] : 0.f;
+  }
+}
+
+// S = Q K^T and dP = dO V^T for the thread's 4x4 block (rows ty*RPT+i,
+// columns tx+16*j), then P and dS in f32.
+template <int D>
+__device__ __forceinline__ void scores(float (&p)[RPT][CPT],
+                                       float (&ds)[RPT][CPT], const float* Qs,
+                                       const float* dOs, const float* Kt,
+                                       const float* Vt,
+                                       const float (&lse_r)[RPT],
+                                       const float (&delta_r)[RPT], int q0,
+                                       int k0, int seq, float scale,
+                                       int causal, int window, int ty,
+                                       int tx) {
+  using S = Strides<D>;
+  float s[RPT][CPT], dp[RPT][CPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float qv[RPT], gv[RPT], kv[CPT], vv[CPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      qv[i] = Qs[(ty * RPT + i) * S::QS + d];
+      gv[i] = dOs[(ty * RPT + i) * S::QS + d];
+    }
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      kv[j] = Kt[d * S::KS + tx + 16 * j];
+      vv[j] = Vt[d * S::KS + tx + 16 * j];
+    }
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int qp = q0 + ty * RPT + i;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int kp = k0 + tx + 16 * j;
+      const float pij = keep_pair(qp, kp, seq, causal, window)
+                            ? expf(s[i][j] * scale - lse_r[i])
+                            : 0.f;
+      p[i][j] = pij;
+      ds[i][j] = pij * (dp[i][j] - delta_r[i]) * scale;
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+    flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ o,
+                          const T* __restrict__ dout,
+                          const float* __restrict__ lse, T* __restrict__ dk,
+                          T* __restrict__ dv, int H, int G, int seq,
+                          float scale, int causal, int window) {
+  using S = Strides<D>;
+  constexpr int DPT = D / 16;
+  extern __shared__ float smem[];
+  float* Kt = smem;                 // [D][KS]
+  float* Vt = Kt + D * S::KS;       // [D][KS]
+  float* Qs = Vt + D * S::KS;       // [BQ][QS]
+  float* dOs = Qs + BQ * S::QS;     // [BQ][QS]
+  float* Ps = dOs + BQ * S::QS;     // [BQ][PS]
+  float* dSs = Ps + BQ * S::PS;     // [BQ][PS]
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4;
+  const int tx = tid & 15;
+  // Causal: the first KV tiles see the most q tiles; they launch first.
+  const int jt = blockIdx.x;
+  const int bg = blockIdx.y;  // flat b*G + g
+  const int b = bg / G, g = bg % G;
+  const int group = H / G;
+  const int k0 = jt * BK;
+
+  load_kv_t<T, D>(Kt, Vt, k + (size_t)bg * seq * D, v + (size_t)bg * seq * D,
+                  k0, seq, tid);
+
+  float acc_k[RPT][DPT], acc_v[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+
+  // The q tiles that reach this KV tile: causal starts at the diagonal, a
+  // window ends where the band of the tile's last key runs out.
+  const int n_q = (seq + BQ - 1) / BQ;
+  int i_lo = 0, i_hi = n_q - 1;
+  if (causal) {
+    i_lo = k0 / BQ;
+    if (window > 0) i_hi = min(i_hi, (window + k0 + BK - 2) / BQ);
+  }
+
+  for (int m = 0; m < group; ++m) {
+    const int bh = b * H + g * group + m;  // the member's flat q head
+    const T* qb = q + (size_t)bh * seq * D;
+    const T* ob = o + (size_t)bh * seq * D;
+    const T* gb = dout + (size_t)bh * seq * D;
+    const float* lseb = lse + (size_t)bh * seq;
+    for (int it = i_lo; it <= i_hi; ++it) {
+      const int q0 = it * BQ;
+      __syncthreads();  // the previous tile's readers are done
+      load_rows<T, D>(Qs, S::QS, qb, q0, seq, tid);
+      load_rows<T, D>(dOs, S::QS, gb, q0, seq, tid);
+      __syncthreads();
+
+      float lse_r[RPT], delta_r[RPT];
+      row_stats<T, D>(lse_r, delta_r, dOs, ob, lseb, q0, seq, ty, tx);
+      float p[RPT][CPT], ds[RPT][CPT];
+      scores<D>(p, ds, Qs, dOs, Kt, Vt, lse_r, delta_r, q0, k0, seq, scale,
+                causal, window, ty, tx);
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          const int idx = (ty * RPT + i) * S::PS + tx + 16 * j;
+          Ps[idx] = round_to<T>(p[i][j]);
+          dSs[idx] = round_to<T>(ds[i][j]);
+        }
+      __syncthreads();
+
+      // dV[c] += sum_r P[r][c] dO[r];  dK[c] += sum_r dS[r][c] Q[r], for the
+      // thread's key rows c = ty*RPT+i and columns tx+16*j.
+#pragma unroll 4
+      for (int r = 0; r < BQ; ++r) {
+        float pv[RPT], sv[RPT], gv[DPT], qv[DPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          pv[i] = Ps[r * S::PS + ty * RPT + i];
+          sv[i] = dSs[r * S::PS + ty * RPT + i];
+        }
+#pragma unroll
+        for (int j = 0; j < DPT; ++j) {
+          gv[j] = dOs[r * S::QS + tx + 16 * j];
+          qv[j] = Qs[r * S::QS + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int j = 0; j < DPT; ++j) {
+            acc_v[i][j] = fmaf(pv[i], gv[j], acc_v[i][j]);
+            acc_k[i][j] = fmaf(sv[i], qv[j], acc_k[i][j]);
+          }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int kp = k0 + ty * RPT + i;
+    if (kp >= seq) continue;
+    const size_t row = ((size_t)bg * seq + kp) * D;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) {
+      dk[row + tx + 16 * j] = from_float<T>(acc_k[i][j]);
+      dv[row + tx + 16 * j] = from_float<T>(acc_v[i][j]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ o,
+                        const T* __restrict__ dout,
+                        const float* __restrict__ lse, T* __restrict__ dq,
+                        int H, int G, int seq, float scale, int causal,
+                        int window) {
+  using S = Strides<D>;
+  constexpr int DPT = D / 16;
+  extern __shared__ float smem[];
+  float* Kt = smem;              // [D][KS]
+  float* Vt = Kt + D * S::KS;    // [D][KS]
+  float* Qs = Vt + D * S::KS;    // [BQ][QS]
+  float* dOs = Qs + BQ * S::QS;  // [BQ][QS]
+  float* dSs = dOs + BQ * S::QS;  // [BQ][PS]
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4;
+  const int tx = tid & 15;
+  // Causal: the last q tiles see the most keys; they launch first.
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y;  // flat b*H + h
+  const int b = bh / H;
+  const int kvh = b * G + (bh % H) / (H / G);
+  const int q0 = qt * BQ;
+
+  const T* kb = k + (size_t)kvh * seq * D;
+  const T* vb = v + (size_t)kvh * seq * D;
+  load_rows<T, D>(Qs, S::QS, q + (size_t)bh * seq * D, q0, seq, tid);
+  load_rows<T, D>(dOs, S::QS, dout + (size_t)bh * seq * D, q0, seq, tid);
+  __syncthreads();
+  float lse_r[RPT], delta_r[RPT];
+  row_stats<T, D>(lse_r, delta_r, dOs, o + (size_t)bh * seq * D,
+                  lse + (size_t)bh * seq, q0, seq, ty, tx);
+
+  float acc[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
+
+  // The forward's KV range for this q tile.
+  const int q_last = min(q0 + BQ, seq) - 1;
+  int j_lo = 0, j_hi = (seq + BK - 1) / BK - 1;
+  if (causal) {
+    j_hi = q_last / BK;
+    if (window > 0) j_lo = max(0, q0 - window + 1) / BK;
+  }
+
+  for (int jt = j_lo; jt <= j_hi; ++jt) {
+    const int k0 = jt * BK;
+    __syncthreads();  // the previous tile's readers of Kt, Vt, dSs are done
+    load_kv_t<T, D>(Kt, Vt, kb, vb, k0, seq, tid);
+    __syncthreads();
+
+    float p[RPT][CPT], ds[RPT][CPT];
+    scores<D>(p, ds, Qs, dOs, Kt, Vt, lse_r, delta_r, q0, k0, seq, scale,
+              causal, window, ty, tx);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j)
+        dSs[(ty * RPT + i) * S::PS + tx + 16 * j] = round_to<T>(ds[i][j]);
+    __syncthreads();
+
+    // dQ[r] += sum_c dS[r][c] K[c], K read back from its transposed tile.
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float sv[RPT], kv[DPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) sv[i] = dSs[(ty * RPT + i) * S::PS + c];
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) kv[j] = Kt[(tx + 16 * j) * S::KS + c];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < DPT; ++j) acc[i][j] = fmaf(sv[i], kv[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int qp = q0 + ty * RPT + i;
+    if (qp >= seq) continue;
+    T* row = dq + ((size_t)bh * seq + qp) * D;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) row[tx + 16 * j] = from_float<T>(acc[i][j]);
+  }
+}
+
+struct Args {
+  const void *q, *k, *v, *o, *dout, *lse;
+  void *dq, *dk, *dv;
+  int B, H, G, seq;
+  float scale;
+  int causal, window;
+  cudaStream_t stream;
+};
+
+template <typename T, int D>
+cudaError_t launch_dkdv(const Args& a) {
+  auto kern = flash_bwd_dkdv_kernel<T, D>;
+  const size_t smem = DkdvSmem<D>::bytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.seq + BK - 1) / BK, a.B * a.G);
+  kern<<<grid, NT, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.o),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H, a.G, a.seq, a.scale,
+      a.causal, a.window);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dq(const Args& a) {
+  auto kern = flash_bwd_dq_kernel<T, D>;
+  const size_t smem = DqSmem<D>::bytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.seq + BQ - 1) / BQ, a.B * a.H);
+  kern<<<grid, NT, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.o),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<T*>(a.dq), a.H, a.G, a.seq, a.scale, a.causal, a.window);
+  return cudaGetLastError();
+}
+
+template <bool DKDV, typename T>
+cudaError_t dispatch_dim(const Args& a, int D) {
+  switch (D) {
+    case 16:
+      return DKDV ? launch_dkdv<T, 16>(a) : launch_dq<T, 16>(a);
+    case 32:
+      return DKDV ? launch_dkdv<T, 32>(a) : launch_dq<T, 32>(a);
+    case 64:
+      return DKDV ? launch_dkdv<T, 64>(a) : launch_dq<T, 64>(a);
+    case 128:
+      return DKDV ? launch_dkdv<T, 128>(a) : launch_dq<T, 128>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <bool DKDV>
+int run(const Args& a, int D, int dtype) {
+  const int rows = DKDV ? a.B * a.G : a.B * a.H;
+  if (a.B <= 0 || a.H <= 0 || a.G <= 0 || a.seq <= 0 || a.H % a.G != 0 ||
+      rows > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return (int)dispatch_dim<DKDV, float>(a, D);
+  if (dtype == 1) return (int)dispatch_dim<DKDV, __nv_bfloat16>(a, D);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// q, o, dout [B,H,T,D]; k, v [B,G,T,D]; all contiguous, of one dtype
+// (0 = f32, 1 = bf16); lse [B,H,T] f32 from the forward.  window <= 0 means
+// none.  Kernel 2 writes dk, dv [B,G,T,D]; kernel 3 writes dq [B,H,T,D].
+extern "C" int dct_flash_bwd_dkdv(const void* q, const void* k, const void* v,
+                                  const void* o, const void* dout,
+                                  const void* lse, void* dk, void* dv, int B,
+                                  int H, int G, int seq, int D, float scale,
+                                  int causal, int window, int dtype,
+                                  void* stream) {
+  const Args a{q,  k,  v, o,   dout,  lse,    nullptr, dk,
+               dv, B,  H, G,   seq,   scale,  causal,  window,
+               static_cast<cudaStream_t>(stream)};
+  return run<true>(a, D, dtype);
+}
+
+extern "C" int dct_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                const void* o, const void* dout,
+                                const void* lse, void* dq, int B, int H,
+                                int G, int seq, int D, float scale,
+                                int causal, int window, int dtype,
+                                void* stream) {
+  const Args a{q,       k,       v, o,   dout,  lse,    dq,     nullptr,
+               nullptr, B,       H, G,   seq,   scale,  causal, window,
+               static_cast<cudaStream_t>(stream)};
+  return run<false>(a, D, dtype);
+}

@@ -43,25 +43,11 @@ def write_package(package_dir: str, weights: dict, meta: dict) -> None:
 
 
 def init_package_weights(meta: dict, seed: int) -> dict:
-    """Random flax-path-keyed f32 weights for the model ``meta`` describes,
-    from ``np.random.default_rng(seed)``: dense kernels and biases
-    U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (torch's default, as the reference's
-    ``torch_linear_init``), LayerNorm scale 1 and bias 0."""
-    from dct_tpu_torch.convert import flax_shapes
+    """Random flax-path-keyed f32 weights for the model ``meta`` describes
+    (:func:`dct_tpu_torch.convert.init_flax_weights`)."""
+    from dct_tpu_torch.convert import init_flax_weights
     from dct_tpu_torch.models.registry import config_from_meta, get_model
 
-    model = get_model(config_from_meta(meta), device="meta")
-    shapes = flax_shapes(model)
-    rng = np.random.default_rng(seed)
-    out = {}
-    for key in sorted(shapes):
-        shape = shapes[key]
-        prefix, leaf = key.rsplit("/", 1)
-        if f"{prefix}/scale" in shapes:  # a LayerNorm
-            fill = 1.0 if leaf == "scale" else 0.0
-            out[key] = np.full(shape, fill, np.float32)
-            continue
-        fan_in = shapes[f"{prefix}/kernel"][0]
-        bound = 1.0 / np.sqrt(fan_in)
-        out[key] = rng.uniform(-bound, bound, shape).astype(np.float32)
-    return out
+    return init_flax_weights(
+        get_model(config_from_meta(meta), device="meta"), seed
+    )

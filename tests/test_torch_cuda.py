@@ -1,7 +1,7 @@
-"""The port's CUDA kernel and served model on the card.
+"""The port's CUDA kernels, served model and train step on the card.
 
 Each test needs a CUDA card of compute capability 9.0 and skips without
-one (the kernel has no CPU mode). The file imports no JAX, so it runs on a
+one (the kernels have no CPU mode). The file imports no JAX, so it runs on a
 machine with the card and no JAX (``tests/conftest.py`` imports JAX):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
@@ -91,3 +91,111 @@ def test_served_model_on_card_matches_cpu(card):
     assert fa.launches == meta["n_layers"] and gpu.forwards == 1
     cpu = TorchScorer(weights, meta, "cpu")
     np.testing.assert_allclose(probs, cpu(x), atol=1e-4)
+
+
+def _bwd_inputs(seed, g, d, dtype, device, t=T, causal=False, window=None,
+                block=128):
+    q, k, v = _qkv(seed, g, d, dtype, device, t=t)
+    rng = np.random.default_rng(seed + 100)
+    do = torch.from_numpy(rng.standard_normal((B, H, t, d)).astype(
+        np.float32)).to(device=device, dtype=dtype)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                return_lse=True, block_q=block, block_k=block)
+    return q, k, v, o, lse, do
+
+
+def _rel_err(got, ref):
+    """max|got - ref| / max|ref|."""
+    ref = ref.float()
+    return ((got.float() - ref).abs().max()
+            / max(ref.abs().max().item(), 1e-30)).item()
+
+
+# Backward tolerances, relative to each output's max: f32 differs by
+# summation order only; a bf16 output by at most one step of bf16 (2^-7 of
+# the largest value), where a dropped 64-row tile would err by far more.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window,g,d", CASES)
+def test_bwd_kernels_match_plain(card, causal, window, g, d, dtype):
+    args = _bwd_inputs(9, g, d, dtype, card, causal=causal, window=window)
+    before = fa.launch_counts()
+    dk, dv = fa.flash_bwd_dkdv(*args, causal=causal, window=window)
+    dq = fa.flash_bwd_dq(*args, causal=causal, window=window)
+    torch.cuda.synchronize()
+    after = fa.launch_counts()
+    assert after["flash_bwd_dkdv"] == before["flash_bwd_dkdv"] + 1
+    assert after["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    want = fa.flash_attention_bwd_plain(*args, causal=causal, window=window)
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert _rel_err(got, ref) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernels_ragged_length_match_plain(card, dtype):
+    """T=200 is not a multiple of the kernels' 64-row tiles."""
+    args = _bwd_inputs(10, 2, 64, dtype, card, t=200, causal=True, block=40)
+    dk, dv = fa.flash_bwd_dkdv(*args, causal=True)
+    dq = fa.flash_bwd_dq(*args, causal=True)
+    want = fa.flash_attention_bwd_plain(*args, causal=True, block_q=40,
+                                        block_k=40)
+    for got, ref in zip((dq, dk, dv), want):
+        assert _rel_err(got, ref) <= BWD_TOL[dtype]
+
+
+def test_gradients_flow_through_the_kernels(card):
+    """Regression: the kernel's output once carried no grad_fn, so nothing
+    upstream of attention (qkv_proj, ln_attn) received a gradient."""
+    from dct_tpu_torch.config import ModelConfig
+    from dct_tpu_torch.models.registry import get_model
+
+    q, k, v = (t.requires_grad_() for t in _qkv(11, 2, 64, torch.float32,
+                                                  card))
+    o = fa.flash_attention(q, k, v, causal=True)
+    assert isinstance(o.grad_fn, fa.FlashAttention._backward_cls)
+    model = get_model(ModelConfig(name="weather_transformer", seq_len=T,
+                                  d_model=64, n_heads=2, n_layers=2,
+                                  d_ff=128, dropout=0.0),
+                      input_dim=5, device=card).train()
+    fa.reset_launches()
+    model(torch.randn(2, T, 5, device=card)).sum().backward()
+    assert fa.launch_counts() == {"flash_fwd": 2, "flash_bwd_dkdv": 2,
+                                  "flash_bwd_dq": 2}
+    for block in model.blocks():
+        for p in (block.attn.qkv_proj.weight, block.ln_attn.weight):
+            assert p.grad is not None and p.grad.abs().max().item() > 0
+
+
+@pytest.mark.parametrize("family", ["weather_transformer",
+                                    "weather_transformer_causal"])
+def test_train_step_on_card_matches_cpu(card, family):
+    from dct_tpu_torch.config import ModelConfig
+    from dct_tpu_torch.models.registry import get_model
+    from dct_tpu_torch.train.state import create_train_state
+    from dct_tpu_torch.train.steps import loss_and_grads
+
+    cfg = ModelConfig(name=family, seq_len=T, d_model=64, n_heads=2,
+                      n_layers=2, d_ff=128, n_kv_heads=1, dropout=0.0)
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((3, T, 5)).astype(np.float32)
+    shape = (3, T) if family == "weather_transformer_causal" else (3,)
+    y = rng.integers(0, 2, shape).astype(np.int32)
+    w = np.array([1.0, 1.0, 0.0], np.float32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    results = []
+    for device in ("cpu", card):
+        state = create_train_state(
+            get_model(cfg, input_dim=5, device=device), input_dim=5, lr=1e-3,
+            seed=5)
+        results.append(loss_and_grads(state, x, y, w))
+    (loss_c, grads_c), (loss_g, grads_g) = results
+    assert abs(loss_g.item() - loss_c.item()) <= 1e-5 * abs(loss_c.item())
+    # cuBLAS and the CPU sum in other orders; a small gradient that is a
+    # cancelling sum of large terms (a bias) differs by ~1e-4 of its own
+    # max, so each gradient is held to 1e-3 of its max.
+    for a, b in zip(grads_g, grads_c):
+        scale = b.abs().max().item()
+        assert (a.cpu() - b).abs().max().item() <= 1e-3 * max(scale, 1e-30)
