@@ -8,18 +8,22 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
 1. The card: name and power limit (``nvidia-smi``), torch and CUDA versions.
 2. Builds every kernel of the serving and training paths from the sources in
    the checkout (``dct_tpu_torch/ops/csrc/flash_fwd.cu`` and ``flash_bwd.cu``,
-   one ``nvcc`` each, in parallel) and prints the build time and ptxas's
-   register and spill report.
+   both including ``sm90.cuh``; one ``nvcc`` each, in parallel) and prints
+   the build time and ptxas's registers and spills per kernel instance
+   (raises if a tensor-core kernel spills). Counts the tensor-core
+   instructions (``HGMMA``, ``HMMA``) of each kernel's bf16 instances in
+   ``cuobjdump -sass`` of the built libraries; raises if the bf16
+   ``flash_fwd`` or ``flash_bwd_dkdv`` has none at some head dim.
 3. Holds each kernel against its plain PyTorch version on the card at the
    serving shape (B=32 windows, H=8, T=1024, D=64), f32 and bf16, causal and
    not, with the log-sum-exp; tolerances f32 1e-4 (summation order only),
    bf16 2e-2. Times the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (the library yardstick; the port never
-   calls it): median of 20 runs after warm-up, each between
-   ``torch.cuda.synchronize()`` calls. ``bound_ms`` is the larger of the
-   compulsory bytes over 3.35 TB/s and the operations over the datasheet
-   peak for the input type (67 TFLOP/s f32 without tensor cores, 989 TFLOP/s
-   bf16 dense).
+   calls it) with CUDA events: after warm-up, the median of 5 runs of 10
+   calls launched back to back, per call (``time_ms``). ``bound_ms`` is the
+   larger of the compulsory bytes over 3.35 TB/s and the operations over
+   the datasheet peak for the input type (67 TFLOP/s f32 without tensor
+   cores, 989 TFLOP/s bf16 dense).
 4. Serves three random packages (seed 0) of the repo's full-width transformer
    (d_model 512, 8 heads, 4 layers, d_ff 2048, seq_len 1024, 5 features):
    ``weather_transformer`` and ``weather_transformer_causal`` (horizon 1) in
@@ -37,8 +41,8 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
    and a seeded dO. Error: max|kernel - plain| / max|plain| per output,
    tolerance 1e-4 (f32) and 1e-2 (bf16: about one bf16 step of the largest
    gradient; dropping a 64-row tile from a sum errs by some 1/16 of it).
-   The absolute errors are printed beside. Times each kernel (median
-   of 20), the plain version, and the backward of
+   The absolute errors are printed beside. Times each kernel
+   (``time_ms``), the plain version, and the backward of
    ``F.scaled_dot_product_attention`` alone (``library_ms``; it computes
    dq, dk and dv, so it stands on both rows and is compared with the sum of
    the two kernels). ``bound_ms``: compulsory bytes over 3.35 TB/s against
@@ -72,7 +76,9 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
        GEMMs, the optimizer's foreach passes, the rest), and the device's
        idle share between the step's first and last kernel.
 
-Prints the ``kernels`` JSON line, then the card line, then, last,
+Prints the ``kernels`` JSON line (each kernel with its f32 numbers at the
+top level, as earlier slices did, a ``bf16`` summary beside them, and its
+``tensor_core_instructions``), then the card line, then, last,
 ``{"ok": true, "device": {...}}``. Any failure raises.
 """
 
@@ -80,6 +86,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -107,6 +114,71 @@ OVERFIT_RATIO = 0.7  # measured 0.470 on an H100
 BWD_FLOPS_PER_PAIR = {"flash_bwd_dkdv": 8, "flash_bwd_dq": 6}  # x D
 
 
+# The bf16 instance of each kernel in the SASS: the tensor-core kernels
+# (bf16 only) and the FMA dQ kernel's bf16 instantiation.
+BF16_SASS = {"flash_fwd": ("flash_fwd", "flash_fwd_kernel_wgmma"),
+             "flash_bwd_dkdv": ("flash_bwd", "flash_bwd_dkdv_kernel_wgmma"),
+             "flash_bwd_dq": ("flash_bwd",
+                              "flash_bwd_dq_kernelI13__nv_bfloat16")}
+TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dkdv")
+
+
+def ptxas_report(log: str) -> dict[str, dict]:
+    """Registers, spill bytes and any performance warning (such as wgmma
+    serialization) per kernel instance from nvcc's ``-Xptxas -v``
+    output."""
+    report, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)", line)
+        if m:
+            fn = m.group(1)
+            report.setdefault(fn, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            report[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            report[fn]["registers"] = int(m.group(1))
+        m = re.search(r"Potential Performance Loss: (.*) in the function "
+                      r"'([\w$]+)'", line)
+        if m:
+            report.setdefault(m.group(2), {})["ptxas_warning"] = m.group(1)
+    return report
+
+
+def tensor_core_instructions(build) -> dict[str, dict]:
+    """Per kernel: HGMMA and HMMA counts of each bf16 instance (by head
+    dim) in ``cuobjdump -sass`` of the built library."""
+    sass = {lib: build.sass(lib) for lib in ("flash_fwd", "flash_bwd")}
+    counts = {}
+    for name, (lib, tag) in BF16_SASS.items():
+        by_dim, cur = {}, None
+        for line in sass[lib].splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                cur = None
+                if tag in m.group(1):
+                    cur = int(re.search(r"Li(\d+)EE", m.group(1)).group(1))
+                    by_dim[cur] = {"HGMMA": 0, "HMMA": 0}
+            elif cur is not None:
+                for op in ("HGMMA", "HMMA"):
+                    if re.search(rf"\b{op}\.", line):
+                        by_dim[cur][op] += 1
+        if sorted(by_dim) != [16, 32, 64, 128]:
+            raise AssertionError(f"{name}: bf16 instances {sorted(by_dim)} "
+                                 "in the SASS, want head dims 16-128")
+        if name in TENSOR_CORE_KERNELS and not all(
+                c["HGMMA"] > 0 for c in by_dim.values()):
+            raise AssertionError(f"{name}: a bf16 instance without HGMMA: "
+                                 f"{by_dim}")
+        counts[name] = {"HGMMA": by_dim[64]["HGMMA"],
+                        "HMMA": by_dim[64]["HMMA"], "head_dim": 64,
+                        "by_head_dim": by_dim}
+    return counts
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -116,9 +188,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` over ``runs``, each between
-    synchronizes, timed with CUDA events."""
+def time_ms(fn, runs: int = 5, per_run: int = 10, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: the median over ``runs`` of the
+    CUDA-event time of ``per_run`` calls launched back to back, over
+    ``per_run``. Back to back, the device runs one call while the host
+    prepares the next, so the host's part of a call (the wrapper's checks,
+    allocations and ctypes call) is not counted, as it is when two events
+    bracket a single call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -126,12 +202,12 @@ def time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
         start.record()
-        fn()
+        for _ in range(per_run):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / per_run)
     return statistics.median(times)
 
 
@@ -331,7 +407,7 @@ def check_bwd_kernels(fa) -> dict[str, list[dict]]:
                     f"errors {bad} above {BWD_TOL[dtype]}"
                 )
             plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
-                *args, causal=causal), runs=5, warmup=1)
+                *args, causal=causal), runs=3, per_run=2, warmup=1)
             qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
             o_sdpa = F.scaled_dot_product_attention(qg, kg, vg,
                                                     is_causal=causal)
@@ -675,9 +751,13 @@ def main() -> int:
         info = build.build_info[name]
         print(f"[smoke] {'built' if info['built'] else 'reused'} {name} "
               f"(parallel build {build_s:.1f} s): {info['path']}", flush=True)
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[smoke]   ptxas: {line.strip()}", flush=True)
+        for fn, rep in ptxas_report(info["log"]).items():
+            print(f"[smoke]   ptxas: {fn}: {rep}", flush=True)
+            if "wgmma" in fn and rep.get("spill_bytes", 0) > 0:
+                raise AssertionError(f"tensor-core kernel {fn} spills: {rep}")
+    tc_counts = tensor_core_instructions(build)
+    print(f"[smoke] tensor-core instructions of the bf16 kernels: "
+          f"{tc_counts}", flush=True)
 
     variants = check_flash_kernel(fa)
     bwd_variants = check_bwd_kernels(fa)
@@ -699,6 +779,14 @@ def main() -> int:
                                  "flash_bwd_dq")}
     train_steps = sum(r["steps"] for r in trained["b"])
 
+    def bf16_summary(rows):
+        row = [r for r in rows
+               if r["dtype"] == "bfloat16" and not r["causal"]][0]
+        return {"ms": row["ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "plain_ms": row["plain_ms"], "max_err": row["max_abs_err"],
+                "causal": False}
+
     head = variants[0]  # f32, not causal: the first package's shape
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
@@ -713,6 +801,8 @@ def main() -> int:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "launches_per_forward": launches / forwards,
+        "bf16": bf16_summary(variants),
+        "tensor_core_instructions": tc_counts["flash_fwd"],
         "variants": variants,
     }]
     for name, line in (("flash_bwd_dkdv", 303), ("flash_bwd_dq", 373)):
@@ -730,6 +820,8 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "library_covers": head["library_covers"],
+            "bf16": bf16_summary(bwd_variants[name]),
+            "tensor_core_instructions": tc_counts[name],
             "variants": bwd_variants[name],
         })
     print(json.dumps({"kernels": kernels}), flush=True)

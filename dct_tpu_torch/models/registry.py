@@ -35,7 +35,10 @@ def get_model(cfg: ModelConfig, *, input_dim: int | None = None,
     in ``compute_dtype`` (default ``dtype``), with ``cfg.dropout`` and
     ``cfg.remat`` (``dct_tpu/models/registry.py:135-170, 207-231``). The
     causal family gets causal attention (with ``attn_window`` when > 0)
-    and the per-position head with ``horizon``."""
+    and the per-position head with ``horizon``. ``device=None`` is the
+    card (``cuda:0``; :class:`~dct_tpu_torch.device.DeviceError` without
+    CUDA): a CPU model is built only when ``"cpu"`` is asked for."""
+    from dct_tpu_torch.device import resolve_device
     from dct_tpu_torch.ops.attention import make_attention_fn
 
     if cfg.name in _NOT_PORTED:
@@ -48,6 +51,8 @@ def get_model(cfg: ModelConfig, *, input_dim: int | None = None,
     dim = cfg.input_dim if input_dim is None else input_dim
     if dim is None:
         raise ValueError("input_dim must be provided (inferred from data)")
+    if device is None:
+        device = resolve_device()
     causal = cfg.name == "weather_transformer_causal"
     window = cfg.attn_window if causal and cfg.attn_window > 0 else None
     return WeatherTransformer(

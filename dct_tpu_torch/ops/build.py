@@ -5,7 +5,10 @@ compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/dct_tpu_torch/`` at the repository root (``.gitignore`` lists
 ``build/`` and ``*.so``) and loaded with :mod:`ctypes`. The library's name
 carries a hash of its source, so an edited kernel is rebuilt and a stale
-library is never loaded. nvcc's output (with ptxas's registers, shared
+library is never loaded; the hash covers the ``csrc/*.cuh`` headers the
+source includes (``#include "name.cuh"``, followed through headers that
+include others), so an edited header rebuilds every library that includes
+it. nvcc's output (with ptxas's registers, shared
 memory and spills per kernel) is kept beside the library as
 ``lib<name>-<hash>.log``. A failed build raises with that output attached.
 :func:`load_kernels` starts one ``nvcc`` per missing library, all at once,
@@ -17,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,15 +47,55 @@ _libs: dict[str, ctypes.CDLL] = {}
 build_info: dict[str, dict] = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _cuda_tool(tool: str) -> str:
+    found = shutil.which(tool)
     if found:
         return found
     from torch.utils.cpp_extension import CUDA_HOME
 
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise KernelBuildError("nvcc not found (put it on PATH or set CUDA_HOME)")
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", tool)):
+        return os.path.join(CUDA_HOME, "bin", tool)
+    raise KernelBuildError(
+        f"{tool} not found (put it on PATH or set CUDA_HOME)"
+    )
+
+
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of a loaded kernel library: the machine code of
+    every kernel instance in it, each under a ``Function : <mangled name>``
+    line."""
+    out = subprocess.run([_cuda_tool("cuobjdump"), "-sass",
+                          build_info[name]["path"]],
+                         capture_output=True, text=True, check=True,
+                         timeout=300)
+    return out.stdout
+
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.MULTILINE)
+
+
+def source_digest(src: str) -> str:
+    """Hash of a kernel source and every header of its directory that it
+    includes, directly or through another header (12 hex digits)."""
+    h = hashlib.sha1()
+    todo, seen = [src], set()
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        h.update(os.path.basename(path).encode() + b"\0" + text + b"\0")
+        todo.extend(os.path.join(os.path.dirname(src), inc.decode())
+                    for inc in _INCLUDE.findall(text))
+    return h.hexdigest()[:12]
+
+
+def library_stem(name: str, csrc: str = _CSRC) -> str:
+    """``build/dct_tpu_torch/lib<name>-<digest>`` for ``csrc/<name>.cu``."""
+    digest = source_digest(os.path.join(csrc, f"{name}.cu"))
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest}")
 
 
 def load_kernel(name: str) -> ctypes.CDLL:
@@ -70,16 +114,14 @@ def load_kernels(*names: str) -> dict[str, ctypes.CDLL]:
             if name in _libs or name in todo:
                 continue
             src = os.path.join(_CSRC, f"{name}.cu")
-            with open(src, "rb") as f:
-                digest = hashlib.sha1(f.read()).hexdigest()[:12]
             os.makedirs(BUILD_DIR, exist_ok=True)
-            stem = os.path.join(BUILD_DIR, f"lib{name}-{digest}")
+            stem = library_stem(name)
             todo[name] = (src, f"{stem}.so", f"{stem}.log")
         procs = {}
         for name, (src, out, log_path) in todo.items():
             if not (os.path.exists(out) and os.path.exists(log_path)):
-                cmd = [_nvcc(), *NVCC_FLAGS, "-o", f"{out}.tmp.{os.getpid()}",
-                       src]
+                cmd = [_cuda_tool("nvcc"), *NVCC_FLAGS, "-o",
+                       f"{out}.tmp.{os.getpid()}", src]
                 procs[name] = (cmd, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                     text=True,

@@ -45,23 +45,39 @@
 //
 // What the design does about it.  As in flash_fwd.cu, nothing O(T^2)
 // reaches device memory: a block's K and V tiles (kernel 2) or Q and dO
-// tiles (kernel 3) stay in shared memory for its life, the other operands
-// stream through in 64-row tiles, and each of the 256 threads holds a 4x4
-// block of S and dP and a 4 x D/16 block of each accumulator in registers.
-// The transposed products read P and dS back from shared memory.  Tiles
-// are widened to f32 in shared memory (bf16 products are exact in f32) and
-// every product runs on the f32 FMA units, for both dtypes: the simple
-// kernel that is right.  Reaching the bf16 bound needs tensor cores
-// (mma.sync, then wgmma with TMA-fed tiles), which is later work.
-// Shared memory: 100.5 KiB (kernel 2) and 83.5 KiB (kernel 3) at D=64,
-// 165 KiB and 148 KiB at D=128, under the 227 KB a block may use, with
-// 64-row tiles at every head dim.
+// tiles (kernel 3) stay in shared memory for its life and the other
+// operands stream through in 64-row tiles.  Three kernels:
+//
+// - bf16 dK/dV: flash_bwd_dkdv_kernel_wgmma, on the tensor cores.  One
+//   warpgroup (128 threads) owns 64 keys of one KV head; its K and V tiles
+//   stay in swizzled shared memory and its dK and dV accumulators in
+//   registers.  Q, dO, O and lse stream through a 2-stage cp.async ring.
+//   The scores are computed transposed, S^T = K.Q^T and dP^T = V.dO^T (wgmma,
+//   both operands from shared memory), so a thread's accumulator columns
+//   are q rows: lse and delta are read per column from a shared vector,
+//   and P^T = ex2.approx(S^T * scale * log2(e) - lse * log2(e)).
+//   P^T and dS^T are rounded to bf16 in registers and are the register A
+//   operands of dV += P^T.dO and dK += dS^T.Q, with dO and Q as MN-major B
+//   operands of the same stage: P and dS never touch shared memory.  delta
+//   is reduced from the stage's dO and O while the score products run.
+//   Shared memory 66 KiB at D=64, 130 KiB at D=128.  Helpers: sm90.cuh.
+// - f32 dK/dV and both dtypes of dQ: flash_bwd_dkdv_kernel and
+//   flash_bwd_dq_kernel, on the f32 FMA units (no TF32).  Each of the 256
+//   threads holds a 4x4 block of S and dP and a 4 x D/16 block of each
+//   accumulator in registers; the transposed products read P and dS back
+//   from shared memory; tiles are widened to f32 in shared memory (bf16
+//   products are exact in f32).  Shared memory: 100.5 KiB (kernel 2) and
+//   83.5 KiB (kernel 3) at D=64, 165 KiB and 148 KiB at D=128.
 //
 // Each C entry point returns cudaGetLastError() after its launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -451,6 +467,213 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// ---- bf16 dK/dV: tensor cores (wgmma) -------------------------------------
+
+constexpr int WG = 128;  // threads: one warpgroup
+constexpr float LOG2E = 1.4426950408889634f;
+
+// K and V tiles (resident), then 2 stages x (Q, dO, O tiles), each
+// 1024-byte aligned, then 2 stages x (lse[64], delta[64]) f32.
+template <int D>
+struct DkdvWgSmem {
+  using Tl = sm90::Tile<D, BQ>;
+  static constexpr int VEC = 2 * Tl::BYTES + 2 * 3 * Tl::BYTES;
+  static constexpr size_t bytes = 1024 + VEC + 2 * 2 * BQ * sizeof(float);
+};
+
+template <int D>
+__global__ void __launch_bounds__(WG)
+    flash_bwd_dkdv_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v,
+                                const __nv_bfloat16* __restrict__ o,
+                                const __nv_bfloat16* __restrict__ dout,
+                                const float* __restrict__ lse,
+                                __nv_bfloat16* __restrict__ dk,
+                                __nv_bfloat16* __restrict__ dv, int H, int G,
+                                int seq, float scale, int causal,
+                                int window) {
+  static_assert(BQ == 64 && BK == 64, "one m64n64 score tile per q tile");
+  using Tl = sm90::Tile<D, BQ>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = sm90::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);  // base as a generic pointer
+  const uint32_t sK = base, sV = base + Tl::BYTES;
+  const uint32_t sStages = base + 2 * Tl::BYTES;  // stage s: Q, dO, O
+  float* vec = reinterpret_cast<float*>(gbase + DkdvWgSmem<D>::VEC);
+
+  const int tid = threadIdx.x;
+  // Causal: the first KV tiles see the most q tiles; they launch first.
+  const int jt = blockIdx.x;
+  const int bg = blockIdx.y;  // flat b*G + g
+  const int b = bg / G, g = bg % G;
+  const int group = H / G;
+  const int k0 = jt * BK;
+
+  // The q tiles that reach this KV tile (as flash_bwd_dkdv_kernel).
+  const int n_q = (seq + BQ - 1) / BQ;
+  int i_lo = 0, i_hi = n_q - 1;
+  if (causal) {
+    i_lo = k0 / BQ;
+    if (window > 0) i_hi = min(i_hi, (window + k0 + BK - 2) / BQ);
+  }
+  const int n_qt = i_hi - i_lo + 1;
+  const int n_iter = group * n_qt;  // the group's q heads x their q tiles
+
+  // Iteration it: q head m = it / n_qt of the group, q tile i_lo + it % n_qt.
+  auto load_q = [&](int it) {
+    const int st = it & 1;
+    const size_t head = (size_t)(b * H + g * group + it / n_qt) * seq;
+    const int q0 = (i_lo + it % n_qt) * BQ;
+    const uint32_t dst = sStages + st * 3 * Tl::BYTES;
+    sm90::load_tile<D, BQ, WG>(dst, q + head * D, q0, seq, tid);
+    sm90::load_tile<D, BQ, WG>(dst + Tl::BYTES, dout + head * D, q0, seq,
+                               tid);
+    sm90::load_tile<D, BQ, WG>(dst + 2 * Tl::BYTES, o + head * D, q0, seq,
+                               tid);
+    if (tid < BQ) {
+      const bool ok = q0 + tid < seq;
+      sm90::cp_async4(sm90::smem_addr(vec + st * 2 * BQ + tid),
+                      lse + head + (ok ? q0 + tid : 0), ok);
+    }
+  };
+  sm90::load_tile<D, BK, WG>(sK, k + (size_t)bg * seq * D, k0, seq, tid);
+  sm90::load_tile<D, BK, WG>(sV, v + (size_t)bg * seq * D, k0, seq, tid);
+  load_q(0);
+  sm90::cp_async_commit();
+
+  // This thread's accumulator rows (keys) r0 and r0 + 8 and columns
+  // 8j + c0 (+1): q rows of S^T and dP^T, head-dim columns of dK and dV.
+  const int r0 = 16 * (tid >> 5) + ((tid & 31) >> 2);
+  const int c0 = 2 * (tid & 3);
+  const float sl2 = scale * LOG2E;
+  float acc_k[D / 2], acc_v[D / 2], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+
+  for (int it = 0; it < n_iter; ++it) {
+    sm90::cp_async_wait<0>();
+    sm90::fence_proxy_async();
+    __syncthreads();  // stage it is in; every thread is done with it - 1
+    if (it + 1 < n_iter) load_q(it + 1);
+    sm90::cp_async_commit();
+    const int st = it & 1;
+    const uint32_t sQ = sStages + st * 3 * Tl::BYTES;
+    const uint32_t sdO = sQ + Tl::BYTES, sO = sdO + Tl::BYTES;
+    const float* lse_s = vec + st * 2 * BQ;
+    float* delta_s = vec + st * 2 * BQ + BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T (keys x q rows).
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_ss_n64(s, Tl::kmajor(sK, kk), Tl::kmajor(sQ, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_ss_n64(dp, Tl::kmajor(sV, kk), Tl::kmajor(sdO, kk), kk);
+    sm90::wgmma_commit();
+
+    // delta = rowsum(dO * O) in f32 while the products run: two threads
+    // per q row, each over half the row, read from the swizzled tiles.
+    {
+      const int row = tid >> 1, half = tid & 1;
+      float part = 0.f;
+#pragma unroll
+      for (int n = 0; n < Tl::CHUNKS / 2; ++n) {
+        const uint32_t off = Tl::chunk(row, half * (Tl::CHUNKS / 2) + n);
+        const uint4 gv =
+            *reinterpret_cast<const uint4*>(gbase + (sdO - base) + off);
+        const uint4 ov =
+            *reinterpret_cast<const uint4*>(gbase + (sO - base) + off);
+        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 gf = __bfloat1622float2(g2[e]);
+          const float2 of = __bfloat1622float2(o2[e]);
+          part = fmaf(gf.x, of.x, part);
+          part = fmaf(gf.y, of.y, part);
+        }
+      }
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      if (half == 0) delta_s[row] = part;
+    }
+    __syncthreads();  // delta is in
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+
+    // P^T = exp(scale S^T - lse) (0 where masked) and
+    // dS^T = P^T (dP^T - delta) scale, per column (= q row) statistics.
+    const int q0 = (i_lo + it % n_qt) * BQ;
+    const bool edge =
+        q0 + BQ > seq || k0 + BK > seq ||
+        (causal && (k0 + BK - 1 > q0 ||
+                    (window > 0 && q0 + BQ - 1 - k0 >= window)));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 lse2 =
+          *reinterpret_cast<const float2*>(lse_s + 8 * j + c0);
+      const float2 del2 =
+          *reinterpret_cast<const float2*>(delta_s + 8 * j + c0);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float lse_c = (c ? lse2.y : lse2.x) * LOG2E;
+        const float del_c = c ? del2.y : del2.x;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int idx = 4 * j + 2 * i + c;
+          float p = sm90::exp2_approx(fmaf(s[idx], sl2, -lse_c));
+          if (edge &&
+              !keep_pair(q0 + 8 * j + c0 + c, k0 + r0 + 8 * i, seq, causal,
+                         window))
+            p = 0.f;
+          s[idx] = p;
+          dp[idx] = p * (dp[idx] - del_c) * scale;
+        }
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q: P^T (rounded to dO's dtype) and dS^T
+    // (rounded to the input dtype) are the register A operands; dO and Q
+    // are MN-major B operands from the stage.
+    uint32_t pa[16], da[16];
+    sm90::pack_a<32>(pa, s);
+    sm90::pack_a<32>(da, dp);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      sm90::wgmma_rs<D>(acc_v, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                        pa[4 * kk + 3], Tl::mnmajor(sdO, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      sm90::wgmma_rs<D>(acc_k, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+                        da[4 * kk + 3], Tl::mnmajor(sQ, kk), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc_v);
+    sm90::fence_regs(acc_k);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kp = k0 + r0 + 8 * i;
+    if (kp >= seq) continue;
+    const size_t row = ((size_t)bg * seq + kp) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int idx = 4 * j + 2 * i;
+      *reinterpret_cast<__nv_bfloat162*>(dk + row + 8 * j + c0) =
+          __floats2bfloat162_rn(acc_k[idx], acc_k[idx + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + row + 8 * j + c0) =
+          __floats2bfloat162_rn(acc_v[idx], acc_v[idx + 1]);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *o, *dout, *lse;
   void *dq, *dk, *dv;
@@ -477,6 +700,24 @@ cudaError_t launch_dkdv(const Args& a) {
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dkdv_wgmma(const Args& a) {
+  using bf16 = __nv_bfloat16;
+  auto kern = flash_bwd_dkdv_kernel_wgmma<D>;
+  const size_t smem = DkdvWgSmem<D>::bytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.seq + BK - 1) / BK, a.B * a.G);
+  kern<<<grid, WG, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
+      static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.H, a.G, a.seq,
+      a.scale, a.causal, a.window);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a) {
   auto kern = flash_bwd_dq_kernel<T, D>;
@@ -493,20 +734,25 @@ cudaError_t launch_dq(const Args& a) {
   return cudaGetLastError();
 }
 
+// dK/dV: f32 -> flash_bwd_dkdv_kernel (FMA), bf16 ->
+// flash_bwd_dkdv_kernel_wgmma; dQ: flash_bwd_dq_kernel (FMA) for both.
 template <bool DKDV, typename T>
 cudaError_t dispatch_dim(const Args& a, int D) {
+  constexpr bool BF16 = !std::is_same<T, float>::value;
+#define DCT_BWD_CASE(DIM)                                                \
+  case DIM:                                                              \
+    if constexpr (!DKDV) return launch_dq<T, DIM>(a);                    \
+    else if constexpr (BF16) return launch_dkdv_wgmma<DIM>(a);           \
+    else return launch_dkdv<T, DIM>(a);
   switch (D) {
-    case 16:
-      return DKDV ? launch_dkdv<T, 16>(a) : launch_dq<T, 16>(a);
-    case 32:
-      return DKDV ? launch_dkdv<T, 32>(a) : launch_dq<T, 32>(a);
-    case 64:
-      return DKDV ? launch_dkdv<T, 64>(a) : launch_dq<T, 64>(a);
-    case 128:
-      return DKDV ? launch_dkdv<T, 128>(a) : launch_dq<T, 128>(a);
+    DCT_BWD_CASE(16)
+    DCT_BWD_CASE(32)
+    DCT_BWD_CASE(64)
+    DCT_BWD_CASE(128)
     default:
       return cudaErrorInvalidValue;
   }
+#undef DCT_BWD_CASE
 }
 
 template <bool DKDV>

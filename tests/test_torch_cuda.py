@@ -68,6 +68,43 @@ def test_kernel_ragged_length_matches_plain(card):
     assert (o - po).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_kernel_ragged_length_matches_plain(card, causal):
+    """The tensor-core forward at T=200: the cp.async ring zero-fills the
+    rows past T and the edge tiles mask them."""
+    q, k, v = _qkv(7, 2, 64, torch.bfloat16, card, t=200)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, block_q=40,
+                                block_k=40, return_lse=True)
+    po, plse = fa.flash_attention_plain(q, k, v, causal=causal, block_k=40)
+    assert (o.float() - po.float()).abs().max().item() <= 2e-2
+    assert (lse - plse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("window", [2, 16])
+def test_bf16_window_with_fully_masked_rows(card, window):
+    """A window narrower than a tile leaves rows with no key in a tile the
+    loop visits (window 2: nearly every row of an off-diagonal tile):
+    those rows add nothing, forward and backward. (Window 1 makes dK
+    analytically zero -- dP - delta cancels -- so its relative error
+    would compare rounding noise with rounding noise.)"""
+    t = 200
+    q, k, v = _qkv(12, 2, 64, torch.bfloat16, card, t=t)
+    o, lse = fa.flash_attention(q, k, v, causal=True, window=window,
+                                block_q=40, block_k=40, return_lse=True)
+    po, plse = fa.flash_attention_plain(q, k, v, causal=True, window=window,
+                                        block_k=40)
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    assert (o.float() - po.float()).abs().max().item() <= 2e-2
+    assert (lse - plse).abs().max().item() <= 1e-4
+    args = _bwd_inputs(13, 2, 64, torch.bfloat16, card, t=t, causal=True,
+                       window=window, block=40)
+    dk, dv = fa.flash_bwd_dkdv(*args, causal=True, window=window)
+    want = fa.flash_attention_bwd_plain(*args, causal=True, window=window,
+                                        block_q=40, block_k=40)
+    for got, ref in zip((dk, dv), want[1:]):
+        assert _rel_err(got, ref) <= 1e-2
+
+
 def test_kernel_refuses_non_contiguous(card):
     q, k, v = _qkv(8, 4, 64, torch.float32, card)
     k_strided = k.transpose(1, 2).contiguous().transpose(1, 2)
@@ -144,6 +181,19 @@ def test_bwd_kernels_ragged_length_match_plain(card, dtype):
                                         block_k=40)
     for got, ref in zip((dq, dk, dv), want):
         assert _rel_err(got, ref) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("causal,window,g,d", CASES)
+def test_bf16_dkdv_is_bitwise_deterministic(card, causal, window, g, d):
+    """One block sums a KV tile's whole GQA group in a fixed order (no
+    atomics): two launches give the same bits."""
+    args = _bwd_inputs(14, g, d, torch.bfloat16, card, causal=causal,
+                       window=window)
+    first = fa.flash_bwd_dkdv(*args, causal=causal, window=window)
+    second = fa.flash_bwd_dkdv(*args, causal=causal, window=window)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_gradients_flow_through_the_kernels(card):

@@ -61,14 +61,36 @@ def _np(x):
     return np.asarray(x, np.float32)
 
 
+# The kernels' head dims on the main path (64) and the widest (128): the
+# plain version the kernels are held to on the card is itself held to the
+# reference there.
+WIDE_CASES = [  # (head dim, causal, window, kv heads)
+    (64, False, None, G),
+    (64, True, 100, G),
+    (128, True, None, H),
+    (128, True, 64, H),
+]
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("causal,window,g", CASES)
 def test_plain_matches_pallas_interpret(causal, window, g, dtype):
-    (tq, tk, tv), (jq, jk, jv) = _as(dtype, *_inputs(1, g))
+    _check_plain_against_pallas(causal, window, g, dtype, D)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("d,causal,window,g", WIDE_CASES)
+def test_plain_matches_pallas_interpret_wide_heads(d, causal, window, g,
+                                                   dtype):
+    _check_plain_against_pallas(causal, window, g, dtype, d)
+
+
+def _check_plain_against_pallas(causal, window, g, dtype, d):
+    (tq, tk, tv), (jq, jk, jv) = _as(dtype, *_inputs(1, g, d=d))
     o, lse = fa.flash_attention_plain(tq, tk, tv, causal=causal, window=window)
     ref = jax_flash(jq, jk, jv, block_q=128, block_k=128, causal=causal,
                     interpret=True, window=window)
-    assert o.dtype == tq.dtype and o.shape == (B, H, T, D)
+    assert o.dtype == tq.dtype and o.shape == (B, H, T, d)
     np.testing.assert_allclose(_np(o), _np(ref), atol=TOL[dtype])
     ref_o, ref_lse = jax_flash_lse(jq, jk, jv, block_q=128, block_k=128,
                                    causal=causal, interpret=True,

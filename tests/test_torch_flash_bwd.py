@@ -34,10 +34,19 @@ CASES = [  # (causal, window, kv heads), as tests/test_torch_flash.py
 ]
 
 
-def _inputs(seed, g, dtype="f32"):
+# Head dims 64 (the main path) and 128 (the widest), two CASES each.
+WIDE_CASES = [  # (head dim, causal, window, kv heads)
+    (64, False, None, G),
+    (64, True, 100, G),
+    (128, True, None, H),
+    (128, True, 64, H),
+]
+
+
+def _inputs(seed, g, dtype="f32", d=D):
     rng = np.random.default_rng(seed)
     arrays = [rng.standard_normal(s).astype(np.float32) for s in (
-        (B, H, T, D), (B, g, T, D), (B, g, T, D), (B, H, T, D))]
+        (B, H, T, d), (B, g, T, d), (B, g, T, d), (B, H, T, d))]
     if dtype == "f32":
         return [torch.from_numpy(a) for a in arrays], [
             jnp.asarray(a) for a in arrays]
@@ -55,7 +64,17 @@ def _rel_err(got, ref) -> float:
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("causal,window,g", CASES)
 def test_plain_bwd_matches_pallas_vjp(causal, window, g, dtype):
-    (tq, tk, tv, tdo), (jq, jk, jv, jdo) = _inputs(11, g, dtype)
+    _check_plain_bwd_against_pallas(causal, window, g, dtype, D)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("d,causal,window,g", WIDE_CASES)
+def test_plain_bwd_matches_pallas_vjp_wide_heads(d, causal, window, g, dtype):
+    _check_plain_bwd_against_pallas(causal, window, g, dtype, d)
+
+
+def _check_plain_bwd_against_pallas(causal, window, g, dtype, d):
+    (tq, tk, tv, tdo), (jq, jk, jv, jdo) = _inputs(11, g, dtype, d=d)
     _, vjp = jax.vjp(
         lambda q, k, v: jax_flash(q, k, v, block_q=128, block_k=128,
                                   causal=causal, interpret=True,

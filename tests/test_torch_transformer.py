@@ -166,6 +166,21 @@ def test_registry_unknown_family():
         get_model(ModelConfig(name="weather_nope"), input_dim=5, device="cpu")
 
 
+@pytest.mark.parametrize("family", ["weather_transformer",
+                                    "weather_transformer_causal"])
+def test_registry_default_device_is_the_card(family, monkeypatch):
+    """``device=None`` resolves to ``cuda:0`` or raises; it never builds a
+    CPU model in silence (ROADMAP Queue C)."""
+    from dct_tpu_torch.device import DeviceError
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ModelConfig(name=family, **SMALL)
+    with pytest.raises(DeviceError, match="device='cpu'"):
+        get_model(cfg, input_dim=5)
+    model = get_model(cfg, input_dim=5, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
 def test_bf16_model_tracks_f32_model():
     """bf16 compute (a bf16 package's path) stays within the bf16 band
     of the f32 forward on the same weights."""
