@@ -9,21 +9,26 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
 2. Builds every kernel of the serving and training paths from the sources in
    the checkout (``dct_tpu_torch/ops/csrc/flash_fwd.cu`` and ``flash_bwd.cu``,
    both including ``sm90.cuh``; one ``nvcc`` each, in parallel) and prints
-   the build time and ptxas's registers and spills per kernel instance
-   (raises if a tensor-core kernel spills). Counts the tensor-core
-   instructions (``HGMMA``, ``HMMA``) of each kernel's bf16 instances in
-   ``cuobjdump -sass`` of the built libraries; raises if the bf16
-   ``flash_fwd`` or ``flash_bwd_dkdv`` has none at some head dim.
+   the build time and ptxas's registers, spills and warnings per kernel
+   instance (raises if a tensor-core kernel spills or ptxas warns of it,
+   as it does when it serializes the wgmmas). Counts the tensor-core
+   instructions (``HGMMA``, ``HMMA``) of each tensor-core kernel's instances
+   in ``cuobjdump -sass`` of the built libraries (bf16 ``flash_fwd``,
+   ``flash_bwd_dkdv`` and ``flash_bwd_dq``, f32 ``flash_fwd`` in 3xTF32);
+   raises if one has none at some head dim.
 3. Holds each kernel against its plain PyTorch version on the card at the
    serving shape (B=32 windows, H=8, T=1024, D=64), f32 and bf16, causal and
-   not, with the log-sum-exp; tolerances f32 1e-4 (summation order only),
-   bf16 2e-2. Times the kernel, the plain version and
+   not, with the log-sum-exp; tolerances on o f32 1e-5 (3xTF32 products
+   lose about 2^-22 of their size; a single TF32 pass would miss it), bf16
+   2e-2, and 1e-4 on lse. Times the kernel, the plain version and
    ``F.scaled_dot_product_attention`` (the library yardstick; the port never
    calls it) with CUDA events: after warm-up, the median of 5 runs of 10
    calls launched back to back, per call (``time_ms``). ``bound_ms`` is the
    larger of the compulsory bytes over 3.35 TB/s and the operations over
-   the datasheet peak for the input type (67 TFLOP/s f32 without tensor
-   cores, 989 TFLOP/s bf16 dense).
+   the datasheet's tensor-core peak for the input type: bf16 at 989
+   TFLOP/s dense; f32 at f32 accuracy, which the tensor cores give as
+   3xTF32 (three TF32 products per product at 495 TFLOP/s), so 3 x the
+   operations over 495 TFLOP/s (``bound_basis`` says which).
 4. Serves three random packages (seed 0) of the repo's full-width transformer
    (d_model 512, 8 heads, 4 layers, d_ff 2048, seq_len 1024, 5 features):
    ``weather_transformer`` and ``weather_transformer_causal`` (horizon 1) in
@@ -46,7 +51,8 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
    ``F.scaled_dot_product_attention`` alone (``library_ms``; it computes
    dq, dk and dv, so it stands on both rows and is compared with the sum of
    the two kernels). ``bound_ms``: compulsory bytes over 3.35 TB/s against
-   8*D (dK/dV) or 6*D (dQ) flops per unmasked (q, k) pair over the peak.
+   8*D (dK/dV) or 6*D (dQ) flops per unmasked (q, k) pair over the peak
+   (as in 3.).
 6. Trains the same full-width configuration on ``cuda`` through the port's
    entry points (``make_windows``, ``contiguous_split``, ``BatchLoader`` at
    batch 32 over seeded AR(1) rows; ``create_train_state`` with adam, lr
@@ -73,12 +79,13 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
        the step without remat within (a)'s tolerance;
    (e) one step of each (b) configuration under ``torch.profiler``: the
        device time of every kernel, summed by kind (the three flash kernels,
-       GEMMs, the optimizer's foreach passes, the rest), and the device's
+       GEMMs, the optimizer's foreach passes, the rest), the distinct kernel
+       names of each kind (which kernel of a dtype ran), and the device's
        idle share between the step's first and last kernel.
 
 Prints the ``kernels`` JSON line (each kernel with its f32 numbers at the
 top level, as earlier slices did, a ``bf16`` summary beside them, and its
-``tensor_core_instructions``), then the card line, then, last,
+``tensor_core_instructions`` by dtype), then the card line, then, last,
 ``{"ok": true, "device": {...}}``. Any failure raises.
 """
 
@@ -99,9 +106,15 @@ import torch
 import torch.nn.functional as F
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # datasheet
-PEAK_BYTES = 3.35e12  # datasheet HBM3 bandwidth
+# Datasheet peaks of the H100 SXM (dense): bf16 and TF32 on the tensor
+# cores, HBM3 bandwidth. f32 accuracy on the tensor cores takes three TF32
+# products per product (3xTF32), so an f32 bound counts 3 x its operations
+# at the TF32 rate (165 TFLOP/s in effect, against 67 on the FMA units).
+PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
+PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+FWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # on o; lse 1e-4
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # of max|plain|
 SERVE_CFG = dict(seq_len=1024, d_model=512, n_heads=8, n_layers=4, d_ff=2048)
 REQUEST_SIZES = (1, 3, 8, 32)
@@ -114,13 +127,15 @@ OVERFIT_RATIO = 0.7  # measured 0.470 on an H100
 BWD_FLOPS_PER_PAIR = {"flash_bwd_dkdv": 8, "flash_bwd_dq": 6}  # x D
 
 
-# The bf16 instance of each kernel in the SASS: the tensor-core kernels
-# (bf16 only) and the FMA dQ kernel's bf16 instantiation.
-BF16_SASS = {"flash_fwd": ("flash_fwd", "flash_fwd_kernel_wgmma"),
-             "flash_bwd_dkdv": ("flash_bwd", "flash_bwd_dkdv_kernel_wgmma"),
-             "flash_bwd_dq": ("flash_bwd",
-                              "flash_bwd_dq_kernelI13__nv_bfloat16")}
-TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dkdv")
+# The tensor-core kernels by (kernel, dtype): (library, name in the SASS).
+# Each must hold HGMMA at every head dim; the f32 dK/dV and dQ kernels run
+# on the FMA units and are not listed.
+TENSOR_CORE_SASS = {
+    ("flash_fwd", "bf16"): ("flash_fwd", "flash_fwd_kernel_wgmma"),
+    ("flash_fwd", "f32"): ("flash_fwd", "flash_fwd_kernel_tf32"),
+    ("flash_bwd_dkdv", "bf16"): ("flash_bwd", "flash_bwd_dkdv_kernel_wgmma"),
+    ("flash_bwd_dq", "bf16"): ("flash_bwd", "flash_bwd_dq_kernel_wgmma"),
+}
 
 
 def ptxas_report(log: str) -> dict[str, dict]:
@@ -149,11 +164,11 @@ def ptxas_report(log: str) -> dict[str, dict]:
 
 
 def tensor_core_instructions(build) -> dict[str, dict]:
-    """Per kernel: HGMMA and HMMA counts of each bf16 instance (by head
-    dim) in ``cuobjdump -sass`` of the built library."""
+    """Per kernel and dtype: HGMMA and HMMA counts of each tensor-core
+    instance (by head dim) in ``cuobjdump -sass`` of the built library."""
     sass = {lib: build.sass(lib) for lib in ("flash_fwd", "flash_bwd")}
     counts = {}
-    for name, (lib, tag) in BF16_SASS.items():
+    for (name, dtype), (lib, tag) in TENSOR_CORE_SASS.items():
         by_dim, cur = {}, None
         for line in sass[lib].splitlines():
             m = re.search(r"Function : (\S+)", line)
@@ -167,15 +182,15 @@ def tensor_core_instructions(build) -> dict[str, dict]:
                     if re.search(rf"\b{op}\.", line):
                         by_dim[cur][op] += 1
         if sorted(by_dim) != [16, 32, 64, 128]:
-            raise AssertionError(f"{name}: bf16 instances {sorted(by_dim)} "
-                                 "in the SASS, want head dims 16-128")
-        if name in TENSOR_CORE_KERNELS and not all(
-                c["HGMMA"] > 0 for c in by_dim.values()):
-            raise AssertionError(f"{name}: a bf16 instance without HGMMA: "
-                                 f"{by_dim}")
-        counts[name] = {"HGMMA": by_dim[64]["HGMMA"],
-                        "HMMA": by_dim[64]["HMMA"], "head_dim": 64,
-                        "by_head_dim": by_dim}
+            raise AssertionError(f"{name} {dtype}: instances "
+                                 f"{sorted(by_dim)} in the SASS, want head "
+                                 "dims 16-128")
+        if not all(c["HGMMA"] > 0 for c in by_dim.values()):
+            raise AssertionError(f"{name} {dtype}: an instance without "
+                                 f"HGMMA: {by_dim}")
+        counts.setdefault(name, {})[dtype] = {
+            "kernel": tag, "HGMMA": by_dim[64]["HGMMA"],
+            "HMMA": by_dim[64]["HMMA"], "head_dim": 64, "by_head_dim": by_dim}
     return counts
 
 
@@ -219,14 +234,20 @@ def _pairs(t, causal, window):
 
 
 def _bound(flops, nbytes, dtype):
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, (
-        "operations" if t_ops >= t_bytes else "bytes"
-    )
+    """(ms, 'bytes' | 'operations', basis): the basis names the peak, as
+    'operations (3xTF32)' for f32 and 'operations (bf16)', or 'bytes'."""
+    if dtype == torch.float32:
+        t_ops, peak = 3 * flops / PEAK_TF32, "3xTF32"
+    else:
+        t_ops, peak = flops / PEAK_BF16, "bf16"
+    t_bytes = nbytes / PEAK_BYTES
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return (max(t_ops, t_bytes) * 1e3, by,
+            f"operations ({peak})" if by == "operations" else "bytes")
 
 
 def attention_bound(b, h, g, t, d, dtype, causal, window, lse):
-    """Least time for the work: (ms, 'bytes' | 'operations')."""
+    """Least time for the work: ``_bound``'s (ms, by, basis)."""
     flops = 4.0 * b * h * d * _pairs(t, causal, window)
     itemsize = torch.tensor([], dtype=dtype).element_size()
     nbytes = (2 * b * h * t + 2 * b * g * t) * d * itemsize
@@ -261,17 +282,18 @@ def check_flash_kernel(fa) -> list[dict]:
             po, plse = fa.flash_attention_plain(q, k, v, causal=causal)
             err = (o.float() - po.float()).abs().max().item()
             lse_err = (lse - plse).abs().max().item()
-            if not (err <= TOL[dtype] and lse_err <= 1e-4):
+            if not (err <= FWD_TOL[dtype] and lse_err <= 1e-4):
                 raise AssertionError(
                     f"flash_fwd {dtype} causal={causal}: max |o - plain| "
-                    f"{err} (tol {TOL[dtype]}), max |lse - plain| {lse_err}"
+                    f"{err} (tol {FWD_TOL[dtype]}), max |lse - plain| "
+                    f"{lse_err} (tol 1e-4)"
                 )
-            bound_ms, bound_by = attention_bound(b, h, g, t, d, dtype, causal,
-                                                 None, lse=True)
+            bound_ms, bound_by, basis = attention_bound(
+                b, h, g, t, d, dtype, causal, None, lse=True)
             variants.append({
                 "dtype": str(dtype).replace("torch.", ""), "causal": causal,
                 "shape": [b, h, t, d], "max_abs_err": err,
-                "lse_max_abs_err": lse_err, "tol": TOL[dtype],
+                "lse_max_abs_err": lse_err, "tol": FWD_TOL[dtype],
                 "ms": time_ms(lambda: fa.flash_attention(
                     q, k, v, causal=causal, return_lse=True)),
                 "plain_ms": time_ms(lambda: fa.flash_attention_plain(
@@ -279,6 +301,7 @@ def check_flash_kernel(fa) -> list[dict]:
                 "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=causal)),
                 "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_basis": basis,
             })
             print(f"[smoke] flash_fwd {variants[-1]}", flush=True)
     return variants
@@ -422,8 +445,8 @@ def check_bwd_kernels(fa) -> dict[str, list[dict]]:
             }
             kernels_ms = sum(ms for ms, _ in timed.values())
             for name, (ms, outs) in timed.items():
-                bound_ms, bound_by = bwd_bound(name, b, h, g, t, d, dtype,
-                                               causal, None)
+                bound_ms, bound_by, basis = bwd_bound(name, b, h, g, t, d,
+                                                      dtype, causal, None)
                 out[name].append({
                     "dtype": str(dtype).replace("torch.", ""),
                     "causal": causal, "shape": [b, h, t, d],
@@ -436,6 +459,7 @@ def check_bwd_kernels(fa) -> dict[str, list[dict]]:
                     "library_covers": "dq+dk+dv",
                     "kernels_sum_ms": kernels_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_basis": basis,
                 })
                 print(f"[smoke] {name} {out[name][-1]}", flush=True)
     return out
@@ -541,8 +565,9 @@ def _kernel_kind(name: str) -> str:
 def trace_step(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler``: device ms per kernel
     kind, the share of each in the device's busy time, the busiest kernels,
-    and the idle share between the first kernel's start and the last one's
-    end. ``{"device_events": 0}`` when the profiler saw no device activity."""
+    the distinct kernel names of each kind, and the idle share between the
+    first kernel's start and the last one's end. ``{"device_events": 0}``
+    when the profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -556,12 +581,13 @@ def trace_step(fn) -> dict:
     )
     if not spans:
         return {"device_events": 0}
-    kinds, names = {}, {}
+    kinds, names, by_kind = {}, {}, {}
     busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
     for start, end, name in spans:
         kind = _kernel_kind(name)
         kinds[kind] = kinds.get(kind, 0.0) + (end - start) / 1e3
         names[name] = names.get(name, 0.0) + (end - start) / 1e3
+        by_kind.setdefault(kind, set()).add(name[:90])
         if start > cur_end:
             busy += cur_end - cur_start
             cur_start, cur_end = start, end
@@ -574,7 +600,9 @@ def trace_step(fn) -> dict:
             "idle_share": 1 - busy / span if span > 0 else 0.0,
             "ms_by_kind": kinds,
             "share_by_kind": {k: v / busy for k, v in kinds.items()},
-            "top_kernels_ms": [[n[:90], ms] for n, ms in top]}
+            "top_kernels_ms": [[n[:90], ms] for n, ms in top],
+            "kernel_names_by_kind": {k: sorted(v)
+                                     for k, v in by_kind.items()}}
 
 
 def train_phase(fa) -> dict:
@@ -753,11 +781,13 @@ def main() -> int:
               f"(parallel build {build_s:.1f} s): {info['path']}", flush=True)
         for fn, rep in ptxas_report(info["log"]).items():
             print(f"[smoke]   ptxas: {fn}: {rep}", flush=True)
-            if "wgmma" in fn and rep.get("spill_bytes", 0) > 0:
-                raise AssertionError(f"tensor-core kernel {fn} spills: {rep}")
+            tensor_core = any(tag in fn
+                              for _, tag in TENSOR_CORE_SASS.values())
+            if tensor_core and (rep.get("spill_bytes", 0) > 0
+                                or "ptxas_warning" in rep):
+                raise AssertionError(f"tensor-core kernel {fn}: {rep}")
     tc_counts = tensor_core_instructions(build)
-    print(f"[smoke] tensor-core instructions of the bf16 kernels: "
-          f"{tc_counts}", flush=True)
+    print(f"[smoke] tensor-core instructions: {tc_counts}", flush=True)
 
     variants = check_flash_kernel(fa)
     bwd_variants = check_bwd_kernels(fa)
@@ -783,7 +813,9 @@ def main() -> int:
         row = [r for r in rows
                if r["dtype"] == "bfloat16" and not r["causal"]][0]
         return {"ms": row["ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "bound_by": row["bound_by"],
+                "bound_basis": row["bound_basis"],
+                "library_ms": row["library_ms"],
                 "plain_ms": row["plain_ms"], "max_err": row["max_abs_err"],
                 "causal": False}
 
@@ -799,6 +831,7 @@ def main() -> int:
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "bound_basis": head["bound_basis"],
         "library_ms": head["library_ms"],
         "launches_per_forward": launches / forwards,
         "bf16": bf16_summary(variants),
@@ -818,6 +851,7 @@ def main() -> int:
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "bound_basis": head["bound_basis"],
             "library_ms": head["library_ms"],
             "library_covers": head["library_covers"],
             "bf16": bf16_summary(bwd_variants[name]),

@@ -39,14 +39,17 @@
 // = 137 GFLOP and kernel 3 does 6*D = 103 GFLOP (S and dP are recomputed
 // in both, as on the TPU); their compulsory traffic is 5 [B*H, T, D] inputs
 // plus lse and one or two outputs, about 0.47 GB in f32.  On the H100's
-// datasheet rates (67 TFLOP/s f32 without tensor cores, 989 TFLOP/s bf16
-// dense, 3.35 TB/s) both are bound by operations: 2.05 and 1.54 ms in f32,
-// 0.14 and 0.10 ms in bf16 (against 0.07 and 0.06 ms of bytes).
+// datasheet rates (3.35 TB/s; 989 TFLOP/s bf16 dense on the tensor cores;
+// f32 accuracy on the tensor cores as 3xTF32, three TF32 products at 495
+// TFLOP/s, 165 TFLOP/s in effect) both are bound by operations: 0.14 and
+// 0.10 ms in bf16 (against 0.07 and 0.06 ms of bytes), 0.83 and 0.62 ms in
+// f32.  The f32 kernels below still run on the FMA units (67 TFLOP/s: 2.05
+// and 1.54 ms at best); their 3xTF32 redesign is queued.
 //
 // What the design does about it.  As in flash_fwd.cu, nothing O(T^2)
 // reaches device memory: a block's K and V tiles (kernel 2) or Q and dO
 // tiles (kernel 3) stay in shared memory for its life and the other
-// operands stream through in 64-row tiles.  Three kernels:
+// operands stream through in 64-row tiles.  Four kernels:
 //
 // - bf16 dK/dV: flash_bwd_dkdv_kernel_wgmma, on the tensor cores.  One
 //   warpgroup (128 threads) owns 64 keys of one KV head; its K and V tiles
@@ -61,13 +64,28 @@
 //   operands of the same stage: P and dS never touch shared memory.  delta
 //   is reduced from the stage's dO and O while the score products run.
 //   Shared memory 66 KiB at D=64, 130 KiB at D=128.  Helpers: sm90.cuh.
-// - f32 dK/dV and both dtypes of dQ: flash_bwd_dkdv_kernel and
-//   flash_bwd_dq_kernel, on the f32 FMA units (no TF32).  Each of the 256
-//   threads holds a 4x4 block of S and dP and a 4 x D/16 block of each
-//   accumulator in registers; the transposed products read P and dS back
-//   from shared memory; tiles are widened to f32 in shared memory (bf16
-//   products are exact in f32).  Shared memory: 100.5 KiB (kernel 2) and
-//   83.5 KiB (kernel 3) at D=64, 165 KiB and 148 KiB at D=128.
+// - bf16 dQ: flash_bwd_dq_kernel_wgmma, on the tensor cores.  One
+//   warpgroup owns 64 q rows of one q head; its Q and dO tiles stay in
+//   swizzled shared memory and its dQ accumulator in registers (f32, stored
+//   once as bf16).  K and V stream through a 2-stage cp.async ring.
+//   S = Q.K^T and dP = dO.V^T are issued back to back (both operands
+//   K-major from shared memory) and waited on once.  The scores are not
+//   transposed here, so a thread's accumulator rows are its q rows: lse and
+//   delta are two registers per thread (delta = rowsum(dO * O) in f32, each
+//   row from the 4 threads of its quad, read once from device memory), and
+//   no shared vector is needed.  dS = P (dP - delta) scale is rounded to
+//   bf16 in registers and is the register A operand of dQ += dS.K, the
+//   stage's K tile serving as the MN-major B operand (N = D): dS never
+//   touches shared memory, and one block owns its dQ tile, so no atomics
+//   and the same bits from two launches.  Shared memory 49 KiB at D=64,
+//   97 KiB at D=128.
+// - f32 dK/dV and f32 dQ: flash_bwd_dkdv_kernel and flash_bwd_dq_kernel,
+//   on the f32 FMA units (no TF32).  Each of the 256 threads holds a 4x4
+//   block of S and dP and a 4 x D/16 block of each accumulator in
+//   registers; the transposed products read P and dS back from shared
+//   memory; tiles are held as f32 in shared memory.  Shared memory: 100.5
+//   KiB (kernel 2) and 83.5 KiB (kernel 3) at D=64, 165 KiB and 148 KiB at
+//   D=128.
 //
 // Each C entry point returns cudaGetLastError() after its launch.
 
@@ -87,10 +105,9 @@ constexpr int NT = 256;       // threads: 16 row groups x 16 column lanes
 constexpr int RPT = BQ / 16;  // tile rows per thread
 constexpr int CPT = BK / 16;  // score columns per thread
 
+// The FMA kernels are instantiated for f32 only (bf16 takes the tensor-core
+// kernels); these are their conversions.
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // Round an f32 value to T and back (the TPU kernel's `.astype(dtype)`).
 template <typename T>
@@ -99,20 +116,12 @@ template <>
 __device__ __forceinline__ float round_to<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 __device__ __forceinline__ float sum16(float x) {
@@ -419,14 +428,11 @@ __global__ void __launch_bounds__(NT)
     for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
 
   // The forward's KV range for this q tile.
-  const int q_last = min(q0 + BQ, seq) - 1;
-  int j_lo = 0, j_hi = (seq + BK - 1) / BK - 1;
-  if (causal) {
-    j_hi = q_last / BK;
-    if (window > 0) j_lo = max(0, q0 - window + 1) / BK;
-  }
+  int j_lo;
+  const int n_kv = sm90::kv_tiles(q0, BQ, BK, seq, causal, window, j_lo);
+  const int j_end = j_lo + n_kv;
 
-  for (int jt = j_lo; jt <= j_hi; ++jt) {
+  for (int jt = j_lo; jt < j_end; ++jt) {
     const int k0 = jt * BK;
     __syncthreads();  // the previous tile's readers of Kt, Vt, dSs are done
     load_kv_t<T, D>(Kt, Vt, kb, vb, k0, seq, tid);
@@ -674,6 +680,171 @@ __global__ void __launch_bounds__(WG)
   }
 }
 
+// ---- bf16 dQ: tensor cores (wgmma) ----------------------------------------
+
+// Q and dO tiles (resident), then 2 stages x (K, V tiles), each 1024-byte
+// aligned.
+template <int D>
+struct DqWgSmem {
+  using Tl = sm90::Tile<D, BQ>;
+  static constexpr size_t bytes = 1024 + Tl::BYTES * (2 + 2 * 2);
+};
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG)
+    flash_bwd_dq_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              const __nv_bfloat16* __restrict__ o,
+                              const __nv_bfloat16* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              __nv_bfloat16* __restrict__ dq, int H, int G,
+                              int seq, float scale, int causal, int window) {
+  static_assert(BQ == 64 && BK == 64, "one m64n64 score tile per KV tile");
+  using Tl = sm90::Tile<D, BQ>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (sm90::smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sdO = sQ + Tl::BYTES;
+  const uint32_t sKV = sdO + Tl::BYTES;  // stage s: K at +2s tiles, V after
+
+  const int tid = threadIdx.x;
+  // Causal: the last q tiles see the most keys; they launch first.
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y;  // flat b*H + h
+  const int b = bh / H;
+  const int kvh = b * G + (bh % H) / (H / G);
+  const int q0 = qt * BQ;
+  const size_t head = (size_t)bh * seq;
+  const __nv_bfloat16* kb = k + (size_t)kvh * seq * D;
+  const __nv_bfloat16* vb = v + (size_t)kvh * seq * D;
+
+  // The forward's KV range for this q tile.
+  int j_lo;
+  const int n_kv = sm90::kv_tiles(q0, BQ, BK, seq, causal, window, j_lo);
+
+  auto load_kv = [&](int t) {
+    const uint32_t dst = sKV + (t & 1) * 2 * Tl::BYTES;
+    const int k0 = (j_lo + t) * BK;
+    sm90::load_tile<D, BK, WG>(dst, kb, k0, seq, tid);
+    sm90::load_tile<D, BK, WG>(dst + Tl::BYTES, vb, k0, seq, tid);
+  };
+  // Q, dO and KV tile 0 in one commit group; tile t is group t.
+  sm90::load_tile<D, BQ, WG>(sQ, q + head * D, q0, seq, tid);
+  sm90::load_tile<D, BQ, WG>(sdO, dout + head * D, q0, seq, tid);
+  load_kv(0);
+  sm90::cp_async_commit();
+
+  // This thread's accumulator rows r0 and r0 + 8, columns 8j + c0 (+1).
+  // Their lse (log2 units) and delta = rowsum(dO * O) in f32, each row's
+  // delta from the 4 threads of its quad, D/4 columns each, read once from
+  // device memory while the tiles land.
+  const int r0 = 16 * (tid >> 5) + ((tid & 31) >> 2);
+  const int c0 = 2 * (tid & 3);
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = q0 + r0 + 8 * i;
+    float part = 0.f;
+    if (qp < seq) {
+      const size_t off = (head + qp) * D + (tid & 3) * (D / 4);
+      const __nv_bfloat162* g2 =
+          reinterpret_cast<const __nv_bfloat162*>(dout + off);
+      const __nv_bfloat162* o2 =
+          reinterpret_cast<const __nv_bfloat162*>(o + off);
+#pragma unroll
+      for (int e = 0; e < D / 8; ++e) {
+        const float2 gf = __bfloat1622float2(g2[e]);
+        const float2 of = __bfloat1622float2(o2[e]);
+        part = fmaf(gf.x, of.x, part);
+        part = fmaf(gf.y, of.y, part);
+      }
+    }
+    delta[i] = quad_sum(part);
+    lse2[i] = qp < seq ? lse[head + qp] * LOG2E : 0.f;
+  }
+
+  const float sl2 = scale * LOG2E;
+  float acc[D / 2], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+
+  for (int t = 0; t < n_kv; ++t) {
+    sm90::cp_async_wait<0>();
+    sm90::fence_proxy_async();
+    __syncthreads();  // tile t is in; every thread is done with tile t - 1,
+                      // whose stage now takes tile t + 1
+    if (t + 1 < n_kv) load_kv(t + 1);
+    sm90::cp_async_commit();
+    const uint32_t sK = sKV + (t & 1) * 2 * Tl::BYTES;
+    const uint32_t sV = sK + Tl::BYTES;
+
+    // S = Q K^T and dP = dO V^T, issued back to back.
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_ss_n64(s, Tl::kmajor(sQ, kk), Tl::kmajor(sK, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_ss_n64(dp, Tl::kmajor(sdO, kk), Tl::kmajor(sV, kk), kk);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+
+    // P = exp(scale S - lse) (0 where masked; the mask only on diagonal,
+    // window-edge and ragged tiles) and dS = P (dP - delta) scale.
+    const int k0 = (j_lo + t) * BK;
+    const bool edge =
+        q0 + BQ > seq || k0 + BK > seq ||
+        (causal && (k0 + BK - 1 > q0 ||
+                    (window > 0 && q0 + BQ - 1 - k0 >= window)));
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int idx = 4 * j + 2 * i + c;
+          float p = sm90::exp2_approx(fmaf(s[idx], sl2, -lse2[i]));
+          if (edge && !keep_pair(q0 + r0 + 8 * i, k0 + 8 * j + c0 + c, seq,
+                                 causal, window))
+            p = 0.f;
+          s[idx] = p * (dp[idx] - delta[i]) * scale;
+        }
+
+    // dQ += dS K: dS (rounded to bf16, as the TPU kernel casts it) is the
+    // register A operand, K the MN-major B operand (N = D) of the stage.
+    uint32_t da[16];
+    sm90::pack_a<32>(da, s);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      sm90::wgmma_rs<D>(acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+                        da[4 * kk + 3], Tl::mnmajor(sK, kk), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = q0 + r0 + 8 * i;
+    if (qp >= seq) continue;
+    __nv_bfloat16* row = dq + (head + qp) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + c0) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *o, *dout, *lse;
   void *dq, *dk, *dv;
@@ -734,16 +905,34 @@ cudaError_t launch_dq(const Args& a) {
   return cudaGetLastError();
 }
 
-// dK/dV: f32 -> flash_bwd_dkdv_kernel (FMA), bf16 ->
-// flash_bwd_dkdv_kernel_wgmma; dQ: flash_bwd_dq_kernel (FMA) for both.
+template <int D>
+cudaError_t launch_dq_wgmma(const Args& a) {
+  using bf16 = __nv_bfloat16;
+  auto kern = flash_bwd_dq_kernel_wgmma<D>;
+  const size_t smem = DqWgSmem<D>::bytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.seq + BQ - 1) / BQ, a.B * a.H);
+  kern<<<grid, WG, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
+      static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<bf16*>(a.dq), a.H, a.G, a.seq, a.scale, a.causal, a.window);
+  return cudaGetLastError();
+}
+
+// f32 -> flash_bwd_dkdv_kernel, flash_bwd_dq_kernel (FMA); bf16 ->
+// flash_bwd_dkdv_kernel_wgmma, flash_bwd_dq_kernel_wgmma.
 template <bool DKDV, typename T>
 cudaError_t dispatch_dim(const Args& a, int D) {
   constexpr bool BF16 = !std::is_same<T, float>::value;
 #define DCT_BWD_CASE(DIM)                                                \
   case DIM:                                                              \
-    if constexpr (!DKDV) return launch_dq<T, DIM>(a);                    \
-    else if constexpr (BF16) return launch_dkdv_wgmma<DIM>(a);           \
-    else return launch_dkdv<T, DIM>(a);
+    if constexpr (DKDV && BF16) return launch_dkdv_wgmma<DIM>(a);        \
+    else if constexpr (DKDV) return launch_dkdv<T, DIM>(a);              \
+    else if constexpr (BF16) return launch_dq_wgmma<DIM>(a);             \
+    else return launch_dq<T, DIM>(a);
   switch (D) {
     DCT_BWD_CASE(16)
     DCT_BWD_CASE(32)

@@ -10,46 +10,73 @@
 //   group-major layout of `_kv_flat_row`); K/V are never expanded in memory;
 // - the optional per-row log-sum-exp lse = m + log(l), f32;
 // - f32 or bf16 inputs, f32 accumulation; P is rounded to the input dtype
-//   before P.V exactly where the TPU kernel casts it (`:140-143`), and the
-//   scale is applied after q k^T.
+//   before P.V exactly where the TPU kernel casts it (`:140-143`; in f32 it
+//   stays f32), and the scale is applied after q k^T.
 //
 // What bounds it on this card.  At the serving shape (B=32, H=G=8, T=1024,
 // D=64) the work is 4*B*H*T^2*D = 68.7 GFLOP (about half with causal) and the
 // compulsory traffic is (2*B*H*T + 2*B*G*T)*D*itemsize = 268 MB in f32,
-// 134 MB in bf16.  Against the H100 datasheet (3.35 TB/s; 67 TFLOP/s f32
-// without tensor cores; 989 TFLOP/s bf16 dense on tensor cores) the f32 case
-// is bound by operations (1.03 ms vs 0.08 ms of bytes) and the bf16 case sits
-// near the ridge (0.07 ms of operations vs 0.04 ms of bytes).
+// 134 MB in bf16.  Against the H100 datasheet (3.35 TB/s; 989 TFLOP/s bf16
+// and 495 TFLOP/s TF32 dense on the tensor cores) the bf16 case sits near
+// the ridge (0.07 ms of operations vs 0.04 ms of bytes).  f32-accurate
+// products on the tensor cores take three TF32 products each (3xTF32,
+// below), 165 TFLOP/s, against 67 TFLOP/s on the FMA units: the f32 case is
+// bound by operations at 3 * 68.7 GFLOP / 495 TFLOP/s = 0.42 ms (vs 0.08 ms
+// of bytes).
 //
 // What the design does about it.  The score matrix never reaches device
-// memory: one thread block owns a 64-row q tile and walks the KV tiles in a
+// memory: one warpgroup owns a 64-row q tile and walks the KV tiles in a
 // loop -- the loop replaces the TPU's sequential third grid axis, and the
-// causal/window tile skip becomes the loop's bounds (replacing the clamped
-// index maps at :218-235).  Blocks run q-tile-major so the q tiles of one
-// head share its K/V in L2.  Two kernels, picked by dtype:
+// causal/window tile skip becomes the loop's bounds (sm90::kv_tiles,
+// replacing the clamped index maps at :218-235).  Blocks run q-tile-major
+// so the q tiles of one head share its K/V in L2.  Both kernels run the
+// products on the tensor cores (wgmma) and the online softmax on the
+// accumulator fragment (a row lives in the 4 threads of a quad: the row
+// max is two shuffles, the row sum is reduced once at the end; each
+// exponential is one ex2.approx on the SFU, as the softmax's instructions
+// bound the kernels as much as the products do).  Each wgmma is waited on before
+// the registers it writes are touched: a wgmma still in flight across the
+// softmax made ptxas serialize every wgmma of the kernel.  The element
+// mask runs only on diagonal, window-edge and ragged tiles.  Picked by
+// dtype (helpers: sm90.cuh):
 //
-// - bf16: flash_fwd_kernel_wgmma, on the tensor cores.  One warpgroup (128
-//   threads) owns the 64 q rows.  The Q tile is copied once into swizzled
-//   shared memory; K/V tiles come through a 2-stage ring of cp.async copies,
-//   so the next tile loads while one is multiplied (shallow, so that more
-//   blocks fit an SM and overlap one another's softmax and products).
-//   S = Q.K^T is a wgmma with both operands from shared memory (both
-//   K-major), waited on before the softmax: a wgmma still in flight across
-//   the softmax made ptxas serialize every wgmma of the kernel.  The online
-//   softmax runs on the accumulator fragment (a row lives in the 4 threads
-//   of a quad: the row max is two shuffles, the row sum is reduced once at
-//   the end; each exponential is one ex2.approx on the SFU, as the
-//   softmax's instructions bound the kernel as much as the products do);
-//   P is rounded to bf16 in registers and is the register A
-//   operand of O += P.V, with V ([keys][D] row-major) the MN-major B operand.
-//   The element mask runs only on diagonal, window-edge and ragged tiles.
-//   Helpers: sm90.cuh.
-// - f32: flash_fwd_kernel, on the FMA units in full f32 (no TF32: TF32 would
-//   break the 1e-5 agreement with the reference).  Each of the 256 threads
-//   holds a 4x4 block of scores and a 4 x D/16 block of the output
-//   accumulator in registers, with the row statistics (m, l) replicated in
-//   the 16 threads of a row group, so the per-row rescale needs no shared
-//   memory.
+// - bf16: flash_fwd_kernel_wgmma.  One warpgroup (128 threads) per block.
+//   The Q tile is copied once into swizzled shared memory; K/V tiles come
+//   through a 2-stage ring of cp.async copies, so the next tile loads while
+//   one is multiplied (shallow, so that more blocks fit an SM and overlap
+//   one another's softmax and products).  S = Q.K^T takes both operands
+//   from shared memory (K-major); P is rounded to bf16 in registers and is
+//   the register A operand of O += P.V, with V ([keys][D] row-major) the
+//   MN-major B operand.
+// - f32: flash_fwd_kernel_tf32, 3xTF32.  Each operand x is split as
+//   hi = tf32(x), lo = tf32(x - hi), rounded explicitly (cvt.rna), and each
+//   product is hi.hi + hi.lo + lo.hi into one f32 accumulator: about 2^-22
+//   of each product is lost, where single-pass TF32 loses 2^-11 and misses
+//   the 1e-5 agreement by far.  The scale is applied after q k^T and P stays
+//   f32, as in the TPU kernel.  Two warpgroups (D = 128: one) share each
+//   KV tile.  The trouble spots and what the kernel does about them:
+//   * TF32 operands have no transpose bit, so both must be K-major.  Q and
+//     K as stored are; V is not (P.V sums over keys, V's rows).  K and V
+//     land raw through cp.async (which cannot transpose), then a split pass
+//     writes K hi/lo as they are and V hi/lo transposed, V^T [D][keys], into
+//     swizzled tiles.  Q is split once, from device memory, per block.
+//   * The TF32 register A fragment is not the accumulator layout.  P.V sums
+//     over keys, so the split pass stores each 8-key group of V^T in the
+//     order (0, 2, 4, 6, 1, 3, 5, 7) (sm90::tf32_key); in that order a
+//     thread's accumulator entries of P are its A fragment, and P's hi and
+//     lo go to the tensor cores from registers without a shuffle or a trip
+//     through shared memory.
+//   * Each k-step of a wgmma rounds the running sum to the accumulator's
+//     precision at the sum's size, so when the small products are added
+//     decides what of them survives.  They go first, while the sum is
+//     small; and each tile's P.V goes into a fresh accumulator (64 output
+//     columns at a time), added to O in f32 as O = alpha O + P.V, so that O
+//     is not rounded 3 x BKT/8 times a tile at its full size.
+//   * Shared memory: Q hi/lo, K hi/lo, V^T hi/lo and one raw K/V landing
+//     pair (the split tiles serve as the second stage: tile t+1 lands while
+//     tile t is multiplied), 160 KiB at D = 64 and D = 128 (Tf32Cfg).  Q
+//     stays in shared memory, not registers: at D = 128 its hi/lo fragments
+//     would take 128 registers beside the 64 of the O accumulator.
 //
 // The C entry point returns cudaGetLastError() after the launch.
 
@@ -61,209 +88,14 @@
 
 namespace {
 
-constexpr int BQ = 64;         // q rows per block
-constexpr int BK = 64;         // keys per KV tile
-constexpr int NT = 256;        // threads: 16 row groups x 16 column lanes
-constexpr int RPT = BQ / 16;   // q rows per thread
-constexpr int CPT = BK / 16;   // score columns per thread
+constexpr int BQ = 64;         // q rows per warpgroup
+constexpr int BK = 64;         // keys per KV tile (bf16)
 constexpr float NEG = -1e30f;  // finite "minus infinity", the TPU kernel's _NEG
 
-// flash_fwd_kernel is instantiated for f32 only (bf16 takes the tensor-core
-// kernel); these are its conversions.
-__device__ __forceinline__ float to_float(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-
-// Shared-memory row strides.  Q and P rows are padded by 4 floats so the two
-// row groups of a warp (rows 4 apart) fall in opposite halves of the banks;
-// the transposed K tile is padded by 1 so its transposing stores spread.
-template <int D>
-struct Smem {
-  static constexpr int QS = D + 4;
-  static constexpr int KS = BK + 1;
-  static constexpr int PS = BK + 4;
-  static constexpr int floats = BQ * QS + D * KS + BK * D + BQ * PS;
-  static constexpr size_t bytes = sizeof(float) * floats;
-};
-
-__device__ __forceinline__ float max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int H, int G, int seq,
-                     float scale, int causal, int window) {
-  using S = Smem<D>;
-  constexpr int DPT = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;              // [BQ][QS]
-  float* Kt = Qs + BQ * S::QS;   // [D][KS], the K tile transposed
-  float* Vs = Kt + D * S::KS;    // [BK][D]
-  float* Ps = Vs + BK * D;       // [BQ][PS]
-
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;  // row group: tile rows ty*RPT .. ty*RPT+RPT-1
-  const int tx = tid & 15;  // column lane: columns tx + 16*j
-  // Heaviest causal tiles first (the last q tiles see the most keys).
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;  // flat b*H + h
-  const int b = bh / H;
-  const int kvh = b * G + (bh % H) / (H / G);
-  const int q0 = qt * BQ;
-
-  const T* qb = q + (size_t)bh * seq * D;
-  const T* kb = k + (size_t)kvh * seq * D;
-  const T* vb = v + (size_t)kvh * seq * D;
-
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, d = i % D;
-    Qs[r * S::QS + d] =
-        q0 + r < seq ? to_float(qb[(size_t)(q0 + r) * D + d]) : 0.f;
-  }
-
-  float acc[RPT][DPT];
-  float m[RPT], l[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
-  }
-
-  // The KV tiles this q tile needs: causal stops at the diagonal, a window
-  // starts at the tile holding the first key of the band of row q0.
-  const int q_last = min(q0 + BQ, seq) - 1;
-  int j_lo = 0, j_hi = (seq + BK - 1) / BK - 1;
-  if (causal) {
-    j_hi = q_last / BK;
-    if (window > 0) j_lo = max(0, q0 - window + 1) / BK;
-  }
-
-  for (int jt = j_lo; jt <= j_hi; ++jt) {
-    const int k0 = jt * BK;
-    __syncthreads();  // the previous tile's readers of Kt, Vs, Ps are done
-    for (int i = tid; i < BK * D; i += NT) {
-      const int c = i / D, d = i % D;
-      const bool ok = k0 + c < seq;
-      const size_t g = (size_t)(k0 + c) * D + d;
-      Kt[d * S::KS + c] = ok ? to_float(kb[g]) : 0.f;
-      Vs[c * D + d] = ok ? to_float(vb[g]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[RPT], kv[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = Qs[(ty * RPT + i) * S::QS + d];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) kv[j] = Kt[d * S::KS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int row = ty * RPT + i;
-      const int qp = q0 + row;
-      bool keep[CPT];
-      float mx = NEG;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        bool kk = kp < seq;
-        if (causal) {
-          kk = kk && qp >= kp;
-          if (window > 0) kk = kk && qp - kp < window;
-        }
-        keep[j] = kk;
-        s[i][j] = kk ? s[i][j] * scale : NEG;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], max16(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        // A fully-masked row would otherwise get exp(0) = 1 per entry.
-        const float p = keep[j] ? expf(s[i][j] - m_new) : 0.f;
-        rs += p;
-        Ps[row * S::PS + tx + 16 * j] = to_float(from_float<T>(p));
-      }
-      l[i] = l[i] * alpha + sum16(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int c = 0; c < BK; ++c) {
-      float pv[RPT], vv[DPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) pv[i] = Ps[(ty * RPT + i) * S::PS + c];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) vv[j] = Vs[c * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = q0 + ty * RPT + i;
-    if (r >= seq) continue;
-    const float denom = fmaxf(l[i], 1e-20f);
-    T* orow = o + ((size_t)bh * seq + r) * D;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j)
-      orow[tx + 16 * j] = from_float<T>(acc[i][j] / denom);
-    if (lse != nullptr && tx == 0)
-      lse[(size_t)bh * seq + r] = m[i] + logf(denom);
-  }
-}
-
-// ---- bf16: tensor cores (wgmma) ------------------------------------------
-
 constexpr int WG = 128;       // threads: one warpgroup
-constexpr int WG_STAGES = 2;  // depth of the K/V ring
+constexpr int WG_STAGES = 2;  // depth of the bf16 K/V ring
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-// Q tile, then WG_STAGES x (K tile, V tile), each 1024-byte aligned.
-template <int D>
-struct WgSmem {
-  using Tl = sm90::Tile<D, BQ>;
-  static constexpr size_t bytes = 1024 + Tl::BYTES * (1 + 2 * WG_STAGES);
-};
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -274,6 +106,15 @@ __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
+
+// ---- bf16: tensor cores (wgmma) ------------------------------------------
+
+// Q tile, then WG_STAGES x (K tile, V tile), each 1024-byte aligned.
+template <int D>
+struct WgSmem {
+  using Tl = sm90::Tile<D, BQ>;
+  static constexpr size_t bytes = 1024 + Tl::BYTES * (1 + 2 * WG_STAGES);
+};
 
 template <int D>
 __global__ void __launch_bounds__(WG)
@@ -299,14 +140,8 @@ __global__ void __launch_bounds__(WG)
   const __nv_bfloat16* kb = k + (size_t)kvh * seq * D;
   const __nv_bfloat16* vb = v + (size_t)kvh * seq * D;
 
-  // The KV tiles this q tile needs (as flash_fwd_kernel).
-  const int q_last = min(q0 + BQ, seq) - 1;
-  int j_lo = 0, j_hi = (seq + BK - 1) / BK - 1;
-  if (causal) {
-    j_hi = q_last / BK;
-    if (window > 0) j_lo = max(0, q0 - window + 1) / BK;
-  }
-  const int n_kv = j_hi - j_lo + 1;
+  int j_lo;
+  const int n_kv = sm90::kv_tiles(q0, BQ, BK, seq, causal, window, j_lo);
 
   auto load_kv = [&](int t) {
     const uint32_t dst = sKV + (t % WG_STAGES) * 2 * Tl::BYTES;
@@ -441,6 +276,304 @@ __global__ void __launch_bounds__(WG)
   }
 }
 
+
+// ---- f32: tensor cores, 3xTF32 (wgmma) ------------------------------------
+
+// Blocks of the 3xTF32 kernel by head dim: NWG warpgroups of 64 q rows
+// share each KV tile of BKT keys (the split pass below is paid once per
+// block, so two warpgroups halve it per q row).  Shared memory: Q hi/lo
+// per warpgroup, K hi/lo ([keys][D]), V^T hi/lo ([D][keys]) and the raw
+// K and V tiles the next copy lands in.  D <= 64: two warpgroups, 64-key
+// tiles (160 KiB at D = 64); D = 128: one warpgroup, 32-key tiles (160
+// KiB; 64-key tiles or a second warpgroup would need 256 or 224 KiB with
+// the raw tiles, past or at the edge of the 227 KiB a block may hold).
+template <int D>
+struct Tf32Cfg {
+  static constexpr int NWG = D == 128 ? 1 : 2;
+  static constexpr int BKT = D == 128 ? 32 : 64;
+  static constexpr int NT = NWG * WG;
+  using QT = sm90::Tile<D, BQ, 4>;   // one warpgroup's Q, hi or lo
+  using KT = sm90::Tile<D, BKT, 4>;  // K, hi or lo: K-major for Q.K^T
+  using VT = sm90::Tile<BKT, D, 4>;  // V^T, hi or lo: K-major for P.V
+  static constexpr int RAW = BKT * D * 4;  // a raw K or V tile, row-major
+  static constexpr size_t bytes = 1024 + 2 * NWG * QT::BYTES +
+                                  2 * KT::BYTES + 2 * VT::BYTES + 2 * RAW;
+};
+
+__device__ __forceinline__ void split4(const float4& x, uint4& hi,
+                                       uint4& lo) {
+  sm90::split_tf32(x.x, hi.x, lo.x);
+  sm90::split_tf32(x.y, hi.y, lo.y);
+  sm90::split_tf32(x.z, hi.z, lo.z);
+  sm90::split_tf32(x.w, hi.w, lo.w);
+}
+
+template <int D>
+__global__ void __launch_bounds__(Tf32Cfg<D>::NT)
+    flash_fwd_kernel_tf32(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ lse, int H, int G, int seq,
+                          float scale, int causal, int window) {
+  using C = Tf32Cfg<D>;
+  using QT = typename C::QT;
+  using KT = typename C::KT;
+  using VT = typename C::VT;
+  constexpr int BKT = C::BKT, NT = C::NT, BQB = BQ * C::NWG;
+  constexpr int CH = D / 4;  // 16-byte chunks of an f32 row
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = sm90::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);  // base as a generic pointer
+  const uint32_t sQ = base;  // warpgroup w: hi at +2w tiles, lo after
+  const uint32_t sK = sQ + 2 * C::NWG * QT::BYTES;  // hi, lo
+  const uint32_t sV = sK + 2 * KT::BYTES;           // V^T hi, lo
+  const uint32_t sRaw = sV + 2 * VT::BYTES;         // raw K, raw V
+  auto at = [&](uint32_t addr) { return gbase + (addr - base); };
+
+  const int tid = threadIdx.x;
+  const int wg = tid / WG, wt = tid % WG;
+  // Heaviest causal tiles first (the last q tiles see the most keys).
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y;  // flat b*H + h
+  const int b = bh / H;
+  const int kvh = b * G + (bh % H) / (H / G);
+  const int q0 = qt * BQB;        // the block's first q row
+  const int q0w = q0 + BQ * wg;   // this warpgroup's
+  const float* kb = k + (size_t)kvh * seq * D;
+  const float* vb = v + (size_t)kvh * seq * D;
+
+  int j_lo;
+  const int n_kv = sm90::kv_tiles(q0, BQB, BKT, seq, causal, window, j_lo);
+
+  // Raw K and V tile t, row-major, rows past seq zeroed.
+  auto load_kv = [&](int t) {
+    const int k0 = (j_lo + t) * BKT;
+    static_assert(BKT * CH % NT == 0, "whole chunks per thread");
+#pragma unroll
+    for (int n = 0; n < BKT * CH / NT; ++n) {
+      const int i = tid + n * NT;
+      const int r = i / CH;
+      const bool ok = k0 + r < seq;
+      const size_t g = (size_t)(ok ? k0 + r : 0) * D + 4 * (i % CH);
+      sm90::cp_async16(sRaw + 16 * i, kb + g, ok);
+      sm90::cp_async16(sRaw + C::RAW + 16 * i, vb + g, ok);
+    }
+  };
+  load_kv(0);
+  sm90::cp_async_commit();
+
+  // Q, read once from device memory, split into its warpgroup's hi and lo
+  // tiles while KV tile 0 lands.
+  {
+    const float* qb = q + (size_t)bh * seq * D;
+    static_assert(BQB * CH % NT == 0, "whole chunks per thread");
+#pragma unroll
+    for (int n = 0; n < BQB * CH / NT; ++n) {
+      const int i = tid + n * NT;
+      const int r = i / CH, c = i % CH;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < seq)
+        x = *reinterpret_cast<const float4*>(qb + (size_t)(q0 + r) * D +
+                                             4 * c);
+      uint4 hi, lo;
+      split4(x, hi, lo);
+      const uint32_t t = sQ + (r / BQ) * 2 * QT::BYTES + QT::chunk(r % BQ, c);
+      *reinterpret_cast<uint4*>(at(t)) = hi;
+      *reinterpret_cast<uint4*>(at(t + QT::BYTES)) = lo;
+    }
+  }
+
+  // This thread's accumulator rows r0 and r0 + 8 (of its warpgroup's 64),
+  // columns 8j + c0 (+1).
+  const int r0 = 16 * (wt >> 5) + ((wt & 31) >> 2);
+  const int c0 = 2 * (wt & 3);
+  const float sl2 = scale * LOG2E;  // scores in log2 units: exp2, not exp
+  const uint32_t sQh = sQ + wg * 2 * QT::BYTES, sQl = sQh + QT::BYTES;
+  const uint32_t sKh = sK, sKl = sK + KT::BYTES;
+  const uint32_t sVh = sV, sVl = sV + VT::BYTES;
+  constexpr int NC = D < 64 ? D : 64;  // output columns per P.V product
+  float acc[D / 2], s[BKT / 2], pv[NC / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BKT / 2; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) pv[i] = 0.f;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_kv; ++t) {
+    sm90::cp_async_wait<0>();
+    __syncthreads();  // raw tile t is in; both warpgroups are done with the
+                      // split tiles of t - 1
+    // The split pass.  K: each 16-byte chunk of a raw row to the same
+    // chunk of the swizzled hi and lo tiles.  V: transposed, each 16-byte
+    // chunk of a V^T row (4 keys of one column n) gathered from 4 raw rows,
+    // the keys of each 8-group in tf32_key order.
+    {
+      const float* rk = reinterpret_cast<const float*>(at(sRaw));
+      const float* rv = reinterpret_cast<const float*>(at(sRaw + C::RAW));
+#pragma unroll
+      for (int n = 0; n < BKT * CH / NT; ++n) {
+        const int i = tid + n * NT;
+        uint4 hi, lo;
+        split4(*reinterpret_cast<const float4*>(rk + 4 * i), hi, lo);
+        const uint32_t off = KT::chunk(i / CH, i % CH);
+        *reinterpret_cast<uint4*>(at(sKh + off)) = hi;
+        *reinterpret_cast<uint4*>(at(sKl + off)) = lo;
+      }
+#pragma unroll
+      for (int n = 0; n < BKT * CH / NT; ++n) {
+        const int i = tid + n * NT;
+        const int col = i % D, c = i / D;  // V^T row col, chunk c
+        const int key0 = 8 * (c / 2);
+        float4 x;
+        x.x = rv[(key0 + sm90::tf32_key(4 * (c % 2) + 0)) * D + col];
+        x.y = rv[(key0 + sm90::tf32_key(4 * (c % 2) + 1)) * D + col];
+        x.z = rv[(key0 + sm90::tf32_key(4 * (c % 2) + 2)) * D + col];
+        x.w = rv[(key0 + sm90::tf32_key(4 * (c % 2) + 3)) * D + col];
+        uint4 hi, lo;
+        split4(x, hi, lo);
+        const uint32_t off = VT::chunk(col, c);
+        *reinterpret_cast<uint4*>(at(sVh + off)) = hi;
+        *reinterpret_cast<uint4*>(at(sVl + off)) = lo;
+      }
+    }
+    sm90::fence_proxy_async();
+    __syncthreads();  // the split tiles are in; the raw tiles are free
+    if (t + 1 < n_kv) load_kv(t + 1);
+    sm90::cp_async_commit();
+
+    // Skip a tile none of this warpgroup's rows sees (causal: above its
+    // diagonal or past its window; ragged: no q row left).
+    const int k0 = (j_lo + t) * BKT;
+    const bool live =
+        q0w < seq &&
+        !(causal && (k0 > q0w + BQ - 1 ||
+                     (window > 0 && q0w - (k0 + BKT - 1) >= window)));
+    if (!live) continue;
+
+    // S = Q.K^T as Qhi.Klo + Qlo.Khi + Qhi.Khi: the small products first,
+    // while the sum is small, as each k-step rounds it to the accumulator's
+    // precision at its size.
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+      sm90::wgmma_ss_tf32<BKT>(s, QT::kmajor(sQh, kk), KT::kmajor(sKl, kk),
+                               kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+      sm90::wgmma_ss_tf32<BKT>(s, QT::kmajor(sQl, kk), KT::kmajor(sKh, kk),
+                               1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+      sm90::wgmma_ss_tf32<BKT>(s, QT::kmajor(sQh, kk), KT::kmajor(sKh, kk),
+                               1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+
+    // Mask (diagonal, window-edge and ragged tiles only), row max and the
+    // online softmax, as in flash_fwd_kernel_wgmma; P stays f32.
+    const bool edge =
+        k0 + BKT > seq ||
+        (causal && (k0 + BKT - 1 > q0w ||
+                    (window > 0 && q0w + BQ - 1 - k0 >= window)));
+    float mx[2] = {NEG, NEG};
+#pragma unroll
+    for (int j = 0; j < BKT / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float x = s[4 * j + 2 * i + c] * sl2;
+          if (edge) {
+            const int qp = q0w + r0 + 8 * i, kp = k0 + 8 * j + c0 + c;
+            bool keep = kp < seq;
+            if (causal) {
+              keep = keep && qp >= kp;
+              if (window > 0) keep = keep && qp - kp < window;
+            }
+            if (!keep) x = __int_as_float(0xff800000);  // -inf
+          }
+          s[4 * j + 2 * i + c] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mx[i]));
+      alpha[i] = sm90::exp2_approx(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+    // P, split into the hi and lo A operands: k-step j is accumulator
+    // columns 8j..8j+7 in tf32_key order, (d[4j], d[4j+2], d[4j+1],
+    // d[4j+3]) (see sm90.cuh).
+    uint32_t ph[BKT / 2], pl[BKT / 2];
+#pragma unroll
+    for (int j = 0; j < BKT / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = sm90::exp2_approx(s[4 * j + 2 * i + c] - m[i]);
+          l[i] += p;
+          sm90::split_tf32(p, ph[4 * j + 2 * c + i], pl[4 * j + 2 * c + i]);
+        }
+    // The tile's P.V as Phi.Vlo + Plo.Vhi + Phi.Vhi (small first, as for
+    // S), V^T the K-major B operand, into a fresh accumulator of NC
+    // columns at a time; then O = alpha O + P.V in f32.  Summed across the
+    // tiles in the tensor cores' accumulator instead, O would be rounded
+    // 3 x BKT/8 times a tile at its full size.
+#pragma unroll
+    for (int h = 0; h < D / NC; ++h) {
+      // Columns NC*h.. of the output are rows NC*h.. of V^T.
+      const uint32_t vh = sVh + NC * h * VT::RB, vl = sVl + NC * h * VT::RB;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BKT / 8; ++j)
+        sm90::wgmma_rs_tf32<NC>(pv, ph[4 * j], ph[4 * j + 1], ph[4 * j + 2],
+                                ph[4 * j + 3], VT::kmajor(vl, j), j);
+#pragma unroll
+      for (int j = 0; j < BKT / 8; ++j)
+        sm90::wgmma_rs_tf32<NC>(pv, pl[4 * j], pl[4 * j + 1], pl[4 * j + 2],
+                                pl[4 * j + 3], VT::kmajor(vh, j), 1);
+#pragma unroll
+      for (int j = 0; j < BKT / 8; ++j)
+        sm90::wgmma_rs_tf32<NC>(pv, ph[4 * j], ph[4 * j + 1], ph[4 * j + 2],
+                                ph[4 * j + 3], VT::kmajor(vh, j), 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(pv);
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int n = 4 * j + 2 * i + c;
+            acc[NC / 2 * h + n] = fmaf(acc[NC / 2 * h + n], alpha[i], pv[n]);
+          }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float denom = fmaxf(quad_sum(l[i]), 1e-20f);
+    const int r = q0w + r0 + 8 * i;
+    if (r >= seq) continue;
+    float* orow = o + ((size_t)bh * seq + r) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j + c0) =
+          make_float2(acc[4 * j + 2 * i] / denom,
+                      acc[4 * j + 2 * i + 1] / denom);
+    if (lse != nullptr && (wt & 3) == 0)
+      lse[(size_t)bh * seq + r] = m[i] * LN2 + logf(denom);
+  }
+}
+
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* o, float* lse, int B, int H, int G, int seq,
@@ -460,35 +593,37 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int H, int G, int seq, float scale,
-                   int causal, int window, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, D>;
-  const size_t smem = Smem<D>::bytes;
+template <int D>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v,
+                        void* o, float* lse, int B, int H, int G, int seq,
+                        float scale, int causal, int window,
+                        cudaStream_t stream) {
+  using C = Tf32Cfg<D>;
+  auto kern = flash_fwd_kernel_tf32<D>;
+  const size_t smem = C::bytes;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((seq + BQ - 1) / BQ, B * H);
-  kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, G, seq, scale,
-      causal, window);
+  const dim3 grid((seq + BQ * C::NWG - 1) / (BQ * C::NWG), B * H);
+  kern<<<grid, C::NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, G, seq,
+      scale, causal, window);
   return cudaGetLastError();
 }
 
-// f32 -> flash_fwd_kernel (FMA); bf16 -> flash_fwd_kernel_wgmma.
-template <bool WGMMA>
+// f32 -> flash_fwd_kernel_tf32; bf16 -> flash_fwd_kernel_wgmma.
+template <bool BF16>
 cudaError_t dispatch_dim(const void* q, const void* k, const void* v, void* o,
                          float* lse, int B, int H, int G, int seq, int D,
                          float scale, int causal, int window,
                          cudaStream_t stream) {
 #define DCT_FWD_CASE(DIM)                                                     \
   case DIM:                                                                   \
-    return WGMMA ? launch_wgmma<DIM>(q, k, v, o, lse, B, H, G, seq, scale,    \
-                                     causal, window, stream)                  \
-                 : launch<float, DIM>(q, k, v, o, lse, B, H, G, seq, scale,   \
-                                      causal, window, stream);
+    return BF16 ? launch_wgmma<DIM>(q, k, v, o, lse, B, H, G, seq, scale,     \
+                                    causal, window, stream)                   \
+                : launch_tf32<DIM>(q, k, v, o, lse, B, H, G, seq, scale,      \
+                                   causal, window, stream);
   switch (D) {
     DCT_FWD_CASE(16)
     DCT_FWD_CASE(32)

@@ -1,30 +1,40 @@
 // Device helpers for the port's Hopper (sm_90a) kernels: shared-memory
-// matrix descriptors, wgmma wrappers (bf16 in, f32 accumulators), the wgmma
-// and async-proxy fences, cp.async copies, and the swizzle of 32-, 64- and
-// 128-byte rows.
+// matrix descriptors, wgmma wrappers (bf16 or TF32 in, f32 accumulators),
+// the wgmma and async-proxy fences, cp.async copies, the swizzle of 32-,
+// 64- and 128-byte rows, the 3xTF32 split of an f32 value, and the KV tile
+// range of a q tile under the causal mask and window.
 //
-// Tile layout.  A [ROWS][D] bf16 tile is kept in shared memory the way
-// wgmma reads a swizzled operand: rows of RB = min(128, 2*D) bytes, so a
-// D = 128 tile is split into two panels of 64 columns (panel p holds
-// columns 64p..64p+63 of every row, ROWS*128 bytes each).  Inside a panel
-// the 16-byte chunk c of row r sits where Swizzle<B,4,3> puts it: address
-// bits [4, 4+B) XOR bits [7, 7+B), B = log2(RB / 16).  Every tile starts on
-// a 1024-byte boundary, so the swizzle (a function of the address) is the
-// one the descriptor's layout type names.
+// Tile layout.  A [ROWS][D] tile of E-byte elements (bf16: E = 2; f32 as
+// TF32: E = 4) is kept in shared memory the way wgmma reads a swizzled
+// operand: rows of RB = min(128, E*D) bytes, so a wider tile is split into
+// panels of 128 / E columns (panel p holds columns p*128/E.. of every row,
+// ROWS*128 bytes each).  Inside a panel the 16-byte chunk c of row r sits
+// where Swizzle<B,4,3> puts it: address bits [4, 4+B) XOR bits [7, 7+B),
+// B = log2(RB / 16).  Every tile starts on a 1024-byte boundary, so the
+// swizzle (a function of the address) is the one the descriptor's layout
+// type names.
 //
-// One tile serves as either operand orientation:
+// One bf16 tile serves as either operand orientation:
 // - K-major (K = D along the row; S = Q.K^T, K.Q^T, V.dO^T): 8-row groups
 //   SBO = 8*RB apart, and k-step kk starts 32*kk bytes into its panel (the
 //   hardware swizzles the advanced address as it swizzled the stored one);
-// - MN-major (K along the rows, N = D; P.V, P^T.dO, dS^T.Q): k-step kk
-//   starts 16*kk rows in, 8-row groups SBO = 8*RB apart, and the second
+// - MN-major (K along the rows, N = D; P.V, P^T.dO, dS^T.Q, dS.K): k-step
+//   kk starts 16*kk rows in, 8-row groups SBO = 8*RB apart, and the second
 //   64-column panel (N = 128) LBO = ROWS*RB further.
+// TF32 has no transpose: both of its operands are K-major, a k-step is 8
+// values (32 bytes, as for bf16), and an operand whose K runs down the
+// rows in device memory (V in P.V) is stored transposed.
 //
 // Accumulator layout of an m64nN wgmma: thread t of the warpgroup (warp
 // w = t / 32, lane l) holds d[4j + 2i + c] = D[16w + l/4 + 8i][8j + 2(l%4) + c]
 // for i, c in {0, 1}.  For bf16 this is also the register A operand's
 // layout, so a score accumulator packed pairwise to bf16x2 (pack_a) is the
-// A operand of the next product, k-step kk in registers 4kk..4kk+3.
+// A operand of the next product, k-step kk in registers 4kk..4kk+3.  The
+// TF32 A operand of k-step j (columns 8j..8j+7) is laid out otherwise:
+// a0, a1, a2, a3 = A[16w + l/4 (+8 for a1, a3)][8j + l%4 (+4 for a2, a3)].
+// With the columns of each 8-group permuted, k = l%4 + 4c standing for
+// accumulator column 2(l%4) + c, the accumulator's (d[4j], d[4j+2],
+// d[4j+1], d[4j+3]) are that operand: see tf32_key.
 
 #pragma once
 
@@ -47,30 +57,34 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
          ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (layout << 62);
 }
 
-template <int D, int ROWS>
+template <int D, int ROWS, int E = 2>
 struct Tile {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim");
-  static_assert(ROWS % 64 == 0, "wgmma tiles are 64 rows");
-  static constexpr int RB = 2 * D < 128 ? 2 * D : 128;  // bytes per row
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "columns");
+  static_assert(ROWS % 8 == 0, "whole 8-row groups");
+  static_assert(E == 2 || E == 4, "bf16 or TF32");
+  static constexpr int RB = E * D < 128 ? E * D : 128;  // bytes per row
   static constexpr int SWZ = RB == 128 ? 3 : RB == 64 ? 2 : 1;
   static constexpr uint64_t LAYOUT = RB == 128 ? 1 : RB == 64 ? 2 : 3;
-  static constexpr int PANEL = ROWS * RB;  // bytes per 64-column panel
-  static constexpr int BYTES = ROWS * D * 2;
-  static constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
+  static constexpr int PANEL = ROWS * RB;  // bytes per panel
+  static constexpr int BYTES = ROWS * D * E;
+  static constexpr int CHUNKS = D * E / 16;  // 16-byte chunks per row
 
-  // Byte offset of the 16-byte chunk c (columns 8c..8c+7) of row r.
+  // Byte offset of the 16-byte chunk c (columns 16c/E..) of row r.
   __device__ static __forceinline__ uint32_t chunk(int r, int c) {
     constexpr int per = RB / 16;
     const uint32_t off = (c / per) * PANEL + r * RB + (c % per) * 16;
     return off ^ (((off >> 7) & ((1u << SWZ) - 1)) << 4);
   }
-  // The tile as a K-major operand, k-step kk (columns 16kk..16kk+15).
+  // The tile as a K-major operand, k-step kk (32 bytes: 16 bf16 or 8
+  // TF32 columns).
   __device__ static __forceinline__ uint64_t kmajor(uint32_t base, int kk) {
     const int b = 32 * kk;
     return make_desc(base + (b / RB) * PANEL + b % RB, 16, 8 * RB, LAYOUT);
   }
-  // The tile as an MN-major operand (N = D), k-step kk (rows 16kk..+15).
+  // The tile as an MN-major operand (N = D), k-step kk (rows 16kk..+15);
+  // bf16 only.
   __device__ static __forceinline__ uint64_t mnmajor(uint32_t base, int kk) {
+    static_assert(E == 2, "TF32 operands are K-major only");
     return make_desc(base + 16 * kk * RB, PANEL, 8 * RB, LAYOUT);
   }
 };
@@ -164,6 +178,52 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ---- 3xTF32 ---------------------------------------------------------------
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away), as the bits
+// of an f32.  Rounded here, not left to the tensor core, which would
+// truncate the low 13 bits.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// x = hi + lo to about 2^-22 of x: hi = tf32(x), lo = tf32(x - hi) (the
+// difference is exact in f32).  A product is then hi.hi + hi.lo + lo.hi,
+// three TF32 products with lo.lo (about 2^-22 of it) dropped.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// The key of an 8-key group that the k index kp of a TF32 register A
+// operand built from an accumulator stands for (see the header):
+// kp = 0..3 -> keys 0, 2, 4, 6; kp = 4..7 -> keys 1, 3, 5, 7.  The B
+// operand of the same product stores its key kp's values at position kp.
+__device__ __forceinline__ int tf32_key(int kp) {
+  return 2 * (kp & 3) + (kp >> 2);
+}
+
+// ---- attention tiles -------------------------------------------------------
+
+// The KV tiles of `bk` keys that the q rows q0..q0+rows-1 need: j_lo and
+// the count.  Causal stops at the diagonal; a window starts at the tile
+// holding the first key of the band of row q0 (the TPU kernels' clamped
+// index maps, dct_tpu/ops/pallas_attention.py:218-235, as loop bounds).
+__device__ __forceinline__ int kv_tiles(int q0, int rows, int bk, int seq,
+                                        int causal, int window, int& j_lo) {
+  const int q_last = min(q0 + rows, seq) - 1;
+  int j_hi = (seq + bk - 1) / bk - 1;
+  j_lo = 0;
+  if (causal) {
+    j_hi = q_last / bk;
+    if (window > 0) j_lo = max(0, q0 - window + 1) / bk;
+  }
+  return j_hi - j_lo + 1;
 }
 
 // ---- fragments -----------------------------------------------------------
@@ -311,6 +371,126 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0,
   else if constexpr (N == 32) wgmma_rs_n32(d, a, db, scale_d);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db, scale_d);
   else wgmma_rs_n128(d, a, db, scale_d);
+}
+
+// ---- wgmma, TF32 ----------------------------------------------------------
+
+// D[64xN] (+)= A[64x8] B[8xN] in TF32 (f32 bits; the low 13 mantissa bits
+// are ignored, so callers round first: split_tf32), A and B from shared
+// memory, both K-major (TF32 has no transpose); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_tf32_n32(float (&d)[16], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_tf32_n64(float (&d)[32], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// wgmma_ss_tf32_n<N> by N.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[N / 2], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  if constexpr (N == 32) wgmma_ss_tf32_n32(d, da, db, scale_d);
+  else wgmma_ss_tf32_n64(d, da, db, scale_d);
+}
+
+// D[64xN] (+)= A[64x8] B[8xN] in TF32 for N = 16, 32, 64: A from
+// registers in the TF32 fragment layout (see the header), B from shared
+// memory K-major; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_rs_tf32_n16(float (&d)[8],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_tf32_n32(float (&d)[16],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// wgmma_rs_tf32_n<N> by N; (a0, a1, a2, a3) is one k-step of the A operand.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2], uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t db,
+                                              int scale_d) {
+  const uint32_t a[4] = {a0, a1, a2, a3};
+  if constexpr (N == 16) wgmma_rs_tf32_n16(d, a, db, scale_d);
+  else if constexpr (N == 32) wgmma_rs_tf32_n32(d, a, db, scale_d);
+  else wgmma_rs_tf32_n64(d, a, db, scale_d);
 }
 
 }  // namespace sm90

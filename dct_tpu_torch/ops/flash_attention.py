@@ -7,8 +7,9 @@ the one entry point:
 - on a CUDA tensor it launches ``csrc/flash_fwd.cu`` (built at first use by
   :mod:`dct_tpu_torch.ops.build`) on the current stream, or raises; the C
   entry point picks the kernel by dtype (bf16: the tensor-core kernel,
-  ``wgmma``; f32: the FMA kernel, full f32), as ``csrc/flash_bwd.cu`` does
-  for dK/dV (dQ is the FMA kernel in both dtypes);
+  ``wgmma``; f32: the tensor cores in 3xTF32, f32-accurate products), as
+  ``csrc/flash_bwd.cu`` does for dK/dV and dQ (bf16: ``wgmma``; f32: the
+  FMA kernels);
 - on a CPU tensor it runs :func:`flash_attention_plain`, the same function
   written in PyTorch (online softmax over KV blocks, the same masks, the
   same ``(o, lse)``);

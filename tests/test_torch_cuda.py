@@ -59,6 +59,30 @@ def test_kernel_matches_plain(card, causal, window, g, d, dtype):
     assert (lse - plse).abs().max().item() <= 1e-4
 
 
+# The f32 forward runs 3xTF32 on the tensor cores, whose products lose about
+# 2^-22 of their size against the plain version's f32 products; a single
+# TF32 pass keeps 11 bits of each operand and loses 2^-11. 1e-5 on o and lse
+# holds the first and refuses the second.
+F32_FWD_TOL = 1e-5
+
+
+@pytest.mark.parametrize(
+    "causal,window,g,d,q_scale",
+    [(*case, 1.0) for case in CASES]
+    + [(False, None, 4, 64, 3.0)],  # larger scores, a sharper softmax
+)
+def test_f32_forward_within_3xtf32_tolerance(card, causal, window, g, d,
+                                             q_scale):
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's f32
+    q, k, v = _qkv(15, g, d, torch.float32, card)
+    q = q * q_scale
+    o, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                return_lse=True)
+    po, plse = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert (o - po).abs().max().item() <= F32_FWD_TOL
+    assert (lse - plse).abs().max().item() <= F32_FWD_TOL
+
+
 def test_kernel_ragged_length_matches_plain(card):
     """T not a multiple of the kernel's 64-row tiles: the loop masks the
     ragged edge (block sizes chosen so the wrapper accepts T=200)."""
@@ -194,6 +218,18 @@ def test_bf16_dkdv_is_bitwise_deterministic(card, causal, window, g, d):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal,window,g,d", CASES)
+def test_bf16_dq_is_bitwise_deterministic(card, causal, window, g, d):
+    """One block owns its dQ tile and sums the KV tiles in a fixed order
+    (no atomics): two launches give the same bits."""
+    args = _bwd_inputs(16, g, d, torch.bfloat16, card, causal=causal,
+                       window=window)
+    first = fa.flash_bwd_dq(*args, causal=causal, window=window)
+    second = fa.flash_bwd_dq(*args, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_gradients_flow_through_the_kernels(card):
