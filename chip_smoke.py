@@ -13,9 +13,9 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
    instance (raises if a tensor-core kernel spills or ptxas warns of it,
    as it does when it serializes the wgmmas). Counts the tensor-core
    instructions (``HGMMA``, ``HMMA``) of each tensor-core kernel's instances
-   in ``cuobjdump -sass`` of the built libraries (bf16 ``flash_fwd``,
-   ``flash_bwd_dkdv`` and ``flash_bwd_dq``, f32 ``flash_fwd`` in 3xTF32);
-   raises if one has none at some head dim.
+   in ``cuobjdump -sass`` of the built libraries (``flash_fwd``,
+   ``flash_bwd_dkdv`` and ``flash_bwd_dq``, bf16 and f32 in 3xTF32); raises
+   if one has none at some head dim.
 3. Holds each kernel against its plain PyTorch version on the card at the
    serving shape (B=32 windows, H=8, T=1024, D=64), f32 and bf16, causal and
    not, with the log-sum-exp; tolerances on o f32 1e-5 (3xTF32 products
@@ -128,13 +128,14 @@ BWD_FLOPS_PER_PAIR = {"flash_bwd_dkdv": 8, "flash_bwd_dq": 6}  # x D
 
 
 # The tensor-core kernels by (kernel, dtype): (library, name in the SASS).
-# Each must hold HGMMA at every head dim; the f32 dK/dV and dQ kernels run
-# on the FMA units and are not listed.
+# Each must hold HGMMA at every head dim.
 TENSOR_CORE_SASS = {
     ("flash_fwd", "bf16"): ("flash_fwd", "flash_fwd_kernel_wgmma"),
     ("flash_fwd", "f32"): ("flash_fwd", "flash_fwd_kernel_tf32"),
     ("flash_bwd_dkdv", "bf16"): ("flash_bwd", "flash_bwd_dkdv_kernel_wgmma"),
+    ("flash_bwd_dkdv", "f32"): ("flash_bwd", "flash_bwd_dkdv_kernel_tf32"),
     ("flash_bwd_dq", "bf16"): ("flash_bwd", "flash_bwd_dq_kernel_wgmma"),
+    ("flash_bwd_dq", "f32"): ("flash_bwd", "flash_bwd_dq_kernel_tf32"),
 }
 
 

@@ -3,22 +3,21 @@
 // Replaces: dct_tpu/ops/pallas_attention.py, driven by `_flash_bwd`
 // (:427-544):
 // - `_flash_bwd_dkdv_kernel` (:303-370, the pl.pallas_call at :487) ->
-//   flash_bwd_dkdv_kernel below;
+//   flash_bwd_dkdv_kernel_wgmma (bf16) and flash_bwd_dkdv_kernel_tf32 (f32);
 // - `_flash_bwd_dq_kernel` (:373-424, the pl.pallas_call at :529) ->
-//   flash_bwd_dq_kernel below.
+//   flash_bwd_dq_kernel_wgmma (bf16) and flash_bwd_dq_kernel_tf32 (f32).
 //
-// Both recover the softmax from the forward's f32 log-sum-exp and compute,
+// All recover the softmax from the forward's f32 log-sum-exp and compute,
 // per (q, k) pair of a tile:
 //   P  = exp(scale * q.k - lse)          (0 where the causal/window mask drops)
 //   dP = dO.v
 //   dS = P * (dP - delta) * scale,  delta = rowsum(dO * O)
 // then dV += P^T dO and dK += dS^T Q (kernel 2), dQ += dS K (kernel 3), all
-// accumulated in f32.  delta is computed inside each kernel, as the TPU
-// kernels do (:333, :392): each q tile's rows read their O row once and
-// reduce dO*O in f32 across the 16 lanes of the row group; no pre-pass and
-// no [B*H, T] side buffer.  bf16 rounding happens exactly where the TPU
-// kernel casts: P is rounded to dO's dtype before P^T dO, dS to the input
-// dtype before dS^T Q and dS K; lse and delta stay f32.
+// accumulated in f32.  delta is computed inside each kernel in f32, as the
+// TPU kernels do (:333, :392): no pre-pass and no [B*H, T] side buffer.
+// bf16 rounding happens exactly where the TPU kernel casts: P is rounded to
+// dO's dtype before P^T dO, dS to the input dtype before dS^T Q and dS K
+// (in f32 nothing is rounded); lse and delta stay f32.
 //
 // Grouped-query attention: q head h reads kv head h / (H / G) (group-major,
 // as the forward).  Kernel 2 gives one block one KV tile of one KV head and
@@ -31,8 +30,9 @@
 // Causal and window skip are loop bounds.  Kernel 2: the q tiles that reach
 // KV tile j start at j*BK/BQ and, with a window, end at
 // (window + (j+1)*BK - 2) / BQ -- the clamped index map at :473-480.
-// Kernel 3: the forward's j_lo/j_hi (:512-523).  The masks of :338-344 and
-// :397-406 stay for the edge tiles and for a ragged T.
+// Kernel 3: the forward's j_lo/j_hi (:512-523, sm90::kv_tiles).  The masks
+// of :338-344 and :397-406 run only on diagonal, window-edge and ragged
+// tiles.
 //
 // What bounds it on this card.  At the training shape (B=32, H=G=8, T=1024,
 // D=64, not causal) kernel 2 does 8*D flops per (q, k) pair (S, dP, dV, dK)
@@ -41,51 +41,75 @@
 // plus lse and one or two outputs, about 0.47 GB in f32.  On the H100's
 // datasheet rates (3.35 TB/s; 989 TFLOP/s bf16 dense on the tensor cores;
 // f32 accuracy on the tensor cores as 3xTF32, three TF32 products at 495
-// TFLOP/s, 165 TFLOP/s in effect) both are bound by operations: 0.14 and
-// 0.10 ms in bf16 (against 0.07 and 0.06 ms of bytes), 0.83 and 0.62 ms in
-// f32.  The f32 kernels below still run on the FMA units (67 TFLOP/s: 2.05
-// and 1.54 ms at best); their 3xTF32 redesign is queued.
+// TFLOP/s, 165 TFLOP/s in effect, against 67 TFLOP/s on the FMA units) both
+// are bound by operations: 0.14 and 0.10 ms in bf16 (against 0.07 and 0.06
+// ms of bytes), 0.83 and 0.62 ms in f32.
 //
 // What the design does about it.  As in flash_fwd.cu, nothing O(T^2)
 // reaches device memory: a block's K and V tiles (kernel 2) or Q and dO
 // tiles (kernel 3) stay in shared memory for its life and the other
-// operands stream through in 64-row tiles.  Four kernels:
+// operands stream through.  Every product runs on the tensor cores (wgmma),
+// each waited on before the registers it writes are touched.  Four kernels:
 //
-// - bf16 dK/dV: flash_bwd_dkdv_kernel_wgmma, on the tensor cores.  One
-//   warpgroup (128 threads) owns 64 keys of one KV head; its K and V tiles
-//   stay in swizzled shared memory and its dK and dV accumulators in
-//   registers.  Q, dO, O and lse stream through a 2-stage cp.async ring.
-//   The scores are computed transposed, S^T = K.Q^T and dP^T = V.dO^T (wgmma,
-//   both operands from shared memory), so a thread's accumulator columns
-//   are q rows: lse and delta are read per column from a shared vector,
-//   and P^T = ex2.approx(S^T * scale * log2(e) - lse * log2(e)).
-//   P^T and dS^T are rounded to bf16 in registers and are the register A
-//   operands of dV += P^T.dO and dK += dS^T.Q, with dO and Q as MN-major B
-//   operands of the same stage: P and dS never touch shared memory.  delta
-//   is reduced from the stage's dO and O while the score products run.
-//   Shared memory 66 KiB at D=64, 130 KiB at D=128.  Helpers: sm90.cuh.
-// - bf16 dQ: flash_bwd_dq_kernel_wgmma, on the tensor cores.  One
-//   warpgroup owns 64 q rows of one q head; its Q and dO tiles stay in
-//   swizzled shared memory and its dQ accumulator in registers (f32, stored
-//   once as bf16).  K and V stream through a 2-stage cp.async ring.
-//   S = Q.K^T and dP = dO.V^T are issued back to back (both operands
-//   K-major from shared memory) and waited on once.  The scores are not
-//   transposed here, so a thread's accumulator rows are its q rows: lse and
-//   delta are two registers per thread (delta = rowsum(dO * O) in f32, each
-//   row from the 4 threads of its quad, read once from device memory), and
-//   no shared vector is needed.  dS = P (dP - delta) scale is rounded to
-//   bf16 in registers and is the register A operand of dQ += dS.K, the
-//   stage's K tile serving as the MN-major B operand (N = D): dS never
-//   touches shared memory, and one block owns its dQ tile, so no atomics
-//   and the same bits from two launches.  Shared memory 49 KiB at D=64,
-//   97 KiB at D=128.
-// - f32 dK/dV and f32 dQ: flash_bwd_dkdv_kernel and flash_bwd_dq_kernel,
-//   on the f32 FMA units (no TF32).  Each of the 256 threads holds a 4x4
-//   block of S and dP and a 4 x D/16 block of each accumulator in
-//   registers; the transposed products read P and dS back from shared
-//   memory; tiles are held as f32 in shared memory.  Shared memory: 100.5
-//   KiB (kernel 2) and 83.5 KiB (kernel 3) at D=64, 165 KiB and 148 KiB at
-//   D=128.
+// - bf16 dK/dV: flash_bwd_dkdv_kernel_wgmma.  One warpgroup (128 threads)
+//   owns 64 keys of one KV head; its K and V tiles stay in swizzled shared
+//   memory and its dK and dV accumulators in registers.  Q, dO, O and lse
+//   stream through a 2-stage cp.async ring.  The scores are computed
+//   transposed, S^T = K.Q^T and dP^T = V.dO^T (both operands from shared
+//   memory), so a thread's accumulator columns are q rows: lse and delta
+//   are read per column from a shared vector, and P^T = ex2.approx(S^T *
+//   scale * log2(e) - lse * log2(e)).  P^T and dS^T are rounded to bf16 in
+//   registers and are the register A operands of dV += P^T.dO and dK +=
+//   dS^T.Q, with dO and Q as MN-major B operands of the same stage: P and dS
+//   never touch shared memory.  delta is reduced from the stage's dO and O
+//   while the score products run.  Shared memory 66 KiB at D=64, 130 KiB
+//   at D=128.  Helpers: sm90.cuh.
+// - bf16 dQ: flash_bwd_dq_kernel_wgmma.  One warpgroup owns 64 q rows of
+//   one q head; its Q and dO tiles stay in swizzled shared memory and its dQ
+//   accumulator in registers (f32, stored once as bf16).  K and V stream
+//   through a 2-stage cp.async ring.  S = Q.K^T and dP = dO.V^T are issued
+//   back to back (both operands K-major from shared memory) and waited on
+//   once.  The scores are not transposed here, so a thread's accumulator
+//   rows are its q rows: lse and delta are two registers per thread (delta
+//   from the 4 threads of each row's quad, read once from device memory).
+//   dS is rounded to bf16 in registers and is the register A operand of dQ
+//   += dS.K, the stage's K tile serving as the MN-major B operand (N = D).
+//   Shared memory 49 KiB at D=64, 97 KiB at D=128.
+// - f32 dK/dV and dQ: flash_bwd_dkdv_kernel_tf32 and
+//   flash_bwd_dq_kernel_tf32, the two designs above in 3xTF32, as the f32
+//   forward (flash_fwd.cu): each operand x is split as hi = tf32(x), lo =
+//   tf32(x - hi) (cvt.rna), and each product is hi.lo + lo.hi + hi.hi, about
+//   2^-22 of it lost (a single TF32 pass loses 2^-11 and misses the 1e-4
+//   gradient agreement).  P, dS, lse and delta stay f32.  What differs from
+//   bf16, and what the kernels do about it:
+//   * TF32 operands have no transpose bit: both are K-major.  The score
+//     products' operands are as stored (kernel 3: Q, dO resident and K, V
+//     streamed; kernel 2: K, V resident and Q, dO streamed).  The products
+//     that sum over the other axis need their B operand transposed: K^T
+//     [D][keys] for dQ += dS.K, Q^T and dO^T [D][q] for dK += dS^T.Q and
+//     dV += P^T.dO.  The streamed tiles land raw (cp.async cannot
+//     transpose), and a split pass writes their hi/lo tiles as stored and
+//     transposed; the resident ones are split once, from device memory.
+//   * The TF32 register A fragment is not the accumulator layout: the
+//     transposed tiles store each 8-key (kernel 3) or 8-q-row (kernel 2)
+//     group in sm90::tf32_key order, so a thread's accumulator entries of
+//     dS, P^T and dS^T are their A fragments without a shuffle.
+//   * Accumulation order: each k-step rounds the running sum at its size,
+//     so the small products go first, and each tile's contribution to dQ,
+//     dK or dV goes into a fresh accumulator (64 output columns at a time)
+//     that is added to the running f32 sum in registers; the running sums
+//     are never rounded inside a wgmma at their full size.
+//   * Shared memory bounds the tiles (Tf32 configs below): two warpgroups
+//     share each streamed tile, so the split pass is paid once for 128 rows
+//     (D = 128: one warpgroup); the split tiles serve as the second stage
+//     (the next raw tile lands while one is multiplied).  kernel 3: 32-key
+//     tiles at D = 64 (193 KiB), 16-key at D = 128; kernel 2: 32-row q
+//     tiles at D = 64 (217 KiB), 16-row at D = 128.  One block per SM.
+//     Kernel 2 reduces delta from the raw dO and O tiles in the split pass.
+//   * Registers: every tile sits at a fixed address, so the compiler
+//     hoisted one descriptor per k-step and tile out of the loop (up to
+//     128 registers) and spilled at D = 128; the tile addresses are
+//     laundered once per iteration (sm90::opaque), and no instance spills.
 //
 // Each C entry point returns cudaGetLastError() after its launch.
 
@@ -93,67 +117,12 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-#include <type_traits>
-
 #include "sm90.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // q rows per tile
-constexpr int BK = 64;        // keys per tile
-constexpr int NT = 256;       // threads: 16 row groups x 16 column lanes
-constexpr int RPT = BQ / 16;  // tile rows per thread
-constexpr int CPT = BK / 16;  // score columns per thread
-
-// The FMA kernels are instantiated for f32 only (bf16 takes the tensor-core
-// kernels); these are their conversions.
-__device__ __forceinline__ float to_float(float x) { return x; }
-
-// Round an f32 value to T and back (the TPU kernel's `.astype(dtype)`).
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) {
-  return x;
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-
-__device__ __forceinline__ float sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Shared-memory row strides (as flash_fwd.cu): row tiles padded by 4 floats
-// so the two row groups of a warp (rows 4 apart) fall in opposite halves of
-// the banks; transposed tiles padded by 1 so column reads spread.
-template <int D>
-struct Strides {
-  static constexpr int QS = D + 4;   // Q, dO: [BQ][QS]
-  static constexpr int KS = BK + 1;  // K^T, V^T: [D][KS]
-  static constexpr int PS = BK + 4;  // P, dS: [BQ][PS]
-};
-
-template <int D>
-struct DkdvSmem {
-  using S = Strides<D>;
-  static constexpr int floats = 2 * D * S::KS + 2 * BQ * S::QS + 2 * BQ * S::PS;
-  static constexpr size_t bytes = sizeof(float) * floats;
-};
-
-template <int D>
-struct DqSmem {
-  using S = Strides<D>;
-  static constexpr int floats = 2 * D * S::KS + 2 * BQ * S::QS + BQ * S::PS;
-  static constexpr size_t bytes = sizeof(float) * floats;
-};
+constexpr int BQ = 64;  // q rows per warpgroup
+constexpr int BK = 64;  // keys per warpgroup (kernel 2), per bf16 KV tile
 
 __device__ __forceinline__ bool keep_pair(int qp, int kp, int seq, int causal,
                                           int window) {
@@ -163,314 +132,6 @@ __device__ __forceinline__ bool keep_pair(int qp, int kp, int seq, int causal,
     if (window > 0) kk = kk && qp - kp < window;
   }
   return kk;
-}
-
-// Load a [rows][D] tile starting at row r0 of a [seq][D] head into shared
-// memory as f32 with row stride `ld` (rows past seq are zero).
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
-                                          int r0, int seq, int tid) {
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, d = i % D;
-    dst[r * ld + d] = r0 + r < seq ? to_float(src[(size_t)(r0 + r) * D + d]) : 0.f;
-  }
-}
-
-// Load the K and V tiles starting at key k0, transposed: Kt[d][c], Vt[d][c].
-template <typename T, int D>
-__device__ __forceinline__ void load_kv_t(float* Kt, float* Vt, const T* kb,
-                                          const T* vb, int k0, int seq,
-                                          int tid) {
-  constexpr int KS = Strides<D>::KS;
-  for (int i = tid; i < BK * D; i += NT) {
-    const int c = i / D, d = i % D;
-    const bool ok = k0 + c < seq;
-    const size_t g = (size_t)(k0 + c) * D + d;
-    Kt[d * KS + c] = ok ? to_float(kb[g]) : 0.f;
-    Vt[d * KS + c] = ok ? to_float(vb[g]) : 0.f;
-  }
-}
-
-// Per-row lse and delta = rowsum(dO * O) for the thread's RPT rows of the q
-// tile at q0 (dO already in shared memory; O read from device memory).
-template <typename T, int D>
-__device__ __forceinline__ void row_stats(float (&lse_r)[RPT],
-                                          float (&delta_r)[RPT],
-                                          const float* dOs, const T* ob,
-                                          const float* lseb, int q0, int seq,
-                                          int ty, int tx) {
-  constexpr int QS = Strides<D>::QS;
-  constexpr int DPT = D / 16;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = ty * RPT + i;
-    const int qp = q0 + row;
-    float part = 0.f;
-    if (qp < seq) {
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) {
-        const int d = tx + 16 * j;
-        part = fmaf(dOs[row * QS + d], to_float(ob[(size_t)qp * D + d]), part);
-      }
-    }
-    delta_r[i] = sum16(part);
-    lse_r[i] = qp < seq ? lseb[qp] : 0.f;
-  }
-}
-
-// S = Q K^T and dP = dO V^T for the thread's 4x4 block (rows ty*RPT+i,
-// columns tx+16*j), then P and dS in f32.
-template <int D>
-__device__ __forceinline__ void scores(float (&p)[RPT][CPT],
-                                       float (&ds)[RPT][CPT], const float* Qs,
-                                       const float* dOs, const float* Kt,
-                                       const float* Vt,
-                                       const float (&lse_r)[RPT],
-                                       const float (&delta_r)[RPT], int q0,
-                                       int k0, int seq, float scale,
-                                       int causal, int window, int ty,
-                                       int tx) {
-  using S = Strides<D>;
-  float s[RPT][CPT], dp[RPT][CPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qv[RPT], gv[RPT], kv[CPT], vv[CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      qv[i] = Qs[(ty * RPT + i) * S::QS + d];
-      gv[i] = dOs[(ty * RPT + i) * S::QS + d];
-    }
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      kv[j] = Kt[d * S::KS + tx + 16 * j];
-      vv[j] = Vt[d * S::KS + tx + 16 * j];
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int qp = q0 + ty * RPT + i;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int kp = k0 + tx + 16 * j;
-      const float pij = keep_pair(qp, kp, seq, causal, window)
-                            ? expf(s[i][j] * scale - lse_r[i])
-                            : 0.f;
-      p[i][j] = pij;
-      ds[i][j] = pij * (dp[i][j] - delta_r[i]) * scale;
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-    flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ o,
-                          const T* __restrict__ dout,
-                          const float* __restrict__ lse, T* __restrict__ dk,
-                          T* __restrict__ dv, int H, int G, int seq,
-                          float scale, int causal, int window) {
-  using S = Strides<D>;
-  constexpr int DPT = D / 16;
-  extern __shared__ float smem[];
-  float* Kt = smem;                 // [D][KS]
-  float* Vt = Kt + D * S::KS;       // [D][KS]
-  float* Qs = Vt + D * S::KS;       // [BQ][QS]
-  float* dOs = Qs + BQ * S::QS;     // [BQ][QS]
-  float* Ps = dOs + BQ * S::QS;     // [BQ][PS]
-  float* dSs = Ps + BQ * S::PS;     // [BQ][PS]
-
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-  // Causal: the first KV tiles see the most q tiles; they launch first.
-  const int jt = blockIdx.x;
-  const int bg = blockIdx.y;  // flat b*G + g
-  const int b = bg / G, g = bg % G;
-  const int group = H / G;
-  const int k0 = jt * BK;
-
-  load_kv_t<T, D>(Kt, Vt, k + (size_t)bg * seq * D, v + (size_t)bg * seq * D,
-                  k0, seq, tid);
-
-  float acc_k[RPT][DPT], acc_v[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-
-  // The q tiles that reach this KV tile: causal starts at the diagonal, a
-  // window ends where the band of the tile's last key runs out.
-  const int n_q = (seq + BQ - 1) / BQ;
-  int i_lo = 0, i_hi = n_q - 1;
-  if (causal) {
-    i_lo = k0 / BQ;
-    if (window > 0) i_hi = min(i_hi, (window + k0 + BK - 2) / BQ);
-  }
-
-  for (int m = 0; m < group; ++m) {
-    const int bh = b * H + g * group + m;  // the member's flat q head
-    const T* qb = q + (size_t)bh * seq * D;
-    const T* ob = o + (size_t)bh * seq * D;
-    const T* gb = dout + (size_t)bh * seq * D;
-    const float* lseb = lse + (size_t)bh * seq;
-    for (int it = i_lo; it <= i_hi; ++it) {
-      const int q0 = it * BQ;
-      __syncthreads();  // the previous tile's readers are done
-      load_rows<T, D>(Qs, S::QS, qb, q0, seq, tid);
-      load_rows<T, D>(dOs, S::QS, gb, q0, seq, tid);
-      __syncthreads();
-
-      float lse_r[RPT], delta_r[RPT];
-      row_stats<T, D>(lse_r, delta_r, dOs, ob, lseb, q0, seq, ty, tx);
-      float p[RPT][CPT], ds[RPT][CPT];
-      scores<D>(p, ds, Qs, dOs, Kt, Vt, lse_r, delta_r, q0, k0, seq, scale,
-                causal, window, ty, tx);
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const int idx = (ty * RPT + i) * S::PS + tx + 16 * j;
-          Ps[idx] = round_to<T>(p[i][j]);
-          dSs[idx] = round_to<T>(ds[i][j]);
-        }
-      __syncthreads();
-
-      // dV[c] += sum_r P[r][c] dO[r];  dK[c] += sum_r dS[r][c] Q[r], for the
-      // thread's key rows c = ty*RPT+i and columns tx+16*j.
-#pragma unroll 4
-      for (int r = 0; r < BQ; ++r) {
-        float pv[RPT], sv[RPT], gv[DPT], qv[DPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          pv[i] = Ps[r * S::PS + ty * RPT + i];
-          sv[i] = dSs[r * S::PS + ty * RPT + i];
-        }
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) {
-          gv[j] = dOs[r * S::QS + tx + 16 * j];
-          qv[j] = Qs[r * S::QS + tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < RPT; ++i)
-#pragma unroll
-          for (int j = 0; j < DPT; ++j) {
-            acc_v[i][j] = fmaf(pv[i], gv[j], acc_v[i][j]);
-            acc_k[i][j] = fmaf(sv[i], qv[j], acc_k[i][j]);
-          }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int kp = k0 + ty * RPT + i;
-    if (kp >= seq) continue;
-    const size_t row = ((size_t)bg * seq + kp) * D;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      dk[row + tx + 16 * j] = from_float<T>(acc_k[i][j]);
-      dv[row + tx + 16 * j] = from_float<T>(acc_v[i][j]);
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ o,
-                        const T* __restrict__ dout,
-                        const float* __restrict__ lse, T* __restrict__ dq,
-                        int H, int G, int seq, float scale, int causal,
-                        int window) {
-  using S = Strides<D>;
-  constexpr int DPT = D / 16;
-  extern __shared__ float smem[];
-  float* Kt = smem;              // [D][KS]
-  float* Vt = Kt + D * S::KS;    // [D][KS]
-  float* Qs = Vt + D * S::KS;    // [BQ][QS]
-  float* dOs = Qs + BQ * S::QS;  // [BQ][QS]
-  float* dSs = dOs + BQ * S::QS;  // [BQ][PS]
-
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-  // Causal: the last q tiles see the most keys; they launch first.
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;  // flat b*H + h
-  const int b = bh / H;
-  const int kvh = b * G + (bh % H) / (H / G);
-  const int q0 = qt * BQ;
-
-  const T* kb = k + (size_t)kvh * seq * D;
-  const T* vb = v + (size_t)kvh * seq * D;
-  load_rows<T, D>(Qs, S::QS, q + (size_t)bh * seq * D, q0, seq, tid);
-  load_rows<T, D>(dOs, S::QS, dout + (size_t)bh * seq * D, q0, seq, tid);
-  __syncthreads();
-  float lse_r[RPT], delta_r[RPT];
-  row_stats<T, D>(lse_r, delta_r, dOs, o + (size_t)bh * seq * D,
-                  lse + (size_t)bh * seq, q0, seq, ty, tx);
-
-  float acc[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
-
-  // The forward's KV range for this q tile.
-  int j_lo;
-  const int n_kv = sm90::kv_tiles(q0, BQ, BK, seq, causal, window, j_lo);
-  const int j_end = j_lo + n_kv;
-
-  for (int jt = j_lo; jt < j_end; ++jt) {
-    const int k0 = jt * BK;
-    __syncthreads();  // the previous tile's readers of Kt, Vt, dSs are done
-    load_kv_t<T, D>(Kt, Vt, kb, vb, k0, seq, tid);
-    __syncthreads();
-
-    float p[RPT][CPT], ds[RPT][CPT];
-    scores<D>(p, ds, Qs, dOs, Kt, Vt, lse_r, delta_r, q0, k0, seq, scale,
-              causal, window, ty, tx);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j)
-        dSs[(ty * RPT + i) * S::PS + tx + 16 * j] = round_to<T>(ds[i][j]);
-    __syncthreads();
-
-    // dQ[r] += sum_c dS[r][c] K[c], K read back from its transposed tile.
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float sv[RPT], kv[DPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) sv[i] = dSs[(ty * RPT + i) * S::PS + c];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) kv[j] = Kt[(tx + 16 * j) * S::KS + c];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) acc[i][j] = fmaf(sv[i], kv[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int qp = q0 + ty * RPT + i;
-    if (qp >= seq) continue;
-    T* row = dq + ((size_t)bh * seq + qp) * D;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) row[tx + 16 * j] = from_float<T>(acc[i][j]);
-  }
 }
 
 // ---- bf16 dK/dV: tensor cores (wgmma) -------------------------------------
@@ -517,7 +178,8 @@ __global__ void __launch_bounds__(WG)
   const int group = H / G;
   const int k0 = jt * BK;
 
-  // The q tiles that reach this KV tile (as flash_bwd_dkdv_kernel).
+  // The q tiles that reach this KV tile: causal starts at the diagonal, a
+  // window ends where the band of the tile's last key runs out.
   const int n_q = (seq + BQ - 1) / BQ;
   int i_lo = 0, i_hi = n_q - 1;
   if (causal) {
@@ -845,6 +507,570 @@ __global__ void __launch_bounds__(WG)
   }
 }
 
+// ---- f32: tensor cores, 3xTF32 (wgmma) -------------------------------------
+
+// acc[D/2] += X.B for one streamed tile: X is an m64 accumulator of KS
+// 8-column k-steps (f32, in registers), split here into its hi and lo TF32
+// A fragments (k-step j: (x[4j], x[4j+2], x[4j+1], x[4j+3]), see sm90.cuh);
+// B is a K-major [D][8*KS] tile BT (hi at bh, lo at bl) whose k index is
+// stored in tf32_key order.  The products go small first (Xhi.Blo,
+// Xlo.Bhi, Xhi.Bhi) into a fresh accumulator of NC output columns at a
+// time (rows NC*h.. of B), which is then added to acc in f32.
+template <int D, int KS, typename BT>
+__device__ __forceinline__ void add_product_tf32(float (&acc)[D / 2],
+                                                 const float (&x)[4 * KS],
+                                                 uint32_t bh, uint32_t bl) {
+  constexpr int NC = D < 64 ? D : 64;
+  uint32_t xh[4 * KS], xl[4 * KS];
+#pragma unroll
+  for (int j = 0; j < KS; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        sm90::split_tf32(x[4 * j + 2 * i + c], xh[4 * j + 2 * c + i],
+                         xl[4 * j + 2 * c + i]);
+  float tile[NC / 2];
+#pragma unroll
+  for (int n = 0; n < NC / 2; ++n) tile[n] = 0.f;
+#pragma unroll
+  for (int h = 0; h < D / NC; ++h) {
+    const uint32_t hh = bh + NC * h * BT::RB, hl = bl + NC * h * BT::RB;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < KS; ++j)
+      sm90::wgmma_rs_tf32<NC>(tile, xh[4 * j], xh[4 * j + 1], xh[4 * j + 2],
+                              xh[4 * j + 3], BT::kmajor(hl, j), j);
+#pragma unroll
+    for (int j = 0; j < KS; ++j)
+      sm90::wgmma_rs_tf32<NC>(tile, xl[4 * j], xl[4 * j + 1], xl[4 * j + 2],
+                              xl[4 * j + 3], BT::kmajor(hh, j), 1);
+#pragma unroll
+    for (int j = 0; j < KS; ++j)
+      sm90::wgmma_rs_tf32<NC>(tile, xh[4 * j], xh[4 * j + 1], xh[4 * j + 2],
+                              xh[4 * j + 3], BT::kmajor(hh, j), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(tile);
+#pragma unroll
+    for (int n = 0; n < NC / 2; ++n) acc[NC / 2 * h + n] += tile[n];
+  }
+}
+
+// The split pass of one raw [ROWS][D] f32 tile in shared memory (row-major,
+// 16-byte chunk i at 16*i): as stored into the hi/lo tiles at sh/sl
+// (Tile<D, ROWS, 4>, K-major over D) and transposed into the hi/lo tiles at
+// th/tl (Tile<ROWS, D, 4>: [D][ROWS], K-major over the rows, each 8-row
+// group in tf32_key order), spread over NT threads.
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void split_both(uint8_t* gbase, uint32_t base,
+                                           const float* src, uint32_t sh,
+                                           uint32_t sl, uint32_t th,
+                                           uint32_t tl, int tid) {
+  using ST = sm90::Tile<D, ROWS, 4>;
+  using TT = sm90::Tile<ROWS, D, 4>;
+  constexpr int CH = D / 4;  // 16-byte chunks of an f32 row
+  static_assert(ROWS * CH % NT == 0, "whole chunks per thread");
+#pragma unroll
+  for (int n = 0; n < ROWS * CH / NT; ++n) {
+    const int i = tid + n * NT;
+    uint4 hi, lo;
+    sm90::split_tf32x4(reinterpret_cast<const float4*>(src)[i], hi, lo);
+    const uint32_t off = ST::chunk(i / CH, i % CH);
+    *reinterpret_cast<uint4*>(gbase + (sh - base) + off) = hi;
+    *reinterpret_cast<uint4*>(gbase + (sl - base) + off) = lo;
+  }
+  // Row col of the transposed tile, chunk c: 4 source rows of column col.
+#pragma unroll
+  for (int n = 0; n < ROWS * CH / NT; ++n) {
+    const int i = tid + n * NT;
+    const int col = i % D, c = i / D;
+    const int row0 = 8 * (c / 2);
+    float4 x;
+    x.x = src[(row0 + sm90::tf32_key(4 * (c % 2) + 0)) * D + col];
+    x.y = src[(row0 + sm90::tf32_key(4 * (c % 2) + 1)) * D + col];
+    x.z = src[(row0 + sm90::tf32_key(4 * (c % 2) + 2)) * D + col];
+    x.w = src[(row0 + sm90::tf32_key(4 * (c % 2) + 3)) * D + col];
+    uint4 hi, lo;
+    sm90::split_tf32x4(x, hi, lo);
+    const uint32_t off = TT::chunk(col, c);
+    *reinterpret_cast<uint4*>(gbase + (th - base) + off) = hi;
+    *reinterpret_cast<uint4*>(gbase + (tl - base) + off) = lo;
+  }
+}
+
+// f32 dQ by head dim: NWG warpgroups of 64 q rows share each KV tile of BKT
+// keys.  Shared memory: Q and dO hi/lo per warpgroup (resident), K and V
+// hi/lo ([keys][D]), K^T hi/lo ([D][keys]) and the raw K and V tiles the
+// next copy lands in: 193 KiB at D = 64 (two warpgroups, 32-key tiles; 64
+// keys would need 257 KiB) and at D = 128 (one warpgroup, 16-key tiles).
+template <int D>
+struct DqTf32Cfg {
+  static constexpr int NWG = D == 128 ? 1 : 2;
+  static constexpr int BKT = D == 128 ? 16 : D == 64 ? 32 : 64;
+  static constexpr int NT = NWG * WG;
+  using QT = sm90::Tile<D, BQ, 4>;    // a warpgroup's Q or dO, hi or lo
+  using KT = sm90::Tile<D, BKT, 4>;   // K or V, hi or lo: B of S and dP
+  using KTT = sm90::Tile<BKT, D, 4>;  // K^T, hi or lo: B of dS.K
+  static constexpr int RAW = BKT * D * 4;  // a raw K or V tile, row-major
+  static constexpr size_t bytes = 1024 + 4 * NWG * QT::BYTES +
+                                  4 * KT::BYTES + 2 * KTT::BYTES + 2 * RAW;
+  static_assert(bytes <= 232448, "a block holds at most 227 KiB");
+};
+
+template <int D>
+__global__ void __launch_bounds__(DqTf32Cfg<D>::NT)
+    flash_bwd_dq_kernel_tf32(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ o,
+                             const float* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             float* __restrict__ dq, int H, int G, int seq,
+                             float scale, int causal, int window) {
+  using C = DqTf32Cfg<D>;
+  using QT = typename C::QT;
+  using KT = typename C::KT;
+  using KTT = typename C::KTT;
+  constexpr int BKT = C::BKT, NT = C::NT, BQB = BQ * C::NWG;
+  constexpr int CH = D / 4;  // 16-byte chunks of an f32 row
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = sm90::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);  // base as a generic pointer
+  const uint32_t sQ = base;  // warpgroup w: Q hi, lo, dO hi, lo at +4w tiles
+  const uint32_t sK = sQ + 4 * C::NWG * QT::BYTES;  // K hi, lo, V hi, lo
+  const uint32_t sKt = sK + 4 * KT::BYTES;          // K^T hi, lo
+  const uint32_t sRaw = sKt + 2 * KTT::BYTES;       // raw K, raw V
+
+  const int tid = threadIdx.x;
+  const int wg = tid / WG, wt = tid % WG;
+  // Heaviest causal tiles first (the last q tiles see the most keys).
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y;  // flat b*H + h
+  const int b = bh / H;
+  const int kvh = b * G + (bh % H) / (H / G);
+  const int q0 = qt * BQB;       // the block's first q row
+  const int q0w = q0 + BQ * wg;  // this warpgroup's
+  const size_t head = (size_t)bh * seq;
+  const float* kb = k + (size_t)kvh * seq * D;
+  const float* vb = v + (size_t)kvh * seq * D;
+
+  // The forward's KV range for the block's q rows.
+  int j_lo;
+  const int n_kv = sm90::kv_tiles(q0, BQB, BKT, seq, causal, window, j_lo);
+
+  // Raw K and V tile t, row-major, rows past seq zeroed.
+  auto load_kv = [&](int t) {
+    const int k0 = (j_lo + t) * BKT;
+    sm90::load_rows_f32<D, BKT, NT>(sRaw, kb, k0, seq, tid);
+    sm90::load_rows_f32<D, BKT, NT>(sRaw + C::RAW, vb, k0, seq, tid);
+  };
+  load_kv(0);
+  sm90::cp_async_commit();
+
+  // Q and dO, read once from device memory, split into each warpgroup's hi
+  // and lo tiles while KV tile 0 lands.
+  sm90::split_rows<D, BQB, NT>(gbase, base, sQ, 4 * QT::BYTES, q + head * D,
+                               q0, seq, tid);
+  sm90::split_rows<D, BQB, NT>(gbase, base, sQ + 2 * QT::BYTES,
+                               4 * QT::BYTES, dout + head * D, q0, seq, tid);
+
+  // This thread's accumulator rows r0 and r0 + 8 (of its warpgroup's 64),
+  // columns 8j + c0 (+1); their lse (log2 units) and delta = rowsum(dO * O)
+  // in f32, each row's delta from the 4 threads of its quad, D/4 columns
+  // each, read from device memory.
+  const int r0 = 16 * (wt >> 5) + ((wt & 31) >> 2);
+  const int c0 = 2 * (wt & 3);
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = q0w + r0 + 8 * i;
+    float part = 0.f;
+    if (qp < seq) {
+      const size_t off = (head + qp) * D + (wt & 3) * (D / 4);
+      const float4* g4 = reinterpret_cast<const float4*>(dout + off);
+      const float4* o4 = reinterpret_cast<const float4*>(o + off);
+#pragma unroll
+      for (int e = 0; e < D / 16; ++e) {
+        const float4 gv = g4[e], ov = o4[e];
+        part = fmaf(gv.x, ov.x, part);
+        part = fmaf(gv.y, ov.y, part);
+        part = fmaf(gv.z, ov.z, part);
+        part = fmaf(gv.w, ov.w, part);
+      }
+    }
+    delta[i] = quad_sum(part);
+    lse2[i] = qp < seq ? lse[head + qp] * LOG2E : 0.f;
+  }
+
+  const float sl2 = scale * LOG2E;
+  float acc[D / 2], s[BKT / 2], dp[BKT / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BKT / 2; ++i) s[i] = dp[i] = 0.f;
+
+  for (int t = 0; t < n_kv; ++t) {
+    sm90::cp_async_wait<0>();
+    __syncthreads();  // raw tile t is in; both warpgroups are done with the
+                      // split tiles of t - 1
+    // This iteration's tile addresses (see sm90::opaque).
+    const uint32_t sQh = sm90::opaque(sQ + wg * 4 * QT::BYTES);
+    const uint32_t sQl = sQh + QT::BYTES, sGh = sQl + QT::BYTES;
+    const uint32_t sGl = sGh + QT::BYTES;
+    const uint32_t sKh = sm90::opaque(sK), sKl = sKh + KT::BYTES;
+    const uint32_t sVh = sKl + KT::BYTES, sVl = sVh + KT::BYTES;
+    const uint32_t sKth = sVl + KT::BYTES, sKtl = sKth + KTT::BYTES;
+    // The split pass: K as stored and transposed (K^T, keys in tf32_key
+    // order), V as stored.
+    {
+      const float* rk = reinterpret_cast<const float*>(gbase + (sRaw - base));
+      const float* rv = rk + C::RAW / 4;
+      split_both<D, BKT, NT>(gbase, base, rk, sKh, sKl, sKth, sKtl, tid);
+#pragma unroll
+      for (int n = 0; n < BKT * CH / NT; ++n) {
+        const int i = tid + n * NT;
+        uint4 hi, lo;
+        sm90::split_tf32x4(reinterpret_cast<const float4*>(rv)[i], hi, lo);
+        const uint32_t off = KT::chunk(i / CH, i % CH);
+        *reinterpret_cast<uint4*>(gbase + (sVh - base) + off) = hi;
+        *reinterpret_cast<uint4*>(gbase + (sVl - base) + off) = lo;
+      }
+    }
+    sm90::fence_proxy_async();
+    __syncthreads();  // the split tiles are in; the raw tiles are free
+    if (t + 1 < n_kv) load_kv(t + 1);
+    sm90::cp_async_commit();
+
+    // Skip a tile none of this warpgroup's rows sees (causal: above its
+    // diagonal or past its window; ragged: no q row left).
+    const int k0 = (j_lo + t) * BKT;
+    const bool live =
+        q0w < seq &&
+        !(causal && (k0 > q0w + BQ - 1 ||
+                     (window > 0 && q0w - (k0 + BKT - 1) >= window)));
+    if (!live) continue;
+
+    // S = Q.K^T and dP = dO.V^T, each as hi.lo + lo.hi + hi.hi (small
+    // first), issued back to back and waited on once.
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+      sm90::wgmma_ss_tf32<BKT>(s, QT::kmajor(sQh, kk), KT::kmajor(sKl, kk),
+                               kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+      sm90::wgmma_ss_tf32<BKT>(s, QT::kmajor(sQl, kk), KT::kmajor(sKh, kk),
+                               1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+      sm90::wgmma_ss_tf32<BKT>(s, QT::kmajor(sQh, kk), KT::kmajor(sKh, kk),
+                               1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+      sm90::wgmma_ss_tf32<BKT>(dp, QT::kmajor(sGh, kk), KT::kmajor(sVl, kk),
+                               kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+      sm90::wgmma_ss_tf32<BKT>(dp, QT::kmajor(sGl, kk), KT::kmajor(sVh, kk),
+                               1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+      sm90::wgmma_ss_tf32<BKT>(dp, QT::kmajor(sGh, kk), KT::kmajor(sVh, kk),
+                               1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+
+    // P = exp(scale S - lse) (0 where masked; the mask only on diagonal,
+    // window-edge and ragged tiles) and dS = P (dP - delta) scale, in f32.
+    const bool edge =
+        q0w + BQ > seq || k0 + BKT > seq ||
+        (causal && (k0 + BKT - 1 > q0w ||
+                    (window > 0 && q0w + BQ - 1 - k0 >= window)));
+#pragma unroll
+    for (int j = 0; j < BKT / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int idx = 4 * j + 2 * i + c;
+          float p = sm90::exp2_approx(fmaf(s[idx], sl2, -lse2[i]));
+          if (edge && !keep_pair(q0w + r0 + 8 * i, k0 + 8 * j + c0 + c, seq,
+                                 causal, window))
+            p = 0.f;
+          s[idx] = p * (dp[idx] - delta[i]) * scale;
+        }
+
+    // dQ += dS.K: dS the register A operand, K^T the K-major B operand.
+    add_product_tf32<D, BKT / 8, KTT>(acc, s, sKth, sKtl);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = q0w + r0 + 8 * i;
+    if (qp >= seq) continue;
+    float* row = dq + (head + qp) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j + c0) =
+          make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+  }
+}
+
+// f32 dK/dV by head dim: NWG warpgroups of 64 keys share each q tile of BQT
+// rows.  Shared memory: K and V hi/lo per warpgroup (resident), Q and dO
+// hi/lo ([q][D]), Q^T and dO^T hi/lo ([D][q]), the raw Q, dO and O tiles
+// the next copy lands in, and three vectors of BQT floats (the raw lse, and
+// the split pass's lse in log2 units and delta): 217 KiB at D = 64 (two
+// warpgroups, 32-row q tiles; 64 rows would need 265 KiB) and at D = 128
+// (one warpgroup, 16-row q tiles).
+template <int D>
+struct DkdvTf32Cfg {
+  static constexpr int NWG = D == 128 ? 1 : 2;
+  static constexpr int BQT = D == 128 ? 16 : D == 64 ? 32 : 64;
+  static constexpr int NT = NWG * WG;
+  static constexpr int BKB = BK * NWG;  // keys per block
+  using KT = sm90::Tile<D, BK, 4>;      // a warpgroup's K or V, hi or lo
+  using QT = sm90::Tile<D, BQT, 4>;     // Q or dO, hi or lo: B of S^T, dP^T
+  using QTT = sm90::Tile<BQT, D, 4>;    // Q^T or dO^T: B of dS^T.Q, P^T.dO
+  static constexpr int RAW = BQT * D * 4;  // a raw Q, dO or O tile
+  static constexpr int VEC = 4 * NWG * KT::BYTES + 4 * QT::BYTES +
+                             4 * QTT::BYTES + 3 * RAW;
+  static constexpr size_t bytes = 1024 + VEC + 3 * BQT * sizeof(float);
+  static_assert(bytes <= 232448, "a block holds at most 227 KiB");
+};
+
+template <int D>
+__global__ void __launch_bounds__(DkdvTf32Cfg<D>::NT)
+    flash_bwd_dkdv_kernel_tf32(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               const float* __restrict__ o,
+                               const float* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               float* __restrict__ dk, float* __restrict__ dv,
+                               int H, int G, int seq, float scale, int causal,
+                               int window) {
+  using C = DkdvTf32Cfg<D>;
+  using KT = typename C::KT;
+  using QT = typename C::QT;
+  using QTT = typename C::QTT;
+  constexpr int BQT = C::BQT, NT = C::NT;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = sm90::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);  // base as a generic pointer
+  const uint32_t sK = base;  // warpgroup w: K hi, lo, V hi, lo at +4w tiles
+  const uint32_t sQ = sK + 4 * C::NWG * KT::BYTES;  // Q hi, lo, dO hi, lo
+  const uint32_t sQt = sQ + 4 * QT::BYTES;     // Q^T hi, lo, dO^T hi, lo
+  const uint32_t sRaw = sQt + 4 * QTT::BYTES;  // raw Q, dO, O
+  float* lse_raw = reinterpret_cast<float*>(gbase + C::VEC);
+  float* lse_s = lse_raw + BQT;  // log2 units, for the products
+  float* delta_s = lse_s + BQT;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / WG, wt = tid % WG;
+  // Causal: the first KV tiles see the most q tiles; they launch first.
+  const int bg = blockIdx.y;  // flat b*G + g
+  const int b = bg / G, g = bg % G;
+  const int group = H / G;
+  const int k0 = blockIdx.x * C::BKB;  // the block's first key
+  const int kw0 = k0 + BK * wg;        // this warpgroup's
+
+  // The q tiles that reach the block's keys (as the bf16 kernel, with BQT
+  // rows and BKB keys).
+  const int n_q = (seq + BQT - 1) / BQT;
+  int i_lo = 0, i_hi = n_q - 1;
+  if (causal) {
+    i_lo = k0 / BQT;
+    if (window > 0) i_hi = min(i_hi, (window + k0 + C::BKB - 2) / BQT);
+  }
+  const int n_qt = i_hi - i_lo + 1;
+  const int n_iter = group * n_qt;  // the group's q heads x their q tiles
+
+  // Raw Q, dO, O and lse of iteration it: q head m = it / n_qt of the
+  // group, q tile i_lo + it % n_qt; rows past seq zeroed.
+  auto load_q = [&](int it) {
+    const size_t head = (size_t)(b * H + g * group + it / n_qt) * seq;
+    const int q0 = (i_lo + it % n_qt) * BQT;
+    sm90::load_rows_f32<D, BQT, NT>(sRaw, q + head * D, q0, seq, tid);
+    sm90::load_rows_f32<D, BQT, NT>(sRaw + C::RAW, dout + head * D, q0, seq,
+                                    tid);
+    sm90::load_rows_f32<D, BQT, NT>(sRaw + 2 * C::RAW, o + head * D, q0, seq,
+                                    tid);
+    if (tid < BQT) {
+      const bool ok = q0 + tid < seq;
+      sm90::cp_async4(sm90::smem_addr(lse_raw + tid),
+                      lse + head + (ok ? q0 + tid : 0), ok);
+    }
+  };
+  load_q(0);
+  sm90::cp_async_commit();
+
+  // K and V, read once from device memory, split into each warpgroup's hi
+  // and lo tiles while the first q tile lands.
+  sm90::split_rows<D, C::BKB, NT>(gbase, base, sK, 4 * KT::BYTES,
+                                 k + (size_t)bg * seq * D, k0, seq, tid);
+  sm90::split_rows<D, C::BKB, NT>(gbase, base, sK + 2 * KT::BYTES,
+                                  4 * KT::BYTES, v + (size_t)bg * seq * D, k0,
+                                  seq, tid);
+
+  // This thread's accumulator rows (keys) r0 and r0 + 8 and columns 8j + c0
+  // (+1): q rows of S^T and dP^T, head-dim columns of dK and dV.
+  const int r0 = 16 * (wt >> 5) + ((wt & 31) >> 2);
+  const int c0 = 2 * (wt & 3);
+  const float sl2 = scale * LOG2E;
+  float acc_k[D / 2], acc_v[D / 2], s[BQT / 2], dp[BQT / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BQT / 2; ++i) s[i] = dp[i] = 0.f;
+
+  for (int it = 0; it < n_iter; ++it) {
+    sm90::cp_async_wait<0>();
+    __syncthreads();  // raw tile it is in; both warpgroups are done with the
+                      // split tiles and vectors of it - 1
+    // This iteration's tile addresses (see sm90::opaque).
+    const uint32_t sKh = sm90::opaque(sK + wg * 4 * KT::BYTES);
+    const uint32_t sKl = sKh + KT::BYTES, sVh = sKl + KT::BYTES;
+    const uint32_t sVl = sVh + KT::BYTES;
+    const uint32_t sQh = sm90::opaque(sQ), sQl = sQh + QT::BYTES;
+    const uint32_t sGh = sQl + QT::BYTES, sGl = sGh + QT::BYTES;
+    const uint32_t sQth = sGl + QT::BYTES, sQtl = sQth + QTT::BYTES;
+    const uint32_t sGth = sQtl + QTT::BYTES, sGtl = sGth + QTT::BYTES;
+    // The split pass: Q and dO as stored and transposed (q rows in
+    // tf32_key order); then, TPR threads a q row, its lse in log2 units and
+    // delta = rowsum(dO * O) in f32.
+    {
+      const float* rq = reinterpret_cast<const float*>(gbase + (sRaw - base));
+      const float* rg = rq + C::RAW / 4;
+      const float* ro = rg + C::RAW / 4;
+      split_both<D, BQT, NT>(gbase, base, rq, sQh, sQl, sQth, sQtl, tid);
+      split_both<D, BQT, NT>(gbase, base, rg, sGh, sGl, sGth, sGtl, tid);
+      constexpr int TPR = NT / BQT;
+      static_assert(TPR <= 32 && D % (4 * TPR) == 0, "whole float4s");
+      const int row = tid / TPR, col0 = (tid % TPR) * (D / TPR);
+      float part = 0.f;
+#pragma unroll
+      for (int e = 0; e < D / TPR; e += 4) {
+        const float4 gv =
+            *reinterpret_cast<const float4*>(rg + row * D + col0 + e);
+        const float4 ov =
+            *reinterpret_cast<const float4*>(ro + row * D + col0 + e);
+        part = fmaf(gv.x, ov.x, part);
+        part = fmaf(gv.y, ov.y, part);
+        part = fmaf(gv.z, ov.z, part);
+        part = fmaf(gv.w, ov.w, part);
+      }
+#pragma unroll
+      for (int off = TPR / 2; off > 0; off >>= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, off);
+      if (tid % TPR == 0) {
+        delta_s[row] = part;
+        lse_s[row] = lse_raw[row] * LOG2E;
+      }
+    }
+    sm90::fence_proxy_async();
+    __syncthreads();  // the split tiles and vectors are in; raw is free
+    if (it + 1 < n_iter) load_q(it + 1);
+    sm90::cp_async_commit();
+
+    // Skip a q tile none of this warpgroup's keys sees (causal: below its
+    // diagonal or past its window; ragged: no key left).
+    const int q0 = (i_lo + it % n_qt) * BQT;
+    const bool live =
+        kw0 < seq &&
+        !(causal && (q0 + BQT - 1 < kw0 ||
+                     (window > 0 && q0 - (kw0 + BK - 1) >= window)));
+    if (!live) continue;
+
+    // S^T = K.Q^T and dP^T = V.dO^T (keys x q rows), each as hi.lo + lo.hi
+    // + hi.hi (small first), issued back to back and waited on once.
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+      sm90::wgmma_ss_tf32<BQT>(s, KT::kmajor(sKh, kk), QT::kmajor(sQl, kk),
+                               kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+      sm90::wgmma_ss_tf32<BQT>(s, KT::kmajor(sKl, kk), QT::kmajor(sQh, kk),
+                               1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+      sm90::wgmma_ss_tf32<BQT>(s, KT::kmajor(sKh, kk), QT::kmajor(sQh, kk),
+                               1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+      sm90::wgmma_ss_tf32<BQT>(dp, KT::kmajor(sVh, kk), QT::kmajor(sGl, kk),
+                               kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+      sm90::wgmma_ss_tf32<BQT>(dp, KT::kmajor(sVl, kk), QT::kmajor(sGh, kk),
+                               1);
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+      sm90::wgmma_ss_tf32<BQT>(dp, KT::kmajor(sVh, kk), QT::kmajor(sGh, kk),
+                               1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+
+    // P^T = exp(scale S^T - lse) (0 where masked) and dS^T = P^T (dP^T -
+    // delta) scale, per column (= q row) statistics, in f32.
+    const bool edge =
+        q0 + BQT > seq || kw0 + BK > seq ||
+        (causal && (kw0 + BK - 1 > q0 ||
+                    (window > 0 && q0 + BQT - 1 - kw0 >= window)));
+#pragma unroll
+    for (int j = 0; j < BQT / 8; ++j) {
+      const float2 lse2 =
+          *reinterpret_cast<const float2*>(lse_s + 8 * j + c0);
+      const float2 del2 =
+          *reinterpret_cast<const float2*>(delta_s + 8 * j + c0);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float lse_c = c ? lse2.y : lse2.x;
+        const float del_c = c ? del2.y : del2.x;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int idx = 4 * j + 2 * i + c;
+          float p = sm90::exp2_approx(fmaf(s[idx], sl2, -lse_c));
+          if (edge &&
+              !keep_pair(q0 + 8 * j + c0 + c, kw0 + r0 + 8 * i, seq, causal,
+                         window))
+            p = 0.f;
+          s[idx] = p;
+          dp[idx] = p * (dp[idx] - del_c) * scale;
+        }
+      }
+    }
+
+    // dV += P^T.dO and dK += dS^T.Q: P^T and dS^T the register A operands,
+    // dO^T and Q^T the K-major B operands.
+    add_product_tf32<D, BQT / 8, QTT>(acc_v, s, sGth, sGtl);
+    add_product_tf32<D, BQT / 8, QTT>(acc_k, dp, sQth, sQtl);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kp = kw0 + r0 + 8 * i;
+    if (kp >= seq) continue;
+    const size_t row = ((size_t)bg * seq + kp) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int idx = 4 * j + 2 * i;
+      *reinterpret_cast<float2*>(dk + row + 8 * j + c0) =
+          make_float2(acc_k[idx], acc_k[idx + 1]);
+      *reinterpret_cast<float2*>(dv + row + 8 * j + c0) =
+          make_float2(acc_v[idx], acc_v[idx + 1]);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *o, *dout, *lse;
   void *dq, *dk, *dv;
@@ -853,23 +1079,6 @@ struct Args {
   int causal, window;
   cudaStream_t stream;
 };
-
-template <typename T, int D>
-cudaError_t launch_dkdv(const Args& a) {
-  auto kern = flash_bwd_dkdv_kernel<T, D>;
-  const size_t smem = DkdvSmem<D>::bytes;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((a.seq + BK - 1) / BK, a.B * a.G);
-  kern<<<grid, NT, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.o),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H, a.G, a.seq, a.scale,
-      a.causal, a.window);
-  return cudaGetLastError();
-}
 
 template <int D>
 cudaError_t launch_dkdv_wgmma(const Args& a) {
@@ -886,22 +1095,6 @@ cudaError_t launch_dkdv_wgmma(const Args& a) {
       static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
       static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.H, a.G, a.seq,
       a.scale, a.causal, a.window);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_dq(const Args& a) {
-  auto kern = flash_bwd_dq_kernel<T, D>;
-  const size_t smem = DqSmem<D>::bytes;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((a.seq + BQ - 1) / BQ, a.B * a.H);
-  kern<<<grid, NT, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.o),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<T*>(a.dq), a.H, a.G, a.seq, a.scale, a.causal, a.window);
   return cudaGetLastError();
 }
 
@@ -922,17 +1115,52 @@ cudaError_t launch_dq_wgmma(const Args& a) {
   return cudaGetLastError();
 }
 
-// f32 -> flash_bwd_dkdv_kernel, flash_bwd_dq_kernel (FMA); bf16 ->
+template <int D>
+cudaError_t launch_dkdv_tf32(const Args& a) {
+  using C = DkdvTf32Cfg<D>;
+  auto kern = flash_bwd_dkdv_kernel_tf32<D>;
+  const size_t smem = C::bytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.seq + C::BKB - 1) / C::BKB, a.B * a.G);
+  kern<<<grid, C::NT, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.o),
+      static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.H, a.G, a.seq,
+      a.scale, a.causal, a.window);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_tf32(const Args& a) {
+  using C = DqTf32Cfg<D>;
+  auto kern = flash_bwd_dq_kernel_tf32<D>;
+  const size_t smem = C::bytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.seq + BQ * C::NWG - 1) / (BQ * C::NWG), a.B * a.H);
+  kern<<<grid, C::NT, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.o),
+      static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<float*>(a.dq), a.H, a.G, a.seq, a.scale, a.causal,
+      a.window);
+  return cudaGetLastError();
+}
+
+// f32 -> flash_bwd_dkdv_kernel_tf32, flash_bwd_dq_kernel_tf32; bf16 ->
 // flash_bwd_dkdv_kernel_wgmma, flash_bwd_dq_kernel_wgmma.
-template <bool DKDV, typename T>
+template <bool DKDV, bool BF16>
 cudaError_t dispatch_dim(const Args& a, int D) {
-  constexpr bool BF16 = !std::is_same<T, float>::value;
 #define DCT_BWD_CASE(DIM)                                                \
   case DIM:                                                              \
     if constexpr (DKDV && BF16) return launch_dkdv_wgmma<DIM>(a);        \
-    else if constexpr (DKDV) return launch_dkdv<T, DIM>(a);              \
+    else if constexpr (DKDV) return launch_dkdv_tf32<DIM>(a);            \
     else if constexpr (BF16) return launch_dq_wgmma<DIM>(a);             \
-    else return launch_dq<T, DIM>(a);
+    else return launch_dq_tf32<DIM>(a);
   switch (D) {
     DCT_BWD_CASE(16)
     DCT_BWD_CASE(32)
@@ -950,8 +1178,8 @@ int run(const Args& a, int D, int dtype) {
   if (a.B <= 0 || a.H <= 0 || a.G <= 0 || a.seq <= 0 || a.H % a.G != 0 ||
       rows > 65535)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return (int)dispatch_dim<DKDV, float>(a, D);
-  if (dtype == 1) return (int)dispatch_dim<DKDV, __nv_bfloat16>(a, D);
+  if (dtype == 0) return (int)dispatch_dim<DKDV, false>(a, D);
+  if (dtype == 1) return (int)dispatch_dim<DKDV, true>(a, D);
   return (int)cudaErrorInvalidValue;
 }
 

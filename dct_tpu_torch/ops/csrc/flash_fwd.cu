@@ -300,14 +300,6 @@ struct Tf32Cfg {
                                   2 * KT::BYTES + 2 * VT::BYTES + 2 * RAW;
 };
 
-__device__ __forceinline__ void split4(const float4& x, uint4& hi,
-                                       uint4& lo) {
-  sm90::split_tf32(x.x, hi.x, lo.x);
-  sm90::split_tf32(x.y, hi.y, lo.y);
-  sm90::split_tf32(x.z, hi.z, lo.z);
-  sm90::split_tf32(x.w, hi.w, lo.w);
-}
-
 template <int D>
 __global__ void __launch_bounds__(Tf32Cfg<D>::NT)
     flash_fwd_kernel_tf32(const float* __restrict__ q,
@@ -377,7 +369,7 @@ __global__ void __launch_bounds__(Tf32Cfg<D>::NT)
         x = *reinterpret_cast<const float4*>(qb + (size_t)(q0 + r) * D +
                                              4 * c);
       uint4 hi, lo;
-      split4(x, hi, lo);
+      sm90::split_tf32x4(x, hi, lo);
       const uint32_t t = sQ + (r / BQ) * 2 * QT::BYTES + QT::chunk(r % BQ, c);
       *reinterpret_cast<uint4*>(at(t)) = hi;
       *reinterpret_cast<uint4*>(at(t + QT::BYTES)) = lo;
@@ -417,7 +409,8 @@ __global__ void __launch_bounds__(Tf32Cfg<D>::NT)
       for (int n = 0; n < BKT * CH / NT; ++n) {
         const int i = tid + n * NT;
         uint4 hi, lo;
-        split4(*reinterpret_cast<const float4*>(rk + 4 * i), hi, lo);
+        sm90::split_tf32x4(*reinterpret_cast<const float4*>(rk + 4 * i), hi,
+                           lo);
         const uint32_t off = KT::chunk(i / CH, i % CH);
         *reinterpret_cast<uint4*>(at(sKh + off)) = hi;
         *reinterpret_cast<uint4*>(at(sKl + off)) = lo;
@@ -433,7 +426,7 @@ __global__ void __launch_bounds__(Tf32Cfg<D>::NT)
         x.z = rv[(key0 + sm90::tf32_key(4 * (c % 2) + 2)) * D + col];
         x.w = rv[(key0 + sm90::tf32_key(4 * (c % 2) + 3)) * D + col];
         uint4 hi, lo;
-        split4(x, hi, lo);
+        sm90::split_tf32x4(x, hi, lo);
         const uint32_t off = VT::chunk(col, c);
         *reinterpret_cast<uint4*>(at(sVh + off)) = hi;
         *reinterpret_cast<uint4*>(at(sVl + off)) = lo;

@@ -1,8 +1,9 @@
 // Device helpers for the port's Hopper (sm_90a) kernels: shared-memory
 // matrix descriptors, wgmma wrappers (bf16 or TF32 in, f32 accumulators),
-// the wgmma and async-proxy fences, cp.async copies, the swizzle of 32-,
-// 64- and 128-byte rows, the 3xTF32 split of an f32 value, and the KV tile
-// range of a q tile under the causal mask and window.
+// the wgmma and async-proxy fences, cp.async copies (bf16 tiles, raw f32
+// rows), the swizzle of 32-, 64- and 128-byte rows, the 3xTF32 split of an
+// f32 value and of f32 rows, and the KV tile range of a q tile under the
+// causal mask and window.
 //
 // Tile layout.  A [ROWS][D] tile of E-byte elements (bf16: E = 2; f32 as
 // TF32: E = 4) is kept in shared memory the way wgmma reads a swizzled
@@ -169,6 +170,15 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// x, opaque to the compiler.  A tile address laundered once per loop
+// iteration is not loop-invariant, so the wgmma descriptors computed from
+// it are not hoisted out of the loop, one register pair per k-step and
+// tile, which spills a kernel whose tiles are all at fixed addresses.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
 // ---- math ----------------------------------------------------------------
 
 // 2^x on the SFU: one ex2.approx.ftz (about 2 ulp; -inf gives +0), where
@@ -198,6 +208,62 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
   hi = tf32_rna(x);
   lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// split_tf32 of four values (a 16-byte chunk of an f32 row).
+__device__ __forceinline__ void split_tf32x4(const float4& x, uint4& hi,
+                                             uint4& lo) {
+  split_tf32(x.x, hi.x, lo.x);
+  split_tf32(x.y, hi.y, lo.y);
+  split_tf32(x.z, hi.z, lo.z);
+  split_tf32(x.w, hi.w, lo.w);
+}
+
+// Rows row0..row0+ROWS-1 of a [seq][D] f32 matrix into a raw row-major
+// tile at dst (16-byte chunk i at 16*i; rows at or past seq zeroed), one
+// 16-byte cp.async per chunk, spread over NT threads.
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void load_rows_f32(uint32_t dst, const float* src,
+                                              int row0, int seq, int tid) {
+  constexpr int CH = D / 4;  // 16-byte chunks of an f32 row
+  static_assert(ROWS * CH % NT == 0, "whole chunks per thread");
+#pragma unroll
+  for (int n = 0; n < ROWS * CH / NT; ++n) {
+    const int i = tid + n * NT;
+    const int r = i / CH;
+    const bool ok = row0 + r < seq;
+    cp_async16(dst + 16 * i,
+               src + (size_t)(ok ? row0 + r : 0) * D + 4 * (i % CH), ok);
+  }
+}
+
+// Rows row0..row0+ROWS-1 of a [seq][D] f32 matrix, read once from device
+// memory and split as stored into TF32 hi and lo tiles of 64 rows each
+// (Tile<D, 64, 4>): rows 64w.. into the hi tile at dst + w * stride and
+// the lo tile after it; rows past seq are zero.  gbase is the generic
+// pointer of the shared address base; NT threads.
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void split_rows(uint8_t* gbase, uint32_t base,
+                                           uint32_t dst, uint32_t stride,
+                                           const float* src, int row0,
+                                           int seq, int tid) {
+  using T = Tile<D, 64, 4>;
+  constexpr int CH = D / 4;
+  static_assert(ROWS * CH % NT == 0, "whole chunks per thread");
+#pragma unroll
+  for (int n = 0; n < ROWS * CH / NT; ++n) {
+    const int i = tid + n * NT;
+    const int r = i / CH, c = i % CH;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < seq)
+      x = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D +
+                                           4 * c);
+    uint4 hi, lo;
+    split_tf32x4(x, hi, lo);
+    const uint32_t t = dst + (r / 64) * stride + T::chunk(r % 64, c);
+    *reinterpret_cast<uint4*>(gbase + (t - base)) = hi;
+    *reinterpret_cast<uint4*>(gbase + (t - base) + T::BYTES) = lo;
+  }
 }
 
 // The key of an 8-key group that the k index kp of a TF32 register A
@@ -375,9 +441,23 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0,
 
 // ---- wgmma, TF32 ----------------------------------------------------------
 
-// D[64xN] (+)= A[64x8] B[8xN] in TF32 (f32 bits; the low 13 mantissa bits
-// are ignored, so callers round first: split_tf32), A and B from shared
-// memory, both K-major (TF32 has no transpose); scale_d = 0 overwrites D.
+// D[64xN] (+)= A[64x8] B[8xN] in TF32 for N = 16, 32, 64 (f32 bits; the
+// low 13 mantissa bits are ignored, so callers round first: split_tf32), A
+// and B from shared memory, both K-major (TF32 has no transpose); scale_d =
+// 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_tf32_n16(float (&d)[8], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_ss_tf32_n32(float (&d)[16], uint64_t da,
                                                   uint64_t db, int scale_d) {
   asm volatile(
@@ -420,7 +500,8 @@ __device__ __forceinline__ void wgmma_ss_tf32_n64(float (&d)[32], uint64_t da,
 template <int N>
 __device__ __forceinline__ void wgmma_ss_tf32(float (&d)[N / 2], uint64_t da,
                                               uint64_t db, int scale_d) {
-  if constexpr (N == 32) wgmma_ss_tf32_n32(d, da, db, scale_d);
+  if constexpr (N == 16) wgmma_ss_tf32_n16(d, da, db, scale_d);
+  else if constexpr (N == 32) wgmma_ss_tf32_n32(d, da, db, scale_d);
   else wgmma_ss_tf32_n64(d, da, db, scale_d);
 }
 

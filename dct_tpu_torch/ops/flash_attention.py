@@ -8,8 +8,7 @@ the one entry point:
   :mod:`dct_tpu_torch.ops.build`) on the current stream, or raises; the C
   entry point picks the kernel by dtype (bf16: the tensor-core kernel,
   ``wgmma``; f32: the tensor cores in 3xTF32, f32-accurate products), as
-  ``csrc/flash_bwd.cu`` does for dK/dV and dQ (bf16: ``wgmma``; f32: the
-  FMA kernels);
+  ``csrc/flash_bwd.cu`` does for dK/dV and dQ;
 - on a CPU tensor it runs :func:`flash_attention_plain`, the same function
   written in PyTorch (online softmax over KV blocks, the same masks, the
   same ``(o, lse)``);
@@ -26,8 +25,9 @@ head dims 16/32/64/128. Not yet ported (the wrapper raises): ``q_offset``
 and rectangular ``Tq != Tk``, which only the ring engine's per-shard calls
 use, and the backward through the lse output (the ring's merge weights).
 ``block_q``/``block_k`` keep the reference's contract (T must be a
-multiple of each) and set the plain versions' blocks; the CUDA kernels'
-own tiles are 64 x 64 and their loops mask any ragged edge.
+multiple of each) and set the plain versions' blocks; the CUDA kernels
+pick their own tiles (64 rows a warpgroup, 16-64 in the streamed f32
+tiles) and their loops mask any ragged edge.
 """
 
 from __future__ import annotations

@@ -195,6 +195,30 @@ def test_bwd_kernels_match_plain(card, causal, window, g, d, dtype):
         assert _rel_err(got, ref) <= BWD_TOL[dtype]
 
 
+# The f32 backward runs 3xTF32 on the tensor cores: about 2^-22 of each
+# product is lost, where a single TF32 pass keeps 11 bits of each operand
+# and loses about 2^-11 (5e-4) of each, above this 1e-4 gate.
+@pytest.mark.parametrize(
+    "causal,window,g,d,q_scale",
+    [(*case, 1.0) for case in CASES]
+    + [(False, None, 4, 64, 3.0)],  # larger scores, a sharper softmax
+)
+def test_f32_bwd_within_3xtf32_tolerance(card, causal, window, g, d,
+                                         q_scale):
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's f32
+    q, k, v, _, _, do = _bwd_inputs(17, g, d, torch.float32, card,
+                                    causal=causal, window=window)
+    q = q * q_scale
+    o, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                return_lse=True)
+    args = (q, k, v, o, lse, do)
+    dk, dv = fa.flash_bwd_dkdv(*args, causal=causal, window=window)
+    dq = fa.flash_bwd_dq(*args, causal=causal, window=window)
+    want = fa.flash_attention_bwd_plain(*args, causal=causal, window=window)
+    for got, ref in zip((dq, dk, dv), want):
+        assert _rel_err(got, ref) <= BWD_TOL[torch.float32]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_kernels_ragged_length_match_plain(card, dtype):
     """T=200 is not a multiple of the kernels' 64-row tiles."""
@@ -207,12 +231,13 @@ def test_bwd_kernels_ragged_length_match_plain(card, dtype):
         assert _rel_err(got, ref) <= BWD_TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal,window,g,d", CASES)
-def test_bf16_dkdv_is_bitwise_deterministic(card, causal, window, g, d):
+def test_bf16_dkdv_is_bitwise_deterministic(card, causal, window, g, d,
+                                            dtype):
     """One block sums a KV tile's whole GQA group in a fixed order (no
-    atomics): two launches give the same bits."""
-    args = _bwd_inputs(14, g, d, torch.bfloat16, card, causal=causal,
-                       window=window)
+    atomics): two launches give the same bits, in bf16 and in f32."""
+    args = _bwd_inputs(14, g, d, dtype, card, causal=causal, window=window)
     first = fa.flash_bwd_dkdv(*args, causal=causal, window=window)
     second = fa.flash_bwd_dkdv(*args, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -220,12 +245,12 @@ def test_bf16_dkdv_is_bitwise_deterministic(card, causal, window, g, d):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal,window,g,d", CASES)
-def test_bf16_dq_is_bitwise_deterministic(card, causal, window, g, d):
+def test_bf16_dq_is_bitwise_deterministic(card, causal, window, g, d, dtype):
     """One block owns its dQ tile and sums the KV tiles in a fixed order
-    (no atomics): two launches give the same bits."""
-    args = _bwd_inputs(16, g, d, torch.bfloat16, card, causal=causal,
-                       window=window)
+    (no atomics): two launches give the same bits, in bf16 and in f32."""
+    args = _bwd_inputs(16, g, d, dtype, card, causal=causal, window=window)
     first = fa.flash_bwd_dq(*args, causal=causal, window=window)
     second = fa.flash_bwd_dq(*args, causal=causal, window=window)
     torch.cuda.synchronize()

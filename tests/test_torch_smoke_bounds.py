@@ -40,3 +40,13 @@ def test_bound_is_bytes_where_bytes_take_longer():
     assert (by, basis) == ("bytes", "bytes")
     assert ms == pytest.approx((4 * 32 * 8 * 64 * 4 + 32 * 8 * 4)
                                / chip_smoke.PEAK_BYTES * 1e3)
+
+
+def test_every_kernel_and_dtype_is_held_to_the_tensor_cores():
+    """Every (kernel, dtype) pair of the port is on the SASS check: each
+    instance must hold HGMMA, and none may spill."""
+    assert set(chip_smoke.TENSOR_CORE_SASS) == {
+        (kernel, dtype)
+        for kernel in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+        for dtype in ("bf16", "f32")
+    }
