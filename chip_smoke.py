@@ -83,6 +83,35 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
        names of each kind (which kernel of a dtype ran), and the device's
        idle share between the step's first and last kernel.
 
+7. (c1/c2) The two repairs of the wrappers and the grids, on the card:
+   forward and backward at head dims 8 and 48 (T=256, B=2, H=4, zero-padded
+   by the wrappers to the 16 and 64 instances), f32 and bf16, against the
+   plain version (1e-5 on o and 1e-4 of max|plain| on the gradients in f32,
+   2e-2 and 1e-2 in bf16); and one forward, dK/dV and dQ at B*H = 65536
+   (B=8192, H=8, T=128, D=16, causal), past the 65535 blocks
+   ``gridDim.y`` allows, in bf16 and in f32 (the two dtypes' kernels read
+   the grid differently), against the plain version with the same gates.
+8. (f) ``Trainer.fit`` of ``weather_mlp`` under the val-parity protocol
+   (``tests/test_val_parity.py``): 4000 rows of the port's synthetic CSV,
+   z-scored per column with the sample std and labelled ``rain -> 1`` as
+   the ETL does, the seeded 80/20 split, batch 4, Adam at lr 0.01,
+   dropout 0.2, 10 epochs, the trainer's defaults otherwise, on ``cuda:0``
+   and then with ``device="cpu"``: both reach val_acc > 0.8 and their
+   val_losses lie within 0.03 of each other (the dropout streams differ
+   by device, so the band is the claim). The best checkpoint goes through
+   ``generate_score_package``; the package's ``score.py`` (numpy) scores
+   32 rows within 1e-5 of the checkpoint's model on the card (f32
+   compute). Prints each epoch's wall time and samples/s.
+9. (g) ``Trainer.fit`` of ``weather_transformer`` at full width (bf16
+   compute, Adam lr 1e-3, batch 32, one epoch over the AR(1) rows of 6.,
+   passed as ``data=``), with the kernels' launch counts set to 0 just
+   before and read just after: 4 forward launches per train step and per
+   eval batch, 4 dK/dV and 4 dQ per train step. Prints the epoch's wall
+   time, its share per train step and the median device time of a train
+   step (CUDA events around each step, no synchronization) beside (b)'s
+   median step; reloads ``last.ckpt`` into a fresh model and holds its
+   validation loss to the fit's within 1e-6.
+
 Prints the ``kernels`` JSON line (each kernel with its f32 numbers at the
 top level, as earlier slices did, a ``bf16`` summary beside them, and its
 ``tensor_core_instructions`` by dtype), then the card line, then, last,
@@ -489,19 +518,13 @@ class PlainAttention(torch.autograd.Function):
         return (*grads, None)
 
 
-def train_data(family: str):
-    """Seeded AR(1) rows (5 features; the label is the sign of the next
-    row's first feature, which the window's last rows predict) through the
-    port's windows, split and loader: ``TRAIN_STEPS`` train batches and
-    the validation batches, as ``[S, B, ...]`` stacks."""
+def ar1_rows():
+    """Seeded AR(1) rows, 5 features, labelled by the sign of the first:
+    132 train batches of windows, a gap of seq_len, then one batch of val
+    windows."""
     from dct_tpu_torch.data.dataset import WeatherArrays
-    from dct_tpu_torch.data.pipeline import BatchLoader, contiguous_split
-    from dct_tpu_torch.data.windows import make_windows
-    from dct_tpu_torch.models.registry import is_causal_model
 
     seq = SERVE_CFG["seq_len"]
-    causal = is_causal_model(family)
-    # 132 train batches, a gap of seq_len, then one batch of val windows.
     n_windows = int((seq + BATCH) / 0.2)
     rng = np.random.default_rng(0)
     rows = np.zeros((n_windows + seq, 5), np.float32)
@@ -509,10 +532,21 @@ def train_data(family: str):
     for i in range(1, len(rows)):
         rows[i] = 0.9 * rows[i - 1] + 0.44 * noise[i]
     labels = (rows[:, 0] > 0).astype(np.int32)
-    data = make_windows(
-        WeatherArrays(rows, labels, [f"f{i}" for i in range(5)]), seq,
-        per_position_labels=causal,
-    )
+    return WeatherArrays(rows, labels, [f"f{i}" for i in range(5)])
+
+
+def train_data(family: str):
+    """Seeded AR(1) rows (5 features; the label is the sign of the next
+    row's first feature, which the window's last rows predict) through the
+    port's windows, split and loader: ``TRAIN_STEPS`` train batches and
+    the validation batches, as ``[S, B, ...]`` stacks."""
+    from dct_tpu_torch.data.pipeline import BatchLoader, contiguous_split
+    from dct_tpu_torch.data.windows import make_windows
+    from dct_tpu_torch.models.registry import is_causal_model
+
+    seq = SERVE_CFG["seq_len"]
+    causal = is_causal_model(family)
+    data = make_windows(ar1_rows(), seq, per_position_labels=causal)
     train_idx, val_idx = contiguous_split(len(data), val_fraction=0.2,
                                           gap=seq)
     train = BatchLoader(data, train_idx, global_batch=BATCH, shuffle=True,
@@ -757,6 +791,262 @@ def train_phase(fa) -> dict:
     return results
 
 
+def c2_row(fa, gen, dtype, shape) -> dict:
+    """(c2): forward, dK/dV and dQ at B*H past gridDim.y's 65535 against
+    the plain version, and their times at that shape."""
+    b, h, t, d = shape
+    q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda",
+                               dtype=dtype) for _ in range(4))
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    dk, dv = fa.flash_bwd_dkdv(q, k, v, o, lse, do, causal=True)
+    dq = fa.flash_bwd_dq(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    po, plse = fa.flash_attention_plain(q, k, v, causal=True)
+    row = {"shape": [b, h, t, d], "rows": b * h,
+           "dtype": str(dtype).replace("torch.", ""),
+           "o_err": (o.float() - po.float()).abs().max().item(),
+           "lse_err": (lse - plse).abs().max().item()}
+    del po, plse
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    row["grad_rel_errs"] = {n: abs_rel_err(got, ref)[1] for n, got, ref in
+                            zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+    del want
+    row["ms"] = {
+        "flash_fwd": time_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+                                                        return_lse=True),
+                             runs=3, per_run=3),
+        "flash_bwd_dkdv": time_ms(lambda: fa.flash_bwd_dkdv(
+            q, k, v, o, lse, do, causal=True), runs=3, per_run=3),
+        "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(
+            q, k, v, o, lse, do, causal=True), runs=3, per_run=3),
+    }
+    if not (row["o_err"] <= FWD_TOL[dtype] and row["lse_err"] <= 1e-4
+            and max(row["grad_rel_errs"].values()) <= BWD_TOL[dtype]):
+        raise AssertionError(f"(c2) B*H = {b * h}: {row}")
+    print(f"[smoke] (c2) {row}", flush=True)
+    del q, k, v, do, o, lse, dk, dv, dq
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_repairs(fa) -> dict:
+    """(c1/c2): padded head dims and the grid past 65535 rows."""
+    out = {"c1": [], "c2": {}}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b, h, g, t = 2, 4, 2, 256
+    for d in (8, 48):
+        for dtype in (torch.float32, torch.bfloat16):
+            causal = d == 48
+            q = torch.randn(b, h, t, d, generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn(b, g, t, d, generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            do = torch.randn(b, h, t, d, generator=gen, device="cuda").to(dtype)
+            o, lse = fa.flash_attention(q, k, v, causal=causal,
+                                        return_lse=True)
+            po, plse = fa.flash_attention_plain(q, k, v, causal=causal)
+            o_err = (o.float() - po.float()).abs().max().item()
+            lse_err = (lse - plse).abs().max().item()
+            args = (q, k, v, o, lse, do)
+            dk, dv = fa.flash_bwd_dkdv(*args, causal=causal)
+            dq = fa.flash_bwd_dq(*args, causal=causal)
+            want = fa.flash_attention_bwd_plain(*args, causal=causal)
+            errs = {n: abs_rel_err(got, ref)[1]
+                    for n, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                           want)}
+            row = {"d": d, "dtype": str(dtype).replace("torch.", ""),
+                   "causal": causal, "o_err": o_err, "lse_err": lse_err,
+                   "grad_rel_errs": errs}
+            if not (o_err <= FWD_TOL[dtype] and lse_err <= 1e-4
+                    and max(errs.values()) <= BWD_TOL[dtype]
+                    and dq.shape == q.shape and dk.shape == k.shape):
+                raise AssertionError(f"(c1) padded head dim: {row}")
+            out["c1"].append(row)
+            print(f"[smoke] (c1) {row}", flush=True)
+    b, h, t, d = 8192, 8, 128, 16
+    for dtype in (torch.bfloat16, torch.float32):
+        out["c2"][str(dtype).replace("torch.", "")] = c2_row(fa, gen, dtype,
+                                                            (b, h, t, d))
+    return out
+
+
+def etl_rows(path: str):
+    """The ETL's transform of a weather CSV in numpy: each feature
+    z-scored with its sample std, ``Rain == "rain"`` -> 1."""
+    from dct_tpu_torch.data.dataset import WeatherArrays
+    from dct_tpu_torch.data.synthetic import FEATURE_COLUMNS
+
+    raw = np.genfromtxt(path, delimiter=",", skip_header=1, dtype=str)
+    x = raw[:, :5].astype(np.float64)
+    x = ((x - x.mean(0)) / x.std(0, ddof=1)).astype(np.float32)
+    y = (raw[:, 5] == "rain").astype(np.int32)
+    return WeatherArrays(x, y, [f"{c}_norm" for c in FEATURE_COLUMNS])
+
+
+def fit_mlp_phase(root: str, devices=("cuda:0", "cpu")) -> dict:
+    """(f): the val-parity protocol through Trainer.fit on the card and on
+    the CPU, then the score package against the card's forward."""
+    import importlib.util
+
+    from dct_tpu_torch.checkpoint.manager import flatten_tree, load_checkpoint
+    from dct_tpu_torch.config import DataConfig, ModelConfig, RunConfig
+    from dct_tpu_torch.config import TrainConfig
+    from dct_tpu_torch.convert import load_flax_weights
+    from dct_tpu_torch.data.synthetic import generate_weather_csv
+    from dct_tpu_torch.models.registry import config_from_meta, get_model
+    from dct_tpu_torch.serving.score_gen import generate_score_package
+    from dct_tpu_torch.tracking.client import LocalTracking
+    from dct_tpu_torch.train.trainer import Trainer
+
+    data = etl_rows(generate_weather_csv(os.path.join(root, "weather.csv"),
+                                         rows=4000, seed=0))
+    results = []
+    for i, device in enumerate(devices):
+        tag = f"{device.split(':')[0]}{i}"
+        cfg = RunConfig(
+            data=DataConfig(models_dir=os.path.join(root, f"models-{tag}")),
+            model=ModelConfig(name="weather_mlp", dropout=0.2),
+            train=TrainConfig(epochs=10, batch_size=4, lr=0.01))
+        res = Trainer(cfg, device=device, tracker=LocalTracking(
+            root=os.path.join(root, "mlruns"))).fit(data)
+        row = {"device": device, "val_loss": res.val_loss,
+               "val_acc": res.val_acc,
+               "val_losses": [h["val_loss"] for h in res.history],
+               "epoch_s": res.epoch_seconds,
+               "samples_per_s": res.samples_per_sec,
+               "steady_samples_per_s": res.steady_samples_per_sec,
+               "best": os.path.basename(res.best_model_path)}
+        results.append((row, res))
+        print(f"[smoke] (f) fit weather_mlp {row}", flush=True)
+    (cuda_row, cuda_res), (cpu_row, _) = results
+    gap = abs(cuda_row["val_loss"] - cpu_row["val_loss"])
+    if not (cuda_row["val_acc"] > 0.8 and cpu_row["val_acc"] > 0.8
+            and gap < 0.03):
+        raise AssertionError(f"(f) val parity: cuda {cuda_row} cpu {cpu_row}")
+    if not all(p.device == torch.device(devices[0])
+               for p in cuda_res.state.params):
+        raise AssertionError("(f) the card's fit left a parameter off the card")
+
+    pkg = os.path.join(root, "package")
+    meta = generate_score_package(cuda_res.best_model_path, pkg)
+    params, _ = load_checkpoint(cuda_res.best_model_path)
+    model = get_model(config_from_meta(meta), device=DEVICE)
+    load_flax_weights(model, flatten_tree(params["params"]))
+    x = np.random.default_rng(7).standard_normal((32, 5)).astype(np.float32)
+    with torch.no_grad():
+        want = torch.softmax(model(torch.from_numpy(x).to(DEVICE)),
+                             -1).cpu().numpy()
+    os.environ["AZUREML_MODEL_DIR"] = pkg
+    spec = importlib.util.spec_from_file_location(
+        "smoke_score", os.path.join(pkg, "score.py"))
+    score = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(score)
+    score.init()
+    got = np.asarray(score.run(json.dumps({"data": x.tolist()}))[
+        "probabilities"])
+    err = float(np.abs(got - want).max())
+    if not (got.shape == (32, 2) and err <= 1e-5):
+        raise AssertionError(f"(f) package vs card forward: {err} (tol 1e-5)")
+    out = {"cuda": cuda_row, "cpu": cpu_row, "val_loss_gap": gap,
+           "package_vs_card_max_abs_err": err,
+           "package": sorted(os.listdir(pkg))}
+    print(f"[smoke] (f) check: val_acc {cuda_row['val_acc']:.4f} (cuda), "
+          f"{cpu_row['val_acc']:.4f} (cpu) > 0.8; |val_loss gap| {gap} < "
+          f"0.03; package vs card {err} <= 1e-5", flush=True)
+    return out
+
+
+def fit_transformer_phase(fa, root: str, step_ms_b: float) -> dict:
+    """(g): one epoch of the full-width transformer through Trainer.fit,
+    its kernel launches counted."""
+    from dct_tpu_torch.checkpoint.manager import flatten_tree, load_checkpoint
+    from dct_tpu_torch.config import DataConfig, ModelConfig, RunConfig
+    from dct_tpu_torch.config import TrainConfig
+    from dct_tpu_torch.convert import load_flax_weights
+    from dct_tpu_torch.data.pipeline import BatchLoader, contiguous_split
+    from dct_tpu_torch.data.windows import make_windows
+    from dct_tpu_torch.models.registry import config_from_meta, get_model
+    from dct_tpu_torch.tracking.client import LocalTracking
+    from dct_tpu_torch.train import steps
+    from dct_tpu_torch.train.state import TrainState
+    from dct_tpu_torch.train.trainer import Trainer
+
+    rows = ar1_rows()
+    seq = SERVE_CFG["seq_len"]
+    cfg = RunConfig(
+        data=DataConfig(models_dir=os.path.join(root, "models-tf")),
+        model=ModelConfig(name="weather_transformer", **SERVE_CFG),
+        train=TrainConfig(epochs=1, batch_size=BATCH, lr=1e-3, seed=0))
+    events = []
+    body = steps._train_body
+
+    def timed_body(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = body(*args)
+        end.record()
+        events.append((start, end))
+        return out
+
+    steps._train_body = timed_body
+    try:
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        res = Trainer(cfg, device=DEVICE, tracker=LocalTracking(
+            root=os.path.join(root, "mlruns"))).fit(rows)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = fa.launch_counts()
+    finally:
+        steps._train_body = body
+    windows = make_windows(rows, seq)
+    train_idx, val_idx = contiguous_split(len(windows), val_fraction=0.2,
+                                          gap=seq)
+    n_train = BatchLoader(windows, train_idx, global_batch=BATCH,
+                          shuffle=True).num_batches
+    n_val = BatchLoader(windows, val_idx, global_batch=BATCH,
+                        shuffle=False).num_batches
+    n_layers = SERVE_CFG["n_layers"]
+    want = {"flash_fwd": n_layers * (n_train + n_val),
+            "flash_bwd_dkdv": n_layers * n_train,
+            "flash_bwd_dq": n_layers * n_train}
+    if counts != want or len(events) != n_train:
+        raise AssertionError(f"(g) launches {counts}, want {want}; "
+                             f"{len(events)} train steps, want {n_train}")
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    hist = res.history[-1]
+    if not (np.isfinite(hist["val_loss"]) and np.isfinite(hist["train_loss"])):
+        raise AssertionError(f"(g) non-finite losses {hist}")
+    # last.ckpt into a fresh model: the same validation loss.
+    params, meta = load_checkpoint(res.last_model_path)
+    model = get_model(config_from_meta(meta), device=DEVICE,
+                      compute_dtype=torch.bfloat16)
+    load_flax_weights(model, flatten_tree(params["params"]))
+    val = BatchLoader(windows, val_idx, global_batch=BATCH,
+                      shuffle=False).epoch_stacked(0)
+    fresh = TrainState(model=model, tx=res.state.tx, opt_state=None, step=0,
+                       seed=0, rng=0)
+    sums = steps.make_epoch_eval_step()(fresh, *val)
+    reloaded = (sums[0] / sums[2]).item()
+    if not abs(reloaded - hist["val_loss"]) <= 1e-6 * max(
+            1.0, abs(hist["val_loss"])):
+        raise AssertionError(f"(g) last.ckpt eval loss {reloaded} vs fit "
+                             f"{hist['val_loss']}")
+    out = {"family": "weather_transformer", "compute": "bf16",
+           "train_steps": n_train, "val_batches": n_val, "launches": counts,
+           "train_loss": hist["train_loss"], "val_loss": hist["val_loss"],
+           "val_acc": hist["val_acc"], "reloaded_val_loss": reloaded,
+           "fit_s": fit_s, "epoch_s": res.epoch_seconds[0],
+           "epoch_ms_per_train_step": res.epoch_seconds[0] / n_train * 1e3,
+           "step_ms_events_median": statistics.median(step_ms),
+           "step_ms_events_min": min(step_ms),
+           "b_step_ms_median": step_ms_b,
+           "samples_per_s": res.samples_per_sec}
+    print(f"[smoke] (g) fit weather_transformer {out}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -810,6 +1100,18 @@ def main() -> int:
                                  "flash_bwd_dq")}
     train_steps = sum(r["steps"] for r in trained["b"])
 
+    repairs = check_repairs(fa)
+    fit_root = os.path.join(HERE, "build", "chip_smoke_fit")
+    fit_mlp_phase(fit_root)
+    b_bf16 = [r for r in trained["b"] if r["family"] == "weather_transformer"
+              and r["compute"] == "bf16"][0]
+    fitted = fit_transformer_phase(fa, fit_root, b_bf16["step_ms"])
+    fit_counts = fitted["launches"]
+    print(f"[smoke] (g) trainer overhead: fit's device step median "
+          f"{fitted['step_ms_events_median']:.3f} ms, its epoch "
+          f"{fitted['epoch_ms_per_train_step']:.3f} ms per train step, "
+          f"(b)'s step median {b_bf16['step_ms']:.3f} ms", flush=True)
+
     def bf16_summary(rows):
         row = [r for r in rows
                if r["dtype"] == "bfloat16" and not r["causal"]][0]
@@ -826,9 +1128,11 @@ def main() -> int:
         "source": "dct_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "dct_tpu/ops/pallas_attention.py:81 (_flash_fwd_kernel; "
                     "pallas_call at :260)",
-        "launches": launches + train_counts["flash_fwd"],
+        "launches": (launches + train_counts["flash_fwd"]
+                     + fit_counts["flash_fwd"]),
         "launches_by_path": {"serve": launches,
-                             "train": train_counts["flash_fwd"]},
+                             "train": train_counts["flash_fwd"],
+                             "fit": fit_counts["flash_fwd"]},
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -847,7 +1151,9 @@ def main() -> int:
             "source": "dct_tpu_torch/ops/csrc/flash_bwd.cu",
             "replaces": f"dct_tpu/ops/pallas_attention.py:{line} "
                         f"(_{name}_kernel; pallas_call at :{call})",
-            "launches": train_counts[name],
+            "launches": train_counts[name] + fit_counts[name],
+            "launches_by_path": {"train": train_counts[name],
+                                 "fit": fit_counts[name]},
             "launches_per_step": train_counts[name] / train_steps,
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -859,6 +1165,9 @@ def main() -> int:
             "tensor_core_instructions": tc_counts[name],
             "variants": bwd_variants[name],
         })
+    for k in kernels:
+        k["grid_beyond_65535_ms"] = {dt: row["ms"][k["name"]]
+                                     for dt, row in repairs["c2"].items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,21 @@
-"""Configuration the serving slice reads (copied from ``dct_tpu/config.py``).
+"""Configuration (copied from ``dct_tpu/config.py``).
 
 ``ModelConfig`` is the reference's model configuration field for field
 (``dct_tpu/config.py:62-160``), so a package's ``model_meta.json`` builds
-the same architecture here. ``ServingConfig`` keeps the fields this slice
-reads (``:770-860``). Both read the same ``DCT_*`` environment names.
+the same architecture here. The other sections keep the fields the port's
+code reads, with the reference's defaults and ``DCT_*`` environment names
+(and its unprefixed ``WORLD_SIZE``/``NODE_RANK``/``MASTER_ADDR``/
+``MASTER_PORT``/``MLFLOW_TRACKING_URI``): ``DataConfig`` (``:34-60``),
+``TrainConfig`` (``:164-282``), ``DistributedConfig`` (``:311-346``),
+``TrackingConfig`` (``:348-369``), ``ServingConfig`` (``:770-860``) and the
+``RunConfig`` bundle the trainer takes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable
 
 
@@ -20,6 +26,26 @@ def _env(name: str, default: Any, cast: Callable = str) -> Any:
     if cast is bool:
         return raw.strip().lower() in ("1", "true", "yes", "on")
     return cast(raw)
+
+
+@dataclass
+class DataConfig:
+    """Where the processed parquet is read and checkpoints are written,
+    the feature/label columns, and the validation fraction."""
+
+    processed_dir: str = "data/processed"
+    models_dir: str = "data/models"
+    val_fraction: float = 0.2
+    feature_suffix: str = "_norm"
+    label_column: str = "label_encoded"
+
+    @classmethod
+    def from_env(cls) -> "DataConfig":
+        c = cls()
+        c.processed_dir = _env("DCT_PROCESSED_DIR", c.processed_dir, str)
+        c.models_dir = _env("DCT_MODELS_DIR", c.models_dir, str)
+        c.val_fraction = _env("DCT_VAL_FRACTION", c.val_fraction, float)
+        return c
 
 
 @dataclass
@@ -112,3 +138,131 @@ class ServingConfig:
         c.workers = _env("DCT_SERVE_WORKERS", c.workers, int)
         c.fast_parse = _env("DCT_SERVE_FAST_PARSE", c.fast_parse, bool)
         return c
+
+
+@dataclass
+class TrainConfig:
+    """The optimization loop: Adam at lr 0.01, batch 4 per process, 10
+    epochs, seed 42 (the reference's parity defaults). ``batch_size`` is
+    per process: the global batch is ``batch_size`` x the number of
+    processes. ``epoch_chunk`` fuses that many epochs per span of the scan
+    path; ``use_scan=False`` runs the per-batch loop."""
+
+    epochs: int = 10
+    batch_size: int = 4
+    lr: float = 0.01
+    optimizer: str = "adam"
+    momentum: float = 0.0
+    lr_schedule: str = "constant"
+    warmup_steps: int = 0
+    decay_steps: int = 0
+    end_lr_fraction: float = 0.0
+    weight_decay: float = 0.0
+    grad_clip_norm: float = 0.0
+    seed: int = 42
+    log_every_n_steps: int = 5
+    resume: bool = False
+    bf16_compute: bool = True
+    use_scan: bool = True
+    grad_accum_steps: int = 1
+    early_stop_patience: int = 0
+    early_stop_min_delta: float = 0.0
+    epoch_chunk: int = 1
+
+    @classmethod
+    def from_env(cls) -> "TrainConfig":
+        c = cls()
+        c.epochs = _env("DCT_EPOCHS", c.epochs, int)
+        c.batch_size = _env("DCT_BATCH_SIZE", c.batch_size, int)
+        c.lr = _env("DCT_LR", c.lr, float)
+        c.optimizer = _env("DCT_OPTIMIZER", c.optimizer, str)
+        c.momentum = _env("DCT_MOMENTUM", c.momentum, float)
+        c.lr_schedule = _env("DCT_LR_SCHEDULE", c.lr_schedule, str)
+        c.warmup_steps = _env("DCT_WARMUP_STEPS", c.warmup_steps, int)
+        c.decay_steps = _env("DCT_DECAY_STEPS", c.decay_steps, int)
+        c.end_lr_fraction = _env("DCT_END_LR_FRACTION", c.end_lr_fraction,
+                                 float)
+        c.weight_decay = _env("DCT_WEIGHT_DECAY", c.weight_decay, float)
+        c.grad_clip_norm = _env("DCT_GRAD_CLIP_NORM", c.grad_clip_norm, float)
+        c.seed = _env("DCT_SEED", c.seed, int)
+        c.log_every_n_steps = _env("DCT_LOG_EVERY_N_STEPS",
+                                   c.log_every_n_steps, int)
+        c.resume = _env("DCT_RESUME", c.resume, bool)
+        c.bf16_compute = _env("DCT_BF16_COMPUTE", c.bf16_compute, bool)
+        c.use_scan = _env("DCT_USE_SCAN", c.use_scan, bool)
+        c.grad_accum_steps = _env("DCT_GRAD_ACCUM_STEPS", c.grad_accum_steps,
+                                  int)
+        c.early_stop_patience = _env("DCT_EARLY_STOP_PATIENCE",
+                                     c.early_stop_patience, int)
+        c.early_stop_min_delta = _env("DCT_EARLY_STOP_MIN_DELTA",
+                                      c.early_stop_min_delta, float)
+        c.epoch_chunk = _env("DCT_EPOCH_CHUNK", c.epoch_chunk, int)
+        return c
+
+
+@dataclass
+class DistributedConfig:
+    """The rendezvous: ``DCT_NUM_PROCESSES``/``WORLD_SIZE``,
+    ``DCT_PROCESS_ID``/``NODE_RANK`` and ``DCT_COORDINATOR_ADDRESS`` or
+    ``MASTER_ADDR`` + ``MASTER_PORT`` (default 29500); the native names
+    win and an empty value counts as unset."""
+
+    coordinator_address: str | None = None
+    num_processes: int = 1
+    process_id: int = 0
+
+    @classmethod
+    def from_env(cls) -> "DistributedConfig":
+        c = cls()
+        world = os.environ.get("DCT_NUM_PROCESSES") or os.environ.get(
+            "WORLD_SIZE")
+        rank = os.environ.get("DCT_PROCESS_ID") or os.environ.get("NODE_RANK")
+        coord = os.environ.get("DCT_COORDINATOR_ADDRESS") or None
+        if coord is None:
+            master_addr = os.environ.get("MASTER_ADDR")
+            master_port = os.environ.get("MASTER_PORT", "29500")
+            if master_addr:
+                coord = f"{master_addr}:{master_port}"
+        c.coordinator_address = coord
+        c.num_processes = int(world) if world else 1
+        c.process_id = int(rank) if rank else 0
+        return c
+
+
+@dataclass
+class TrackingConfig:
+    """Experiment ``weather_forecasting``; an MLflow server when
+    ``MLFLOW_TRACKING_URI`` is set and mlflow importable, else the local
+    file store; the best checkpoint goes under ``best_checkpoints``."""
+
+    experiment: str = "weather_forecasting"
+    tracking_uri: str | None = None
+    artifact_path: str = "best_checkpoints"
+
+    @classmethod
+    def from_env(cls) -> "TrackingConfig":
+        c = cls()
+        c.experiment = _env("DCT_EXPERIMENT", c.experiment, str)
+        c.tracking_uri = os.environ.get("MLFLOW_TRACKING_URI", c.tracking_uri)
+        return c
+
+
+@dataclass
+class RunConfig:
+    """The bundle passed to the trainer."""
+
+    data: DataConfig = field(default_factory=DataConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    dist: DistributedConfig = field(default_factory=DistributedConfig)
+    tracking: TrackingConfig = field(default_factory=TrackingConfig)
+
+    @classmethod
+    def from_env(cls) -> "RunConfig":
+        return cls(data=DataConfig.from_env(), model=ModelConfig.from_env(),
+                   train=TrainConfig.from_env(),
+                   dist=DistributedConfig.from_env(),
+                   tracking=TrackingConfig.from_env())
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)

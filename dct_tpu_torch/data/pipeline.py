@@ -1,6 +1,5 @@
 """Deterministic splits and fixed-shape batching (counterpart of
-``dct_tpu/data/pipeline.py:29-151``; the per-batch ``epoch()`` iterator of
-the reference's non-scan trainer loop comes with ``Trainer.fit``).
+``dct_tpu/data/pipeline.py``).
 
 Batches have a fixed shape: the last one is padded by wrapping and its
 padding rows carry weight 0, so a weighted mean over a batch is the mean
@@ -10,6 +9,9 @@ indexing.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterator
 
 import numpy as np
 
@@ -32,13 +34,25 @@ def contiguous_split(n: int, *, val_fraction: float = 0.2,
     return np.arange(train_size), np.arange(val_start, n)
 
 
+@dataclass
+class Batch:
+    """One fixed-shape batch (this process's block of a global batch);
+    ``weight`` is 1 for real rows and 0 for padding."""
+
+    x: np.ndarray  # [B_local, ...] float32
+    y: np.ndarray  # [B_local, ...] int32
+    weight: np.ndarray  # [B_local] float32
+
+
 class BatchLoader:
     """Fixed-shape, process-sharded batch stream over host arrays.
 
-    ``global_batch`` spans all processes; :meth:`epoch_stacked` gives this
-    process's contiguous block ``[p*B_local, (p+1)*B_local)`` of every
-    (optionally shuffled, wrap-padded) global batch, ``B_local =
-    global_batch // num_processes``."""
+    ``global_batch`` spans all processes; :meth:`epoch` and
+    :meth:`epoch_stacked` give this process's contiguous block
+    ``[p*B_local, (p+1)*B_local)`` of every (optionally shuffled,
+    wrap-padded) global batch, ``B_local = global_batch // num_processes``.
+    Concatenating the W blocks gives the 1-process batch in its row order,
+    and every process sees the same number of batches."""
 
     def __init__(self, data, indices: np.ndarray, *, global_batch: int,
                  shuffle: bool, seed: int = 42, num_processes: int = 1,
@@ -94,3 +108,24 @@ class BatchLoader:
             np.asarray(self.data.labels)[mat].astype(np.int32),
             weights.reshape(steps, gb)[:, block],
         )
+
+    def epoch(self, epoch: int) -> Iterator[Batch]:
+        """The epoch batch by batch, with the indices and weights of
+        :meth:`epoch_stacked`."""
+        idx = self._epoch_indices(epoch)
+        n = len(idx)
+        lb, gb = self.local_batch, self.global_batch
+        block = slice(self.process_id * lb, (self.process_id + 1) * lb)
+        for start in range(0, n, gb):
+            chunk = idx[start:start + gb]
+            real = len(chunk)
+            if real < gb:  # pad by wrapping; padded rows get weight 0
+                chunk = np.concatenate([chunk, np.resize(idx, gb - real)])
+            weight = np.zeros(gb, np.float32)
+            weight[:real] = 1.0
+            rows = chunk[block]
+            yield Batch(
+                x=self.data.take(rows),
+                y=np.asarray(self.data.labels)[rows].astype(np.int32),
+                weight=weight[block],
+            )

@@ -1,20 +1,31 @@
-"""Dense layer with torch's default initialization (counterpart of
-``dct_tpu/models/mlp.py``'s ``TorchStyleDense``).
+"""The rain-classifier MLP and the layers the port's models share
+(counterpart of ``dct_tpu/models/mlp.py``).
 
-The reference re-creates ``nn.Linear``'s default init in flax: weight and
-bias both U(-1/sqrt(fan_in), 1/sqrt(fan_in)). Here that is ``nn.Linear``
-itself. The one layout difference: a flax kernel is ``[in, out]``, an
-``nn.Linear`` weight is ``[out, in]`` (:mod:`dct_tpu_torch.convert`
-transposes). ``WeatherMLP`` is a later slice.
+``TorchStyleDense`` is ``nn.Linear`` with torch's default init, which the
+reference re-creates in flax (weight and bias U(-1/sqrt(fan_in),
+1/sqrt(fan_in))). A flax kernel is ``[in, out]``, an ``nn.Linear`` weight
+``[out, in]``; :mod:`dct_tpu_torch.convert` transposes. As in the flax
+layer (``dct_tpu/models/mlp.py:55-58``) the forward casts x, the weight and
+the bias to ``compute_dtype`` (x's own dtype when None): parameters stay
+f32 masters in training.
 
-As in the flax layer (``dct_tpu/models/mlp.py:55-58``), the compute dtype
-is apart from the parameter dtype: the forward casts x, the weight and the
-bias to ``compute_dtype`` (x's own dtype when None). Parameters stay f32
-masters in training; a bf16 package's parameters are bf16 already and the
-casts are no-ops.
+``WeatherMLP`` is ``dct_tpu/models/mlp.py:62-77``: Dense(hidden) -> ReLU ->
+Dropout -> Dense(classes), f32 logits, its layers named after the flax
+param paths ``TorchStyleDense_0`` and ``TorchStyleDense_1``.
+
+``Dropout`` is flax's ``nn.Dropout`` with the port's seeding: each mask
+comes from a generator seeded by the caller's dropout key (the train
+state's dropout seed and step, then layer and site), never from the
+global generator. Under data parallelism a process holds a contiguous
+block of each global batch; :func:`set_data_block` tells every dropout
+layer of a model which, and the layer draws the mask of the whole global
+batch and keeps its block's rows, so a W-process run draws the masks of
+the 1-process run.
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import torch
 import torch.nn.functional as F
@@ -33,3 +44,80 @@ class TorchStyleDense(nn.Linear):
         dtype = self.compute_dtype or x.dtype
         return F.linear(x.to(dtype), self.weight.to(dtype),
                         self.bias.to(dtype))
+
+
+def mask_seed(key: tuple) -> int:
+    """A 63-bit generator seed from a tuple of ints (dropout seed, step,
+    [microbatch,] layer, site): stable across processes and devices."""
+    digest = hashlib.blake2b(repr(tuple(int(k) for k in key)).encode(),
+                             digest_size=8).digest()
+    return int.from_bytes(digest, "little") >> 1
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: keep with probability ``1 - rate``, kept values
+    divided by ``1 - rate``; the identity in eval mode or at rate 0. The
+    mask comes from ``key`` (see :func:`mask_seed`). ``block = (W, p)``:
+    the input is block ``p`` of ``W`` equal row blocks of the global batch
+    (see :func:`set_data_block`)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.block = (1, 0)
+        self._gen: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor, key: tuple | None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        if key is None:
+            raise ValueError(
+                "dropout in training mode needs a dropout_key (the train "
+                "state's seed and step)"
+            )
+        if self._gen is None or self._gen.device != x.device:
+            self._gen = torch.Generator(device=x.device)
+        self._gen.manual_seed(mask_seed(key))
+        n, p = self.block
+        b = x.shape[0]
+        draw = torch.rand((b * n, *x.shape[1:]), generator=self._gen,
+                          device=x.device)
+        keep = draw[p * b:(p + 1) * b] < (1.0 - self.rate)
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
+def set_data_block(model: nn.Module, num_blocks: int, block: int) -> None:
+    """Tell every :class:`Dropout` of ``model`` that its inputs are row
+    block ``block`` of ``num_blocks`` of the global batch."""
+    if not 0 <= block < num_blocks:
+        raise ValueError(f"block {block} outside 0..{num_blocks - 1}")
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.block = (int(num_blocks), int(block))
+
+
+class WeatherMLP(nn.Module):
+    """MLP rain classifier: ``[B, F]`` rows -> ``[B, num_classes]`` f32
+    logits."""
+
+    def __init__(self, input_dim: int, *, hidden_dim: int = 64,
+                 num_classes: int = 2, dropout: float = 0.2, device=None,
+                 dtype=torch.float32, compute_dtype=None):
+        super().__init__()
+        self.input_dim = input_dim
+        self.compute_dtype = compute_dtype or dtype
+        kw = {"device": device, "dtype": dtype,
+              "compute_dtype": self.compute_dtype}
+        self.TorchStyleDense_0 = TorchStyleDense(input_dim, hidden_dim, **kw)
+        self.drop = Dropout(dropout)
+        self.TorchStyleDense_1 = TorchStyleDense(hidden_dim, num_classes,
+                                                 **kw)
+
+    def forward(self, x: torch.Tensor,
+                dropout_key: tuple | None = None) -> torch.Tensor:
+        h = F.relu(self.TorchStyleDense_0(x.to(self.compute_dtype)))
+        h = self.drop(h, None if dropout_key is None
+                      else tuple(dropout_key) + (0,))
+        return self.TorchStyleDense_1(h).float()

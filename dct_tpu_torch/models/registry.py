@@ -1,6 +1,6 @@
 """Model registry (counterpart of ``dct_tpu/models/registry.py``).
 
-The two transformer families are ported (served and trained). Any other
+The MLP and the two transformer families are ported. Any other
 registered name of the reference raises :class:`NotImplementedError`
 naming the ROADMAP item that ports it; nothing else runs in its place.
 Models come back in eval mode, the flax modules' ``train=False``; a
@@ -10,18 +10,25 @@ trainer calls ``model.train()``.
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from dct_tpu_torch.config import ModelConfig
+from dct_tpu_torch.models.mlp import WeatherMLP
 from dct_tpu_torch.models.transformer import WeatherTransformer
 
+SEQUENCE_MODELS = {"weather_transformer", "weather_transformer_causal"}
 CAUSAL_MODELS = {"weather_transformer_causal"}
 
 _NOT_PORTED = {
-    "weather_mlp": "ROADMAP Queue A, slice 3 (the MLP/data-parallel trainer)",
     "weather_gru": "ROADMAP Queue A, slice 4 (GRU and MoE)",
     "weather_moe": "ROADMAP Queue A, slice 4 (GRU and MoE)",
     "weather_transformer_pp": "ROADMAP Queue A, slice 4 (pipeline and MPMD)",
 }
+
+
+def is_sequence_model(name: str) -> bool:
+    """Families trained on sliding windows of the row stream."""
+    return name in SEQUENCE_MODELS
 
 
 def is_causal_model(name: str) -> bool:
@@ -30,7 +37,7 @@ def is_causal_model(name: str) -> bool:
 
 def get_model(cfg: ModelConfig, *, input_dim: int | None = None,
               device=None, dtype=torch.float32,
-              compute_dtype=None) -> WeatherTransformer:
+              compute_dtype=None) -> nn.Module:
     """Build ``cfg.name`` on ``device`` with ``dtype`` parameters computing
     in ``compute_dtype`` (default ``dtype``), with ``cfg.dropout`` and
     ``cfg.remat`` (``dct_tpu/models/registry.py:135-170, 207-231``). The
@@ -46,13 +53,19 @@ def get_model(cfg: ModelConfig, *, input_dim: int | None = None,
             f"model {cfg.name!r} is not ported to dct_tpu_torch yet: "
             f"{_NOT_PORTED[cfg.name]}"
         )
-    if cfg.name not in ("weather_transformer", "weather_transformer_causal"):
+    if cfg.name != "weather_mlp" and cfg.name not in SEQUENCE_MODELS:
         raise KeyError(f"Unknown model {cfg.name!r}")
     dim = cfg.input_dim if input_dim is None else input_dim
     if dim is None:
         raise ValueError("input_dim must be provided (inferred from data)")
     if device is None:
         device = resolve_device()
+    if cfg.name == "weather_mlp":
+        return WeatherMLP(
+            dim, hidden_dim=cfg.hidden_dim, num_classes=cfg.num_classes,
+            dropout=cfg.dropout, device=device, dtype=dtype,
+            compute_dtype=compute_dtype,
+        ).eval()
     causal = cfg.name == "weather_transformer_causal"
     window = cfg.attn_window if causal and cfg.attn_window > 0 else None
     return WeatherTransformer(

@@ -39,15 +39,13 @@ Training behaviour (``transformer.py:145,151,362-366`` of the reference):
 
 from __future__ import annotations
 
-import hashlib
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from dct_tpu_torch.models.mlp import TorchStyleDense
+from dct_tpu_torch.models.mlp import Dropout, TorchStyleDense
 
 
 def sincos_positions(seq_len: int, d_model: int) -> torch.Tensor:
@@ -79,44 +77,6 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     cos = cos.to(x.dtype)
     sin = sin.to(x.dtype)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-
-
-def mask_seed(key: tuple) -> int:
-    """A 63-bit generator seed from a tuple of ints (dropout seed, step,
-    [microbatch,] layer, site): stable across processes and devices."""
-    digest = hashlib.blake2b(repr(tuple(int(k) for k in key)).encode(),
-                             digest_size=8).digest()
-    return int.from_bytes(digest, "little") >> 1
-
-
-class Dropout(nn.Module):
-    """flax ``nn.Dropout``: keep with probability ``1 - rate``, kept values
-    divided by ``1 - rate``; the identity in eval mode or at rate 0. The
-    mask comes from ``key`` (see :func:`mask_seed`), never from the global
-    generator."""
-
-    def __init__(self, rate: float):
-        super().__init__()
-        self.rate = float(rate)
-        self._gen: torch.Generator | None = None
-
-    def forward(self, x: torch.Tensor, key: tuple | None) -> torch.Tensor:
-        if not self.training or self.rate == 0.0:
-            return x
-        if self.rate >= 1.0:
-            return torch.zeros_like(x)
-        if key is None:
-            raise ValueError(
-                "dropout in training mode needs a dropout_key (the train "
-                "state's seed and step)"
-            )
-        if self._gen is None or self._gen.device != x.device:
-            self._gen = torch.Generator(device=x.device)
-        self._gen.manual_seed(mask_seed(key))
-        keep = torch.rand(x.shape, generator=self._gen, device=x.device) < (
-            1.0 - self.rate
-        )
-        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -239,6 +199,7 @@ class WeatherTransformer(nn.Module):
         self.per_position, self.horizon = per_position, horizon
         self.num_classes, self.pos_embed = num_classes, pos_embed
         self.remat = remat
+        self.input_dim = input_dim
         self.in_proj = TorchStyleDense(input_dim, d_model, **ckw)
         for i in range(n_layers):
             self.add_module(f"block_{i}", TransformerBlock(

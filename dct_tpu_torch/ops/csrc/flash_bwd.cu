@@ -172,8 +172,9 @@ __global__ void __launch_bounds__(WG)
 
   const int tid = threadIdx.x;
   // Causal: the first KV tiles see the most q tiles; they launch first.
-  const int jt = blockIdx.x;
-  const int bg = blockIdx.y;  // flat b*G + g
+  const sm90::RowTile rt = sm90::block_row_tile();  // tile-fastest
+  const int jt = rt.tile;
+  const int bg = rt.row;  // flat b*G + g
   const int b = bg / G, g = bg % G;
   const int group = H / G;
   const int k0 = jt * BK;
@@ -376,8 +377,9 @@ __global__ void __launch_bounds__(WG)
 
   const int tid = threadIdx.x;
   // Causal: the last q tiles see the most keys; they launch first.
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;  // flat b*H + h
+  const sm90::RowTile rt = sm90::block_row_tile();  // tile-fastest
+  const int qt = gridDim.y - 1 - rt.tile;
+  const int bh = rt.row;  // flat b*H + h
   const int b = bh / H;
   const int kvh = b * G + (bh % H) / (H / G);
   const int q0 = qt * BQ;
@@ -646,8 +648,9 @@ __global__ void __launch_bounds__(DqTf32Cfg<D>::NT)
   const int tid = threadIdx.x;
   const int wg = tid / WG, wt = tid % WG;
   // Heaviest causal tiles first (the last q tiles see the most keys).
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;  // flat b*H + h
+  // B*H on x (its limit is 2^31 - 1; y's is 65535), the tile on y.
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int bh = blockIdx.x;  // flat b*H + h
   const int b = bh / H;
   const int kvh = b * G + (bh % H) / (H / G);
   const int q0 = qt * BQB;       // the block's first q row
@@ -874,10 +877,11 @@ __global__ void __launch_bounds__(DkdvTf32Cfg<D>::NT)
   const int tid = threadIdx.x;
   const int wg = tid / WG, wt = tid % WG;
   // Causal: the first KV tiles see the most q tiles; they launch first.
-  const int bg = blockIdx.y;  // flat b*G + g
+  // B*G on x (its limit is 2^31 - 1; y's is 65535), the tile on y.
+  const int bg = blockIdx.x;  // flat b*G + g
   const int b = bg / G, g = bg % G;
   const int group = H / G;
-  const int k0 = blockIdx.x * C::BKB;  // the block's first key
+  const int k0 = blockIdx.y * C::BKB;  // the block's first key
   const int kw0 = k0 + BK * wg;        // this warpgroup's
 
   // The q tiles that reach the block's keys (as the bf16 kernel, with BQT
@@ -1088,7 +1092,7 @@ cudaError_t launch_dkdv_wgmma(const Args& a) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.seq + BK - 1) / BK, a.B * a.G);
+  const dim3 grid(a.B * a.G, (a.seq + BK - 1) / BK);
   kern<<<grid, WG, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
@@ -1106,7 +1110,7 @@ cudaError_t launch_dq_wgmma(const Args& a) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.seq + BQ - 1) / BQ, a.B * a.H);
+  const dim3 grid(a.B * a.H, (a.seq + BQ - 1) / BQ);
   kern<<<grid, WG, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
@@ -1123,7 +1127,7 @@ cudaError_t launch_dkdv_tf32(const Args& a) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.seq + C::BKB - 1) / C::BKB, a.B * a.G);
+  const dim3 grid(a.B * a.G, (a.seq + C::BKB - 1) / C::BKB);
   kern<<<grid, C::NT, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.o),
@@ -1141,7 +1145,7 @@ cudaError_t launch_dq_tf32(const Args& a) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a.seq + BQ * C::NWG - 1) / (BQ * C::NWG), a.B * a.H);
+  const dim3 grid(a.B * a.H, (a.seq + BQ * C::NWG - 1) / (BQ * C::NWG));
   kern<<<grid, C::NT, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.o),
@@ -1174,9 +1178,7 @@ cudaError_t dispatch_dim(const Args& a, int D) {
 
 template <bool DKDV>
 int run(const Args& a, int D, int dtype) {
-  const int rows = DKDV ? a.B * a.G : a.B * a.H;
-  if (a.B <= 0 || a.H <= 0 || a.G <= 0 || a.seq <= 0 || a.H % a.G != 0 ||
-      rows > 65535)
+  if (a.B <= 0 || a.H <= 0 || a.G <= 0 || a.seq <= 0 || a.H % a.G != 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)dispatch_dim<DKDV, false>(a, D);
   if (dtype == 1) return (int)dispatch_dim<DKDV, true>(a, D);

@@ -28,9 +28,11 @@
 // memory: one warpgroup owns a 64-row q tile and walks the KV tiles in a
 // loop -- the loop replaces the TPU's sequential third grid axis, and the
 // causal/window tile skip becomes the loop's bounds (sm90::kv_tiles,
-// replacing the clamped index maps at :218-235).  Blocks run q-tile-major
-// so the q tiles of one head share its K/V in L2.  Both kernels run the
-// products on the tensor cores (wgmma) and the online softmax on the
+// replacing the clamped index maps at :218-235).  The grid is (B*H, q
+// tiles).  The bf16 kernel's blocks run q-tile-major so the q tiles of one
+// head share its K/V in L2 (sm90::block_row_tile); the f32 kernel's run
+// head-major, the heaviest causal tiles of every head first.  Both kernels
+// run the products on the tensor cores (wgmma) and the online softmax on the
 // accumulator fragment (a row lives in the 4 threads of a quad: the row
 // max is two shuffles, the row sum is reduced once at the end; each
 // exponential is one ex2.approx on the SFU, as the softmax's instructions
@@ -132,8 +134,9 @@ __global__ void __launch_bounds__(WG)
 
   const int tid = threadIdx.x;
   // Heaviest causal tiles first (the last q tiles see the most keys).
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;  // flat b*H + h
+  const sm90::RowTile rt = sm90::block_row_tile();  // tile-fastest
+  const int qt = gridDim.y - 1 - rt.tile;
+  const int bh = rt.row;  // flat b*H + h
   const int b = bh / H;
   const int kvh = b * G + (bh % H) / (H / G);
   const int q0 = qt * BQ;
@@ -326,8 +329,9 @@ __global__ void __launch_bounds__(Tf32Cfg<D>::NT)
   const int tid = threadIdx.x;
   const int wg = tid / WG, wt = tid % WG;
   // Heaviest causal tiles first (the last q tiles see the most keys).
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;  // flat b*H + h
+  // B*H on x (its limit is 2^31 - 1; y's is 65535), the tile on y.
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int bh = blockIdx.x;  // flat b*H + h
   const int b = bh / H;
   const int kvh = b * G + (bh % H) / (H / G);
   const int q0 = qt * BQB;        // the block's first q row
@@ -577,7 +581,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((seq + BQ - 1) / BQ, B * H);
+  const dim3 grid(B * H, (seq + BQ - 1) / BQ);
   using bf16 = __nv_bfloat16;
   kern<<<grid, WG, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
@@ -597,7 +601,7 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v,
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((seq + BQ * C::NWG - 1) / (BQ * C::NWG), B * H);
+  const dim3 grid(B * H, (seq + BQ * C::NWG - 1) / (BQ * C::NWG));
   kern<<<grid, C::NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, H, G, seq,
@@ -636,8 +640,7 @@ extern "C" int dct_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int B, int H, int G, int seq,
                              int D, float scale, int causal, int window,
                              int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || G <= 0 || seq <= 0 || H % G != 0 ||
-      B * H > 65535)
+  if (B <= 0 || H <= 0 || G <= 0 || seq <= 0 || H % G != 0)
     return (int)cudaErrorInvalidValue;
   float* lse_f = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

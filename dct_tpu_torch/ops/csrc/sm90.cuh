@@ -45,6 +45,23 @@
 
 namespace sm90 {
 
+// The block's (row, tile) on a grid of (rows, tiles): rows (B*H, or B*G
+// for dK/dV) sit on x, whose limit is 2^31 - 1, not on y (65535).  The
+// bf16 kernels decode the linear block id tile-fastest, so the tiles of one
+// head launch together and share its K/V in L2 (reading blockIdx.x as the
+// row made the bf16 dK/dV kernel 1.18x slower at B=32, H=8, T=1024).  The
+// f32 kernels read blockIdx directly: there the head-fastest order, the
+// heaviest causal tiles of every head first, is the faster one.
+struct RowTile {
+  int row, tile;
+};
+
+__device__ __forceinline__ RowTile block_row_tile() {
+  const uint32_t lin = blockIdx.y * gridDim.x + blockIdx.x;
+  return {static_cast<int>(lin / gridDim.y),
+          static_cast<int>(lin % gridDim.y)};
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

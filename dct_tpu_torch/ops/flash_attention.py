@@ -21,7 +21,11 @@ Nothing falls back: a kernel that does not build or launch raises.
 
 Supported: ``causal``, a causal sliding ``window``, grouped-query K/V
 (``[B, G, T, D]`` with ``H % G == 0``), the f32 log-sum-exp, f32 and bf16,
-head dims 16/32/64/128. Not yet ported (the wrapper raises): ``q_offset``
+head dims up to 128. The kernels are instanced for D in 16/32/64/128: the
+wrappers zero-pad D up to the next of those and slice the outputs back,
+which is exact (zero columns add nothing to q.k and give zero columns of
+o, dq, dk and dv); the scale stays ``1/sqrt(D)`` of the true D, on the CPU
+path as on the card. D > 128 raises (ROADMAP Queue B, B2). Not yet ported (the wrapper raises): ``q_offset``
 and rectangular ``Tq != Tk``, which only the ring engine's per-shard calls
 use, and the backward through the lse output (the ring's merge weights).
 ``block_q``/``block_k`` keep the reference's contract (T must be a
@@ -37,6 +41,7 @@ import math
 import threading
 
 import torch
+import torch.nn.functional as F
 
 from dct_tpu_torch.ops.attention import (
     _band_mask,
@@ -86,8 +91,7 @@ def _validate(q, k, v, *, causal, window, block_q, block_k, q_offset):
         raise ValueError(
             f"GQA needs q heads ({h}) divisible by kv heads ({k.shape[1]})"
         )
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported (one of {HEAD_DIMS})")
+    padded_head_dim(d)
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"flash attention takes f32 or bf16 q/k/v of one dtype, got "
@@ -113,6 +117,27 @@ def _validate(q, k, v, *, causal, window, block_q, block_k, q_offset):
             f"seq len {t} must be a multiple of block_q={bq} and "
             f"block_k={bk} (pad upstream)"
         )
+
+
+def padded_head_dim(d: int) -> int:
+    """The kernel instance that computes head dim ``d``: the next of
+    :data:`HEAD_DIMS` at or above it. Raises above 128."""
+    for dp in HEAD_DIMS:
+        if d <= dp:
+            return dp
+    raise ValueError(
+        f"head dim {d} is above the kernels' widest instance "
+        f"({HEAD_DIMS[-1]}); wider head dims need new kernel instances "
+        "and their shared-memory budget: ROADMAP Queue B, B2"
+    )
+
+
+def _pad(d: int, *tensors):
+    """Zero-pad the last dim of each tensor to ``padded_head_dim(d)``."""
+    dp = padded_head_dim(d)
+    if dp == d:
+        return tensors
+    return tuple(F.pad(t, (0, dp - d)) for t in tensors)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = False,
@@ -216,10 +241,6 @@ def _check_cuda(q, named):
     if q.device.index not in _checked_devices:
         require_kernel_capability(q.device)
         _checked_devices.add(q.device.index)
-    if q.shape[0] * q.shape[1] > 65535:
-        raise ValueError(
-            f"B*H={q.shape[0] * q.shape[1]} exceeds the kernel's grid (65535)"
-        )
 
 
 def _launch(kernel, fn, tensors, q, k, *, causal, scale, window):
@@ -253,7 +274,7 @@ def _flash_cuda(q, k, v, *, causal, scale, window, return_lse):
             window=window)
     with _count_lock:
         launches += 1
-    return (o, lse) if return_lse else o
+    return o, lse
 
 
 def _check_bwd(kernel, q, k, v, o, lse, do):
@@ -288,8 +309,11 @@ def flash_bwd_dkdv(q, k, v, o, lse, do, *, causal: bool = False,
     from the forward's q, k, v, o, lse and the output cotangent dO, all
     CUDA tensors; launches ``flash_bwd_dkdv`` or raises."""
     global dkdv_launches
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    # Padded copies are contiguous, whatever the (sliced) o passed in.
+    q, k, v, o, do = _pad(d, q, k, v, o, do)
     _check_bwd("flash_bwd_dkdv", q, k, v, o, lse, do)
-    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_bwd_dkdv",
             _kernel_fn("flash_bwd", "dct_flash_bwd_dkdv", 8),
@@ -297,6 +321,8 @@ def flash_bwd_dkdv(q, k, v, o, lse, do, *, causal: bool = False,
             window=window)
     with _count_lock:
         dkdv_launches += 1
+    if dk.shape[-1] != d:
+        dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
 
 
@@ -305,15 +331,18 @@ def flash_bwd_dq(q, k, v, o, lse, do, *, causal: bool = False,
     """Kernel 3 (``_flash_bwd_dq_kernel``): dq ``[B,H,T,D]`` from CUDA
     tensors; launches ``flash_bwd_dq`` or raises."""
     global dq_launches
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    # Padded copies are contiguous, whatever the (sliced) o passed in.
+    q, k, v, o, do = _pad(d, q, k, v, o, do)
     _check_bwd("flash_bwd_dq", q, k, v, o, lse, do)
-    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     dq = torch.empty_like(q)
     _launch("flash_bwd_dq", _kernel_fn("flash_bwd", "dct_flash_bwd_dq", 7),
             (q, k, v, o, do, lse, dq), q, k, causal=causal, scale=scale,
             window=window)
     with _count_lock:
         dq_launches += 1
-    return dq
+    return dq[..., :d].contiguous() if dq.shape[-1] != d else dq
 
 
 class FlashAttention(torch.autograd.Function):
@@ -363,9 +392,12 @@ def flash_attention(q, k, v, *, causal: bool = False,
     :class:`FlashAttention`."""
     _validate(q, k, v, causal=causal, window=window, block_q=block_q,
               block_k=block_k, q_offset=q_offset)
-    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+    # Pad outside FlashAttention: autograd slices the padded gradients.
+    q, k, v = _pad(d, q, k, v)
     if torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad
     ):
@@ -375,11 +407,15 @@ def flash_attention(q, k, v, *, causal: bool = False,
                 "ring engine's merge weights, _vjp_lse_bwd) is not ported "
                 "yet: ROADMAP Queue A item 16"
             )
-        return FlashAttention.apply(q, k, v, causal, scale, window, block_q,
-                                    block_k)
+        o = FlashAttention.apply(q, k, v, causal, scale, window, block_q,
+                                 block_k)
+        return o[..., :d] if o.shape[-1] != d else o
     if q.device.type == "cuda":
-        return _flash_cuda(q, k, v, causal=causal, scale=scale,
-                           window=window, return_lse=return_lse)
-    o, lse = flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                   window=window, block_k=block_k)
+        o, lse = _flash_cuda(q, k, v, causal=causal, scale=scale,
+                             window=window, return_lse=return_lse)
+    else:
+        o, lse = flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                       window=window, block_k=block_k)
+    if o.shape[-1] != d:
+        o = o[..., :d]
     return (o, lse) if return_lse else o

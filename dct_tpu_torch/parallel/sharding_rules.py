@@ -88,3 +88,16 @@ def cast_params_by_rules(model: nn.Module) -> dict[str, torch.Tensor] | None:
                 break
         out[name] = p
     return out
+
+
+def dtype_rules_digest() -> str:
+    """Content digest of the active dtype rules, recorded in the resume
+    tier's layout manifest (``"off"`` when no rules are set), as the
+    reference's ``dtype_rules_digest``."""
+    import hashlib
+
+    rules = dtype_rules()
+    if not rules:
+        return "off"
+    blob = "|".join(f"{pat}={dname}" for pat, dname in rules)
+    return hashlib.sha1(blob.encode()).hexdigest()[:10]

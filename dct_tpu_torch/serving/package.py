@@ -26,6 +26,14 @@ def load_package(package_dir: str) -> tuple[dict, dict]:
     return assemble_weights(flat), meta
 
 
+def publish_text(path: str, text: str) -> None:
+    """Atomic text publish: temporary sibling, then ``os.replace``."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        f.write(text)
+    os.replace(tmp, path)
+
+
 def write_package(package_dir: str, weights: dict, meta: dict) -> None:
     """Write ``weights`` (the flat npz mapping) and ``meta``; each file is
     published atomically (temporary sibling, then ``os.replace``)."""
@@ -35,11 +43,8 @@ def write_package(package_dir: str, weights: dict, meta: dict) -> None:
     with open(tmp, "wb") as f:
         np.savez(f, **weights)
     os.replace(tmp, npz_path)
-    meta_path = os.path.join(package_dir, "model_meta.json")
-    tmp = f"{meta_path}.tmp.{os.getpid()}"
-    with open(tmp, "w") as f:
-        json.dump(meta, f, indent=2)
-    os.replace(tmp, meta_path)
+    publish_text(os.path.join(package_dir, "model_meta.json"),
+                 json.dumps(meta, indent=2))
 
 
 def init_package_weights(meta: dict, seed: int) -> dict:

@@ -28,8 +28,15 @@ from torch import nn
 
 
 class GradientTransformation(NamedTuple):
+    """``kind`` names the optax state the transformation's state stands
+    for (``adam``, ``lion``, ``trace``, ``schedule``; ``chain`` with its
+    ``parts``; empty for a stateless one), so the resume tier can write
+    and read the state under optax's leaf order."""
+
     init: Callable[[list], Any]
     update: Callable[[list, Any, list], tuple[list, Any]]
+    kind: str = ""
+    parts: tuple = ()
 
 
 def chain(*txs: GradientTransformation) -> GradientTransformation:
@@ -43,7 +50,7 @@ def chain(*txs: GradientTransformation) -> GradientTransformation:
             new_state.append(s)
         return updates, new_state
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, "chain", txs)
 
 
 def _bias_correction(decay: float, count: int) -> float:
@@ -76,18 +83,20 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
             torch._foreach_div(mu, _bias_correction(b1, count)), denom)
         return out, {"count": count, "mu": mu, "nu": nu}
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, "adam")
 
 
 def scale_by_lion(b1: float = 0.9, b2: float = 0.99) -> GradientTransformation:
     def init(params):
-        return [torch.zeros_like(p) for p in params]
+        return {"count": 0, "mu": [torch.zeros_like(p) for p in params]}
 
-    def update(updates, mu, params):
+    def update(updates, state, params):
+        mu = state["mu"]
         out = [torch.sign((1.0 - b1) * g + b1 * m) for g, m in zip(updates, mu)]
-        return out, [(1 - b2) * g + b2 * m for g, m in zip(updates, mu)]
+        return out, {"count": state["count"] + 1,
+                     "mu": [(1 - b2) * g + b2 * m for g, m in zip(updates, mu)]}
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, "lion")
 
 
 def trace(decay: float) -> GradientTransformation:
@@ -100,7 +109,7 @@ def trace(decay: float) -> GradientTransformation:
         new = [g + decay * t for g, t in zip(updates, state)]
         return new, new
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, "trace")
 
 
 def add_decayed_weights(weight_decay: float) -> GradientTransformation:
@@ -122,7 +131,9 @@ def scale_by_learning_rate(rate) -> GradientTransformation:
         lr = rate(count) if callable(rate) else rate
         return torch._foreach_mul(updates, -lr), count + 1
 
-    return GradientTransformation(init, update)
+    # optax keeps the count only for a schedule (ScaleByScheduleState).
+    return GradientTransformation(init, update,
+                                  "schedule" if callable(rate) else "")
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -257,9 +268,9 @@ def create_train_state(model: nn.Module, *, input_dim: int, lr: float,
     against the model. ``lr_schedule`` (a float or a function of the
     update count) overrides ``lr``."""
     from dct_tpu_torch.convert import init_flax_weights, load_flax_weights
-    from dct_tpu_torch.models.transformer import mask_seed
+    from dct_tpu_torch.models.mlp import mask_seed
 
-    features = model.in_proj.in_features
+    features = model.input_dim
     if input_dim != features or (example_shape and example_shape[-1] != features):
         raise ValueError(
             f"model takes {features} input features, not input_dim="

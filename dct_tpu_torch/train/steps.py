@@ -14,6 +14,15 @@ masks are seeded by ``(state.rng, state.step)`` (and the microbatch under
 accumulation), the contract of ``fold_in(rng, step)`` (``:70``).
 Steps update the state in place (see :mod:`dct_tpu_torch.train.state`) and
 return it, with the losses and sums as tensors on the model's device.
+
+Under data parallelism (more than one process,
+:mod:`dct_tpu_torch.parallel.mesh`) each process holds a block of every
+global batch: the train bodies divide the block's weighted loss sum by the
+global row count (a scalar all-reduce, before the backward), differentiate
+it and sum the gradients and the loss over the processes in one
+all-reduce; the eval sums are reduced once per pass. Every process then
+holds the reference's global weighted means. With one process the
+reductions return their inputs.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from dct_tpu_torch.ops.losses import (
     masked_binary_counts,
     masked_cross_entropy,
 )
+from dct_tpu_torch.parallel.mesh import all_reduce_sum
 from dct_tpu_torch.parallel.sharding_rules import cast_params_by_rules
 from dct_tpu_torch.train.state import TrainState, global_norm
 
@@ -60,9 +70,11 @@ def loss_and_grads(state: TrainState, x, y, weight):
     loss_sum, count = masked_cross_entropy(
         logits, y, _position_weight(logits, y, weight)
     )
-    loss = loss_sum / torch.clamp(count, min=1.0)
+    (total,) = all_reduce_sum([count])
+    loss = loss_sum / torch.clamp(total, min=1.0)
     grads = torch.autograd.grad(loss, state.params)
-    return loss.detach(), grads
+    *grads, loss = all_reduce_sum([*grads, loss.detach()])
+    return loss, grads
 
 
 def _train_body(state: TrainState, x, y, weight):
@@ -86,7 +98,8 @@ def _train_accum_body(state: TrainState, x, y, weight, accum_steps: int):
     positions = 1
     for d in y.shape[1:]:
         positions *= d
-    total = torch.clamp(weight.float().sum() * positions, min=1.0)
+    (total,) = all_reduce_sum([weight.float().sum() * positions])
+    total = torch.clamp(total, min=1.0)
     state.model.train()
     params = state.params
     grads, loss = None, torch.zeros((), device=x.device)
@@ -101,6 +114,7 @@ def _train_accum_body(state: TrainState, x, y, weight, accum_steps: int):
         g = torch.autograd.grad(chunk, params)
         grads = g if grads is None else [a + c for a, c in zip(grads, g)]
         loss = loss + chunk.detach()
+    *grads, loss = all_reduce_sum([*grads, loss])
     gnorm = global_norm(grads)
     return state.apply_gradients(grads), loss, gnorm
 
@@ -161,12 +175,13 @@ def _epoch_train(state: TrainState, xs, ys, ws, accum_steps: int):
 
 
 def _epoch_eval(state: TrainState, xs, ys, ws):
-    """The six sums over S stacked validation batches."""
+    """The six sums over S stacked validation batches (over all
+    processes' blocks)."""
     xs, ys, ws = _device_tensors(state, xs, ys, ws)
     sums = tuple(torch.zeros((), device=xs.device) for _ in range(6))
     for x, y, w in zip(xs, ys, ws):
         sums = tuple(a + b for a, b in zip(sums, _eval_body(state, x, y, w)))
-    return sums
+    return tuple(all_reduce_sum(sums))
 
 
 def make_epoch_train_step(*, accum_steps: int = 1,
@@ -201,6 +216,39 @@ def make_epoch_train_eval_step(*, accum_steps: int = 1,
     return epoch_fused
 
 
+def make_multi_epoch_train_eval_step(*, accum_steps: int = 1,
+                                     with_grad_norms: bool = False):
+    """K training epochs, each followed by a validation pass, in one call:
+    ``(state, xs [K,S,B,...], ys, ws, vxs, vys, vws) -> (state, losses
+    [K,S], sums)`` (plus the grad norms ``[K,S]``), sums being a 6-tuple of
+    ``[K]`` tensors; the same as K calls of
+    :func:`make_epoch_train_eval_step`'s step (the ``epoch_chunk``
+    knob). ``xs``, ``ys`` and ``ws`` may also be sequences of K per-epoch
+    ``[S,B,...]`` stacks, which are then never copied into one."""
+
+    def multi_epoch(state: TrainState, xs, ys, ws, vxs, vys, vws):
+        losses, gnorms, sums = [], [], []
+        for exs, eys, ews in zip(xs, ys, ws):
+            state, ls, gn = _epoch_train(state, exs, eys, ews, accum_steps)
+            losses.append(ls)
+            gnorms.append(gn)
+            sums.append(_epoch_eval(state, vxs, vys, vws))
+        sums = tuple(torch.stack(col) for col in zip(*sums))
+        losses, gnorms = torch.stack(losses), torch.stack(gnorms)
+        if with_grad_norms:
+            return state, losses, sums, gnorms
+        return state, losses, sums
+
+    return multi_epoch
+
+
 def make_eval_step():
-    """Per-batch eval step returning the six running sums."""
+    """Per-batch eval step returning the six running sums (of this
+    process's block; the caller reduces the totals)."""
     return _eval_body
+
+
+def make_epoch_eval_step():
+    """Whole-valset evaluation: ``(state, vxs, vys, vws) -> `` the six
+    global sums (loss_sum, acc_sum, count, tp, fp, fn)."""
+    return _epoch_eval

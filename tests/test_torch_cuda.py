@@ -7,6 +7,8 @@ machine with the card and no JAX (``tests/conftest.py`` imports JAX):
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -310,3 +312,70 @@ def test_train_step_on_card_matches_cpu(card, family):
     for a, b in zip(grads_g, grads_c):
         scale = b.abs().max().item()
         assert (a.cpu() - b).abs().max().item() <= 1e-3 * max(scale, 1e-30)
+
+
+# C1: head dims between the kernel instances run through the zero-padded
+# instance above them (8 -> 16, 48 -> 64), the scale of the true D kept.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,d", [(False, 8), (True, 48)])
+def test_padded_head_dims_match_plain(card, causal, d, dtype):
+    q, k, v = _qkv(21, 2, d, dtype, card)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    po, plse = fa.flash_attention_plain(q, k, v, causal=causal)
+    assert o.shape == (B, H, T, d)
+    tol = F32_FWD_TOL if dtype == torch.float32 else 2e-2
+    assert (o.float() - po.float()).abs().max().item() <= tol
+    assert (lse - plse).abs().max().item() <= 1e-4
+    args = _bwd_inputs(22, 2, d, dtype, card, causal=causal)
+    dk, dv = fa.flash_bwd_dkdv(*args, causal=causal)
+    dq = fa.flash_bwd_dq(*args, causal=causal)
+    want = fa.flash_attention_bwd_plain(*args, causal=causal)
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.shape == ref.shape and got.is_contiguous()
+        assert _rel_err(got, ref) <= BWD_TOL[dtype]
+
+
+# C2: B*H = 65536 rows of blocks, one past gridDim.y's limit, on x now.
+# The bf16 kernels decode a linear block id and the f32 kernels read
+# blockIdx directly, so both dtypes run past the old limit.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_grid_beyond_65535_heads_matches_plain(card, dtype):
+    b, h, t, d = 8192, 8, 128, 16
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's f32
+    gen = torch.Generator(device=card).manual_seed(3)
+    q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device=card,
+                               dtype=dtype) for _ in range(4))
+    o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    po, plse = fa.flash_attention_plain(q, k, v, causal=True)
+    tol = F32_FWD_TOL if dtype == torch.float32 else 2e-2
+    assert (o.float() - po.float()).abs().max().item() <= tol
+    assert (lse - plse).abs().max().item() <= 1e-4
+    del po, plse
+    dk, dv = fa.flash_bwd_dkdv(q, k, v, o, lse, do, causal=True)
+    dq = fa.flash_bwd_dq(q, k, v, o, lse, do, causal=True)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    for got, ref in zip((dq, dk, dv), want):
+        assert _rel_err(got, ref) <= BWD_TOL[dtype]
+
+
+def test_trainer_fit_mlp_on_card(card, tmp_path):
+    from dct_tpu_torch.config import DataConfig, ModelConfig, RunConfig
+    from dct_tpu_torch.config import TrainConfig
+    from dct_tpu_torch.data.dataset import WeatherArrays
+    from dct_tpu_torch.tracking.client import LocalTracking
+    from dct_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((400, 5)).astype(np.float32)
+    y = (x[:, 0] + 0.5 * x[:, 1] > 0).astype(np.int32)
+    cfg = RunConfig(data=DataConfig(models_dir=str(tmp_path / "m")),
+                    model=ModelConfig(name="weather_mlp"),
+                    train=TrainConfig(epochs=1))
+    res = Trainer(cfg, tracker=LocalTracking(root=str(tmp_path / "r"))).fit(
+        WeatherArrays(x, y, [f"f{i}_norm" for i in range(5)]))
+    assert all(p.device.type == "cuda" for p in res.state.params)
+    assert np.isfinite(res.val_loss)
+    names = os.listdir(tmp_path / "m")
+    assert "last.ckpt" in names and os.path.exists(res.best_model_path)
+    assert os.path.exists(tmp_path / "m" / "train_state" / "p0" / "state"
+                          / "state.npz")

@@ -137,10 +137,10 @@ def test_wrapper_refusals():
         fa.flash_attention(tq, tk[:, :, :128], tv[:, :, :128], causal=True)
     with pytest.raises(NotImplementedError, match="rectangular"):
         fa.flash_attention(tq, tk[:, :, :128], tv[:, :, :128])
-    q24 = torch.zeros(B, H, T, 24)
-    kv24 = torch.zeros(B, G, T, 24)
-    with pytest.raises(ValueError, match="head dim 24"):
-        fa.flash_attention(q24, kv24, kv24)
+    q256 = torch.zeros(B, H, T, 256)
+    kv256 = torch.zeros(B, G, T, 256)
+    with pytest.raises(ValueError, match="head dim 256.*B2"):
+        fa.flash_attention(q256, kv256, kv256)
     with pytest.raises(ValueError, match="causal"):
         fa.flash_attention(tq, tk, tv, window=64)
     with pytest.raises(TypeError):
@@ -180,3 +180,27 @@ def test_attention_fn_routes_flash_through_the_wrapper(monkeypatch):
     np.testing.assert_allclose(_np(o), _np(ref), atol=1e-5)
     attn(tq[:, :, :64], tk[:, :, :64], tv[:, :, :64])  # dense path
     assert len(calls) == 1
+
+
+# Head dims between and below the kernels' instances: the wrapper zero-pads
+# D up to the next of 16/32/64/128 and slices o back, with the scale of the
+# true D. The reference's Pallas kernel takes any D.
+PADDED_CASES = [  # (head dim, causal, window, kv heads)
+    (8, False, None, H),
+    (48, True, None, G),
+    (80, True, 64, G),
+]
+
+
+@pytest.mark.parametrize("d,causal,window,g", PADDED_CASES)
+def test_wrapper_pads_head_dims_to_the_kernel_instances(d, causal, window, g):
+    (tq, tk, tv), (jq, jk, jv) = _as("f32", *_inputs(5, g, d=d))
+    o, lse = fa.flash_attention(tq, tk, tv, causal=causal, window=window,
+                                return_lse=True)
+    ref_o, ref_lse = jax_flash_lse(jq, jk, jv, block_q=128, block_k=128,
+                                   causal=causal, interpret=True,
+                                   window=window)
+    assert o.shape == (B, H, T, d) and lse.shape == (B, H, T)
+    np.testing.assert_allclose(_np(o), _np(ref_o), atol=1e-5)
+    np.testing.assert_allclose(_np(lse), _np(ref_lse), atol=1e-5)
+    assert fa.padded_head_dim(d) in fa.HEAD_DIMS

@@ -159,3 +159,49 @@ def test_bwd_refusals_and_counters():
     assert fa.launch_counts() == {"flash_fwd": 0, "flash_bwd_dkdv": 0,
                                   "flash_bwd_dq": 0}
     assert fa.launches == 0
+
+
+@pytest.mark.parametrize("d,causal,window,g", [
+    (8, False, None, H),
+    (48, True, None, G),
+    (80, True, 64, G),
+])
+def test_function_pads_head_dims_and_matches_pallas_vjp(d, causal, window, g):
+    """D outside the kernel instances: the wrapper pads to the next
+    instance, FlashAttention runs on the padded tensors and autograd slices
+    the gradients back; 1e-4 of the Pallas kernels' vjp in interpret
+    mode."""
+    (tq, tk, tv, tdo), (jq, jk, jv, jdo) = _inputs(16, g, d=d)
+    _, vjp = jax.vjp(
+        lambda q, k, v: jax_flash(q, k, v, block_q=128, block_k=128,
+                                  causal=causal, interpret=True,
+                                  window=window),
+        jq, jk, jv,
+    )
+    q, k, v = (t.clone().requires_grad_() for t in (tq, tk, tv))
+    o = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert o.shape == (B, H, T, d)
+    got = torch.autograd.grad(o, (q, k, v), tdo)
+    for name, a, r in zip(("dq", "dk", "dv"), got, vjp(jdo)):
+        assert tuple(a.shape) == r.shape, name
+        assert _rel_err(a, r) <= TOL["f32"], name
+
+
+def test_backward_refuses_head_dims_above_128():
+    q = torch.zeros(B, H, T, 256, requires_grad=True)
+    kv = torch.zeros(B, G, T, 256)
+    with pytest.raises(ValueError, match="B2"):
+        fa.flash_attention(q, kv, kv)
+
+
+def test_bwd_wrappers_pad_before_checking_contiguity():
+    """The forward's o at a padded head dim is a slice of the padded
+    output (not contiguous); the backward wrappers pad it into a
+    contiguous copy before their checks, so the only refusal on CPU
+    tensors is the device."""
+    (tq, tk, tv, tdo), _ = _inputs(17, G, d=8)
+    o, lse = fa.flash_attention(tq, tk, tv, return_lse=True)
+    assert not o.is_contiguous()
+    for wrapper in (fa.flash_bwd_dkdv, fa.flash_bwd_dq):
+        with pytest.raises(ValueError, match="flash_attention_bwd_plain"):
+            wrapper(tq, tk, tv, o, lse, tdo)

@@ -154,7 +154,7 @@ def test_load_flax_weights_is_strict():
 
 
 @pytest.mark.parametrize("family", [
-    "weather_mlp", "weather_gru", "weather_moe", "weather_transformer_pp",
+    "weather_gru", "weather_moe", "weather_transformer_pp",
 ])
 def test_registry_refuses_unported_families(family):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
