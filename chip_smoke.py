@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch port on one NVIDIA H100: kernels, serving, training.
+"""Smoke run of the PyTorch port on one NVIDIA H100: kernels, serving,
+training and the continuous loop.
 
     python3 chip_smoke.py
 
@@ -111,6 +112,36 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
    step (CUDA events around each step, no synchronization) beside (b)'s
    median step; reloads ``last.ckpt`` into a fresh model and holds its
    validation loss to the fit's within 1e-6.
+10. (h) The continuous loop at the width of 4.:
+   (h0) ``python -m dct_tpu_torch.preprocess_job`` over 1,000,000 rows of
+       the synthetic weather CSV, then over 100,000 appended rows: the
+       generation goes 1 -> 2 with exactly one new part file and the row
+       counts; prints each run's seconds and rows/s (the job's wall time,
+       interpreter start included); reads the processed dir back through
+       ``load_processed_dataset`` with pyarrow never imported (the port's
+       parquet codec is all that ran) and prints the host's pyarrow
+       version, if it has one, from another interpreter;
+   (h1) two ``run_episodic_cycle`` calls for ``weather_transformer`` (bf16
+       compute, Adam lr 1e-3, batch 32, one epoch a round) on 6,304
+       synthetic rows (4,224 train windows, as (g)), 2,000 rows appended
+       between them, with the gate's ``torch`` engine on ``cuda``: cycle 1
+       deploys straight to 100%; cycle 2 runs the incremental ETL
+       (generation 2), resumes the trajectory (2 epochs completed),
+       packages the new best and walks shadow -> gate -> canary -> gate ->
+       full, or holds, on a ``LocalEndpointClient``. Launch counts are set
+       to 0 just before the gate and read just after: forward launches =
+       layers x chunks x 2 models x 1 engine pass (the second consult reads
+       the cached ``eval_report.json``), no backward launch; the cycle's
+       training launches as in (g). The deployed endpoint (numpy runtime)
+       answers 3 held-out windows within 1e-4 of the engine on the card.
+       Prints each stage's seconds, the freshness, the gate's decision and
+       its 90% bootstrap band, and the engine's windows/s (CUDA-synchronized
+       host clock around each engine call);
+   (h2) ``python -m dct_tpu_torch.loop_job`` in a subprocess (inline mode,
+       2 rounds, the same configuration), 2,000 rows appended once round
+       1's fit has started: exit 0, 2 rounds, at least one promotion, finite
+       freshness; then a third run, SIGTERMed once its round has started:
+       exit 0, one round, and ``last.ckpt`` written after the signal.
 
 Prints the ``kernels`` JSON line (each kernel with its f32 numbers at the
 top level, as earlier slices did, a ``bf16`` summary beside them, and its
@@ -123,6 +154,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1047,6 +1079,404 @@ def fit_transformer_phase(fa, root: str, step_ms_b: float) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# (h) The continuous loop at full width.
+
+ETL_ROWS, ETL_APPEND = 1_000_000, 100_000
+# (g)'s 4224 train windows: (seq_len + BATCH) / 0.2 windows + seq_len rows.
+LOOP_ROWS = int((SERVE_CFG["seq_len"] + BATCH) / 0.2) + SERVE_CFG["seq_len"]
+LOOP_APPEND = 2000
+ENDPOINT = "weather-smoke"
+AGREE_TOL = 1e-4  # the deployed numpy endpoint vs the torch engine, f32
+
+
+def _sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def etl_phase(root: str, card: str) -> dict:
+    """(h0): ``python -m dct_tpu_torch.preprocess_job`` over ETL_ROWS rows,
+    then over ETL_APPEND appended rows; the processed dir read back through
+    ``load_processed_dataset`` in a process without pyarrow in it."""
+    import importlib.util
+
+    from dct_tpu_torch.data.dataset import load_processed_dataset
+    from dct_tpu_torch.data.synthetic import (
+        append_weather_rows,
+        generate_weather_csv,
+    )
+    from dct_tpu_torch.etl.parquet import part_files
+    from dct_tpu_torch.etl.preprocess import read_etl_state
+
+    raw, proc = os.path.join(root, "raw.csv"), os.path.join(root, "proc")
+    t0 = time.perf_counter()
+    generate_weather_csv(raw, rows=ETL_ROWS, seed=0)
+    gen_s = time.perf_counter() - t0
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DCT_")}
+    env.update(PYTHONPATH=HERE, DCT_RAW_CSV=raw, DCT_PROCESSED_DIR=proc,
+               DCT_ETL_ENGINE="native")
+    runs = []
+    for rows in (ETL_ROWS, ETL_APPEND):
+        if rows == ETL_APPEND:
+            append_weather_rows(raw, rows=ETL_APPEND, seed=1)
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "dct_tpu_torch.preprocess_job"],
+                       env=env, cwd=HERE, check=True, timeout=600,
+                       capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        state = read_etl_state(proc)
+        runs.append({"rows": rows, "s": seconds, "rows_per_s": rows / seconds,
+                     "generation": state["generation"], "mode": state["mode"],
+                     "parts": len(part_files(os.path.join(
+                         proc, "data.parquet")))})
+    full, delta = runs
+    if not (full["generation"] == 1 and delta["generation"] == 2
+            and delta["mode"] == "delta"
+            and delta["parts"] == full["parts"] + 1
+            and read_etl_state(proc)["rows"] == ETL_ROWS + ETL_APPEND):
+        raise AssertionError(f"(h0) ETL generations/parts/rows: {runs}")
+    t0 = time.perf_counter()
+    data = load_processed_dataset(proc)
+    load_s = time.perf_counter() - t0
+    if not (len(data) == ETL_ROWS + ETL_APPEND
+            and np.isfinite(data.features).all()
+            and data.features.dtype == np.float32):
+        raise AssertionError(f"(h0) loaded {len(data)} rows")
+    if "pyarrow" in sys.modules:
+        raise AssertionError("(h0) pyarrow was imported")
+    # Whether the host has pyarrow at all (asked of another interpreter,
+    # so this process never imports it).
+    pyarrow_version = None
+    if importlib.util.find_spec("pyarrow") is not None:
+        pyarrow_version = subprocess.run(
+            [sys.executable, "-c", "import pyarrow; print(pyarrow.__version__)"],
+            capture_output=True, text=True, timeout=120).stdout.strip()
+    out = {"csv_rows_generated_s": gen_s, "full": full, "delta": delta,
+           "load_rows": len(data), "load_s": load_s,
+           "host_pyarrow": pyarrow_version, "pyarrow_imported": False,
+           "card": card}
+    print(f"[smoke] (h0) etl {out}", flush=True)
+    return out
+
+
+def _loop_env(root: str) -> dict:
+    """The ``DCT_*`` environment that (h1) and (h2) both run under: the
+    full-width transformer, bf16 training, inline rounds of one epoch, no
+    soak, the gate's torch engine."""
+    env = dict(
+        DCT_RAW_CSV=os.path.join(root, "raw", "weather.csv"),
+        DCT_PROCESSED_DIR=os.path.join(root, "processed"),
+        DCT_MODELS_DIR=os.path.join(root, "models"),
+        DCT_TRACKING_DIR=os.path.join(root, "mlruns"),
+        DCT_EVENTS_DIR=os.path.join(root, "events"),
+        DCT_LOOP_PACKAGES_DIR=os.path.join(root, "packages"),
+        DCT_LOOP_ENDPOINT=ENDPOINT, DCT_LOOP_TRAIN_MODE="inline",
+        DCT_LOOP_EPOCHS_PER_ROUND="1", DCT_LOOP_SOAK_S="0",
+        DCT_GATE_ENGINE="torch", DCT_MODEL="weather_transformer",
+        DCT_SEQ_LEN=str(SERVE_CFG["seq_len"]),
+        DCT_D_MODEL=str(SERVE_CFG["d_model"]),
+        DCT_N_HEADS=str(SERVE_CFG["n_heads"]),
+        DCT_N_LAYERS=str(SERVE_CFG["n_layers"]),
+        DCT_D_FF=str(SERVE_CFG["d_ff"]), DCT_EPOCHS="1",
+        DCT_BATCH_SIZE=str(BATCH), DCT_LR="1e-3", DCT_SEED="0",
+        DCT_BF16_COMPUTE="1")
+    if DEVICE == "cpu":
+        env["DCT_DEVICE"] = "cpu"
+    return env
+
+
+def _without_dct(environ) -> dict:
+    return {k: v for k, v in environ.items() if not k.startswith("DCT_")}
+
+
+def _expected_train_launches(cfg) -> dict:
+    """4 forward launches per train step and per eval batch, 4 dK/dV and
+    4 dQ per train step, over the processed dir's windows."""
+    from dct_tpu_torch.data.dataset import load_processed_dataset
+    from dct_tpu_torch.data.pipeline import BatchLoader, contiguous_split
+    from dct_tpu_torch.data.windows import make_windows
+
+    seq = SERVE_CFG["seq_len"]
+    windows = make_windows(load_processed_dataset(cfg.data.processed_dir),
+                           seq)
+    train_idx, val_idx = contiguous_split(len(windows), val_fraction=0.2,
+                                          gap=seq)
+    n_train = BatchLoader(windows, train_idx, global_batch=BATCH,
+                          shuffle=True).num_batches
+    n_val = BatchLoader(windows, val_idx, global_batch=BATCH,
+                        shuffle=False).num_batches
+    n = SERVE_CFG["n_layers"]
+    return {"flash_fwd": n * (n_train + n_val),
+            "flash_bwd_dkdv": n * n_train, "flash_bwd_dq": n * n_train}
+
+
+def episodic_phase(fa, root: str, card: str) -> dict:
+    """(h1): two ``run_episodic_cycle`` calls at full width on the card,
+    rows appended between them; the second cycle's train and gate launches
+    counted, the gate's torch engine timed, the deployed endpoint held to
+    the engine."""
+    from dct_tpu_torch.config import EvaluationConfig, RunConfig
+    from dct_tpu_torch.continuous.evaluator import PromotionEvaluator
+    from dct_tpu_torch.continuous.loop import run_episodic_cycle
+    from dct_tpu_torch.data.synthetic import (
+        append_weather_rows,
+        generate_weather_csv,
+    )
+    from dct_tpu_torch.deploy.local import LocalEndpointClient
+    from dct_tpu_torch.etl.preprocess import read_etl_state
+    from dct_tpu_torch.evaluation import harness
+
+    for key in [k for k in os.environ if k.startswith("DCT_")]:
+        del os.environ[key]
+    os.environ.update(_loop_env(root))
+    cfg = RunConfig.from_env()
+    generate_weather_csv(cfg.data.raw_csv, rows=LOOP_ROWS, seed=1)
+    client = LocalEndpointClient(
+        state_path=os.path.join(root, "endpoint_state.json"))
+    evaluator = PromotionEvaluator(
+        cfg.data.models_dir, cfg.loop.packages_dir, client=client,
+        endpoint=ENDPOINT, processed_dir=cfg.data.processed_dir, soak_s=0.0,
+        device=DEVICE)
+    engine = {"windows": 0, "s": 0.0, "calls": 0}
+    engine_fn = harness._batched_probs_torch
+    scored = []  # the gate's engine calls, held to the plain version below
+
+    def timed_engine(weights, meta, x, batch_size, device):
+        _sync()
+        t0 = time.perf_counter()
+        probs = engine_fn(weights, meta, x, batch_size, device)
+        _sync()
+        engine["s"] += time.perf_counter() - t0
+        engine["windows"] += len(x)
+        engine["calls"] += 1
+        scored.append((weights, meta, x, batch_size, device, probs))
+        return probs
+
+    counts = {}
+    check_once = evaluator.check_once
+
+    def counted_check_once():
+        _sync()
+        counts["train"] = fa.launch_counts()
+        fa.reset_launches()  # just before the gate
+        out = check_once()
+        _sync()
+        counts["gate"] = fa.launch_counts()  # just after it
+        return out
+
+    harness._batched_probs_torch = timed_engine
+    evaluator.check_once = counted_check_once
+    try:
+        first = run_episodic_cycle(cfg, client=client, evaluator=evaluator,
+                                   device=DEVICE)
+        if not (first["promoted"] and client.get_traffic(ENDPOINT)
+                == {"blue": 100} and counts["gate"]["flash_fwd"] == 0):
+            raise AssertionError(f"(h1) cycle 1 did not deploy straight to "
+                                 f"100%: {first} {client.ops}")
+        append_weather_rows(cfg.data.raw_csv, rows=LOOP_APPEND, seed=2)
+        ops_before = len(client.ops)
+        fa.reset_launches()
+        second = run_episodic_cycle(cfg, client=client, evaluator=evaluator,
+                                    device=DEVICE)
+    finally:
+        harness._batched_probs_torch = engine_fn
+        evaluator.check_once = check_once
+    state = read_etl_state(cfg.data.processed_dir)
+    with open(os.path.join(cfg.data.models_dir, "train_state", "p0",
+                           "state", "meta.json")) as f:
+        resumed = json.load(f)["epochs_completed"]
+    challenger = os.path.join(cfg.loop.packages_dir, "pkg-00002")
+    with open(os.path.join(challenger, "eval_report.json")) as f:
+        report = json.load(f)
+    walk = [op for op in client.ops[ops_before:]
+            if op[0] in ("set_traffic", "set_mirror_traffic")]
+    held = evaluator.held[-1] if evaluator.held else None
+    if not (second["generation"] == 2 and state["mode"] == "delta"
+            and resumed == 2 and os.path.exists(os.path.join(
+                challenger, "model.npz"))
+            and walk[:2] == [("set_traffic", ENDPOINT,
+                              {"blue": 100, "green": 0}),
+                             ("set_mirror_traffic", ENDPOINT,
+                              {"green": 20})]
+            and (second["promoted"] or held is not None)):
+        raise AssertionError(f"(h1) cycle 2: {second} state {state} "
+                             f"epochs {resumed} walk {walk} held {held}")
+    if second["promoted"] and walk[-1] != ("set_traffic", ENDPOINT,
+                                           {"green": 100}):
+        raise AssertionError(f"(h1) promoted without the full flip: {walk}")
+    # The gate's launches: layers x chunks x models x the consults that ran
+    # the engine (the second consult reads the cached eval_report.json).
+    x, y = harness.load_eval_split(cfg.data.processed_dir,
+                                   harness.load_model(challenger)[1])
+    eval_batch = EvaluationConfig.from_env().eval_batch
+    chunks = -(-len(x) // eval_batch)
+    want_gate = {"flash_fwd": SERVE_CFG["n_layers"] * chunks * 2 * 1,
+                 "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    want_train = _expected_train_launches(cfg)
+    if counts["gate"] != want_gate or counts["train"] != want_train:
+        raise AssertionError(f"(h1) launches {counts}, want gate "
+                             f"{want_gate}, train {want_train}")
+    if engine["calls"] != 2 or engine["windows"] != 2 * len(x):
+        raise AssertionError(f"(h1) engine calls {engine}")
+    # Every window the gate scored on the card, champion and challenger,
+    # against the same engine with the kernel's plain version in its place.
+    fa_kernel = fa.flash_attention
+
+    def plain_attention(q, k, v, *, causal=False, window=None, **_):
+        return fa.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window)[0]
+
+    fa.flash_attention = plain_attention
+    fa.reset_launches()
+    try:
+        gate_vs_plain = max(
+            float(np.abs(probs - engine_fn(weights, meta, xs, batch_size,
+                                           device)).max())
+            for weights, meta, xs, batch_size, device, probs in scored)
+    finally:
+        fa.flash_attention = fa_kernel
+    if not (gate_vs_plain <= AGREE_TOL
+            and sum(fa.launch_counts().values()) == 0):
+        raise AssertionError(f"(h1) gate engine vs plain {gate_vs_plain} "
+                             f"(tol {AGREE_TOL}), {fa.launch_counts()}")
+    # The deployed champion's endpoint (the numpy runtime) against the
+    # torch engine on the card, on 3 held-out windows.
+    live = max(client.get_traffic(ENDPOINT).items(), key=lambda kv: kv[1])[0]
+    pkg = client.deployment_package_dir(ENDPOINT, live)
+    served = np.asarray(client.score(ENDPOINT, {"data": x[:3].tolist()})[
+        "probabilities"])
+    weights, meta = harness.load_model(pkg)
+    fa.reset_launches()
+    on_card = harness.batched_probs(weights, meta, x[:3], engine="torch",
+                                    device=DEVICE)
+    agree = float(np.abs(served - on_card).max())
+    if not (served.shape == (3, 2) and agree <= AGREE_TOL
+            and fa.launch_counts()["flash_fwd"] == SERVE_CFG["n_layers"]):
+        raise AssertionError(f"(h1) endpoint vs engine {agree} (tol "
+                             f"{AGREE_TOL}), {fa.launch_counts()}")
+    boot = report.get("bootstrap") or {}
+    out = {
+        "cycle1": {k: first[k] for k in ("etl_s", "train_s", "deploy_s",
+                                          "cycle_s", "freshness_s",
+                                          "val_loss", "generation")},
+        "cycle2": {k: second[k] for k in ("etl_s", "train_s", "deploy_s",
+                                           "cycle_s", "freshness_s",
+                                           "val_loss", "generation",
+                                           "promoted")},
+        "gate": {"decision": "promote" if second["promoted"]
+                 else held["decision"],
+                 "reason": None if second["promoted"] else held["reason"],
+                 "mean_delta": report["mean_delta"],
+                 "ci90": [boot.get("ci_low"), boot.get("ci_high")],
+                 "p_better": boot.get("p_better"),
+                 "champion_loss": report["champion"]["loss_mean"],
+                 "challenger_loss": report["challenger"]["loss_mean"],
+                 "eval_windows": len(x), "eval_batch": eval_batch,
+                 "engine_s": engine["s"],
+                 "windows_per_s": engine["windows"] / engine["s"]},
+        "walk": walk, "launches": counts,
+        "gate_vs_plain_max_abs_err": gate_vs_plain,
+        "endpoint_vs_engine_max_abs_err": agree, "card": card,
+    }
+    print(f"[smoke] (h1) episodic {out}", flush=True)
+    return out
+
+
+def _loop_job(env: dict, root: str, name: str, *, on_round_start=None,
+              wait_s=900):
+    """Run ``python -m dct_tpu_torch.loop_job``, its stderr into
+    ``<root>/<name>.log``; ``on_round_start(proc)`` is called once the
+    first round's fit has started its tracking run."""
+    runs_dir = os.path.join(env["DCT_TRACKING_DIR"], "weather_forecasting")
+    before = set(os.listdir(runs_dir)) if os.path.isdir(runs_dir) else set()
+    log = open(os.path.join(root, f"{name}.log"), "w")
+    proc = subprocess.Popen([sys.executable, "-m", "dct_tpu_torch.loop_job"],
+                            env=env, cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=log, text=True)
+    watcher = None
+    if on_round_start is not None:
+        def watch():
+            while proc.poll() is None:
+                now = (set(os.listdir(runs_dir)) if os.path.isdir(runs_dir)
+                       else set())
+                if now - before:
+                    on_round_start(proc)
+                    return
+                time.sleep(0.05)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+    try:
+        out, _ = proc.communicate(timeout=wait_s)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        log.close()
+        if watcher is not None:
+            watcher.join(timeout=10)
+    line = [x for x in out.splitlines()
+            if x.startswith("[loop_job] summary ")]
+    if proc.returncode != 0 or not line:
+        raise AssertionError(f"(h2) loop_job exit {proc.returncode}: "
+                             f"{out[-2000:]} (stderr in {log.name})")
+    return json.loads(line[-1][len("[loop_job] summary "):])
+
+
+def loop_job_phase(root: str, card: str) -> dict:
+    """(h2): ``python -m dct_tpu_torch.loop_job`` (inline, 2 rounds) with
+    rows appended while round 1 trains; then a third run SIGTERMed
+    mid-round."""
+    import signal
+
+    from dct_tpu_torch.data.synthetic import (
+        append_weather_rows,
+        generate_weather_csv,
+    )
+
+    loop_env = _loop_env(root)
+    raw = loop_env["DCT_RAW_CSV"]
+    generate_weather_csv(raw, rows=LOOP_ROWS, seed=3)
+    env = _without_dct(os.environ)
+    env.update(loop_env, PYTHONPATH=HERE, DCT_LOOP_MAX_ROUNDS="2",
+               DCT_LOOP_POLL_S="0.5", DCT_LOOP_EVAL_POLL_S="0.5")
+    appended = {}
+
+    def append_rows(proc):
+        appended["at"] = time.time()
+        append_weather_rows(raw, rows=LOOP_APPEND, seed=4)
+
+    t0 = time.perf_counter()
+    two = _loop_job(env, root, "two_rounds", on_round_start=append_rows)
+    two_s = time.perf_counter() - t0
+    fresh = two["freshness_s"]
+    if not (two["rounds"] == 2 and two["reason"] == "max_rounds"
+            and two["promotions"] >= 1 and fresh
+            and all(np.isfinite(fresh)) and "at" in appended
+            and two["ingested_generations"] == 2
+            and two["evaluator_errors"] == 0 and two["ingest_errors"] == 0):
+        raise AssertionError(f"(h2) two rounds: {two}")
+    env["DCT_LOOP_MAX_ROUNDS"] = "0"
+    signalled = {}
+
+    def sigterm(proc):
+        signalled["at"] = time.time()
+        proc.send_signal(signal.SIGTERM)
+
+    drained = _loop_job(env, root, "sigterm", on_round_start=sigterm)
+    last = os.path.join(loop_env["DCT_MODELS_DIR"], "last.ckpt")
+    if not (drained["reason"] == "signal_15" and drained["rounds"] == 1
+            and "at" in signalled and drained["evaluator_errors"] == 0
+            and drained["ingest_errors"] == 0
+            and os.path.getmtime(last) >= signalled["at"]):
+        raise AssertionError(f"(h2) SIGTERM drain: {drained}")
+    out = {"two_rounds": two, "two_rounds_wall_s": two_s,
+           "sigterm": drained, "card": card}
+    print(f"[smoke] (h2) loop_job {out}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1112,6 +1542,13 @@ def main() -> int:
           f"{fitted['epoch_ms_per_train_step']:.3f} ms per train step, "
           f"(b)'s step median {b_bf16['step_ms']:.3f} ms", flush=True)
 
+    loop_root = os.path.join(HERE, "build", "chip_smoke_loop")
+    shutil.rmtree(loop_root, ignore_errors=True)  # (h) starts from nothing
+    etl_phase(os.path.join(loop_root, "etl"), card)
+    episodic = episodic_phase(fa, os.path.join(loop_root, "episodic"), card)
+    loop_job_phase(os.path.join(loop_root, "loop_job"), card)
+    loop_counts = episodic["launches"]
+
     def bf16_summary(rows):
         row = [r for r in rows
                if r["dtype"] == "bfloat16" and not r["causal"]][0]
@@ -1129,10 +1566,15 @@ def main() -> int:
         "replaces": "dct_tpu/ops/pallas_attention.py:81 (_flash_fwd_kernel; "
                     "pallas_call at :260)",
         "launches": (launches + train_counts["flash_fwd"]
-                     + fit_counts["flash_fwd"]),
+                     + fit_counts["flash_fwd"]
+                     + loop_counts["train"]["flash_fwd"]
+                     + loop_counts["gate"]["flash_fwd"]),
         "launches_by_path": {"serve": launches,
                              "train": train_counts["flash_fwd"],
-                             "fit": fit_counts["flash_fwd"]},
+                             "fit": fit_counts["flash_fwd"],
+                             "loop_train": loop_counts["train"]["flash_fwd"],
+                             "gate": loop_counts["gate"]["flash_fwd"]},
+        "gate_launches_per_consult": loop_counts["gate"]["flash_fwd"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1151,9 +1593,12 @@ def main() -> int:
             "source": "dct_tpu_torch/ops/csrc/flash_bwd.cu",
             "replaces": f"dct_tpu/ops/pallas_attention.py:{line} "
                         f"(_{name}_kernel; pallas_call at :{call})",
-            "launches": train_counts[name] + fit_counts[name],
+            "launches": (train_counts[name] + fit_counts[name]
+                         + loop_counts["train"][name]),
             "launches_by_path": {"train": train_counts[name],
-                                 "fit": fit_counts[name]},
+                                 "fit": fit_counts[name],
+                                 "loop_train": loop_counts["train"][name],
+                                 "gate": loop_counts["gate"][name]},
             "launches_per_step": train_counts[name] / train_steps,
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],

@@ -7,8 +7,13 @@ code reads, with the reference's defaults and ``DCT_*`` environment names
 (and its unprefixed ``WORLD_SIZE``/``NODE_RANK``/``MASTER_ADDR``/
 ``MASTER_PORT``/``MLFLOW_TRACKING_URI``): ``DataConfig`` (``:34-60``),
 ``TrainConfig`` (``:164-282``), ``DistributedConfig`` (``:311-346``),
-``TrackingConfig`` (``:348-369``), ``ServingConfig`` (``:770-860``) and the
-``RunConfig`` bundle the trainer takes.
+``TrackingConfig`` (``:348-369``), ``ObservabilityConfig`` (its
+``events_dir``, ``:428``), ``EvaluationConfig`` (``:672-766``),
+``ServingConfig`` (``:770-860``), ``LoopConfig`` (``:918-976``),
+``StreamConfig`` (its ``mode``, ``:979``) and the ``RunConfig`` bundle the
+trainer and the loop take. ``EvaluationConfig`` and ``ObservabilityConfig``
+stay out of the bundle: the gate and its ledger read them from the
+environment where they are used, as the reference's do.
 """
 
 from __future__ import annotations
@@ -30,10 +35,12 @@ def _env(name: str, default: Any, cast: Callable = str) -> Any:
 
 @dataclass
 class DataConfig:
-    """Where the processed parquet is read and checkpoints are written,
-    the feature/label columns, and the validation fraction."""
+    """Where the raw CSV is read, the processed parquet written and read
+    and checkpoints written, the feature/label columns, and the validation
+    fraction."""
 
     processed_dir: str = "data/processed"
+    raw_csv: str = "data/raw/weather.csv"
     models_dir: str = "data/models"
     val_fraction: float = 0.2
     feature_suffix: str = "_norm"
@@ -43,6 +50,7 @@ class DataConfig:
     def from_env(cls) -> "DataConfig":
         c = cls()
         c.processed_dir = _env("DCT_PROCESSED_DIR", c.processed_dir, str)
+        c.raw_csv = _env("DCT_RAW_CSV", c.raw_csv, str)
         c.models_dir = _env("DCT_MODELS_DIR", c.models_dir, str)
         c.val_fraction = _env("DCT_VAL_FRACTION", c.val_fraction, float)
         return c
@@ -248,21 +256,210 @@ class TrackingConfig:
 
 
 @dataclass
+class ObservabilityConfig:
+    """Where the event-side files go: ``DCT_EVENTS_DIR`` (the gate's
+    decision ledger lives there). The event log, spans and metrics
+    planes themselves are ROADMAP Queue A item 27."""
+
+    events_dir: str = "logs/events"
+
+    @classmethod
+    def from_env(cls) -> "ObservabilityConfig":
+        c = cls()
+        c.events_dir = _env("DCT_EVENTS_DIR", c.events_dir, str)
+        return c
+
+
+@dataclass
+class EvaluationConfig:
+    """Continuous-evaluation knobs (dct_tpu_torch.evaluation):
+    the champion/challenger offline eval harness, the statistical
+    promotion gates between rollout stages, and the drift detectors.
+
+    The gate's null hypothesis is "the challenger is NOT worse": by
+    default a cycle promotes unless the evidence says it regressed
+    (``require_improvement`` flips that to "promote only on proven
+    improvement"). All stochastic machinery (the paired bootstrap) is
+    seeded from ``seed`` so a gate decision is reproducible from its
+    evidence. ``DCT_DRIFT_THRESHOLD`` (the ETL-side stats gate in
+    etl/preprocess.py) is a different, older knob; the deploy-side
+    detectors here use PSI/KS against the snapshot stamped into the
+    deploy package.
+    """
+
+    # Consult a PromotionGate between rollout stages (shadow -> canary
+    # -> full). Off = the reference's timer-only walk.
+    gate_enabled: bool = True
+    # Mean per-example loss delta (champion - challenger) the challenger
+    # must exceed to count as an improvement.
+    min_improvement: float = 0.0
+    # Mean regression tolerated before the gate blocks (challenger mean
+    # loss may exceed champion's by at most this).
+    max_regression: float = 0.0
+    # One-sided confidence required of the paired bootstrap before a
+    # delta counts as evidence (0.95 = the regression must be outside
+    # the bootstrap's 95% band).
+    confidence: float = 0.95
+    bootstrap_samples: int = 1000
+    # Bootstrap RNG seed: gate decisions must be deterministic.
+    seed: int = 42
+    # Worst tolerated per-slice loss regression (e.g. the rain slice may
+    # not get this much worse even if the aggregate improved).
+    max_slice_regression: float = 0.25
+    # Promote only on statistically-significant improvement (default:
+    # promote unless significantly worse — continuous-training default).
+    require_improvement: bool = False
+    # Examples per forward pass in the offline harness.
+    eval_batch: int = 1024
+    # 'numpy' = the serving twin (identical math to the deployed
+    # score.py); 'torch' = the registry model on the device, f32, chunked
+    # (the reference's 'jax' engine, which names this engine here too).
+    engine: str = "numpy"
+    # Missing prerequisites (no champion, no eval data, unreadable
+    # package): promote with a warning (True) or hold (False). A real
+    # failing evaluation always blocks regardless.
+    fail_open: bool = True
+    # Gate-decision ledger; "" = <events_dir>/gate_ledger.json.
+    ledger_path: str = ""
+    # Drift detectors: PSI above this flags a feature (industry rule of
+    # thumb: 0.1 moderate, 0.2 major); KS D-statistic threshold; bins
+    # for the stamped quantile snapshot; shadow-stage prediction
+    # disagreement rate above which the shadow->canary gate holds.
+    psi_threshold: float = 0.2
+    ks_threshold: float = 0.15
+    drift_bins: int = 10
+    max_disagreement: float = 0.25
+
+    @classmethod
+    def from_env(cls) -> "EvaluationConfig":
+        c = cls()
+        c.gate_enabled = _env("DCT_GATE", c.gate_enabled, bool)
+        c.min_improvement = _env(
+            "DCT_GATE_MIN_IMPROVEMENT", c.min_improvement, float
+        )
+        c.max_regression = _env(
+            "DCT_GATE_MAX_REGRESSION", c.max_regression, float
+        )
+        c.confidence = _env("DCT_GATE_CONFIDENCE", c.confidence, float)
+        c.bootstrap_samples = _env(
+            "DCT_GATE_BOOTSTRAP", c.bootstrap_samples, int
+        )
+        c.seed = _env("DCT_GATE_SEED", c.seed, int)
+        c.max_slice_regression = _env(
+            "DCT_GATE_MAX_SLICE_REGRESSION", c.max_slice_regression, float
+        )
+        c.require_improvement = _env(
+            "DCT_GATE_REQUIRE_IMPROVEMENT", c.require_improvement, bool
+        )
+        c.eval_batch = _env("DCT_GATE_EVAL_BATCH", c.eval_batch, int)
+        c.engine = _env("DCT_GATE_ENGINE", c.engine, str).strip().lower()
+        c.fail_open = _env("DCT_GATE_FAIL_OPEN", c.fail_open, bool)
+        c.ledger_path = _env("DCT_GATE_LEDGER", c.ledger_path, str)
+        c.psi_threshold = _env("DCT_DRIFT_PSI", c.psi_threshold, float)
+        c.ks_threshold = _env("DCT_DRIFT_KS", c.ks_threshold, float)
+        c.drift_bins = _env("DCT_DRIFT_BINS", c.drift_bins, int)
+        c.max_disagreement = _env(
+            "DCT_DRIFT_MAX_DISAGREEMENT", c.max_disagreement, float
+        )
+        return c
+
+
+@dataclass
+class LoopConfig:
+    """Always-on overlapped cycles (dct_tpu_torch.continuous): ingest
+    watcher, continuous training rounds, and the concurrent evaluator
+    that promotes mid-run.
+
+    The loop replaces the episodic DAG clock (ROADMAP item 3): ETL,
+    training, gating and deploy overlap instead of serializing, so
+    data-arrival -> deployed-model freshness is bounded by stage
+    latency, not cycle latency. Budgets (``max_*``) exist for smokes
+    and benches; production leaves them 0 (run until SIGTERM).
+    """
+
+    # Ingest watcher poll cadence over the raw staging CSV (stat-based
+    # pre-check; content digest decides no-op vs delta vs rebuild).
+    poll_s: float = 2.0
+    # Evaluator poll cadence over the deploy-tier best checkpoint.
+    eval_poll_s: float = 2.0
+    # Epochs per training round — the loop's train quantum. Small keeps
+    # fresh data's wait-for-round short; each round EXTENDS the same
+    # optimizer trajectory (DCT_RESUME semantics).
+    epochs_per_round: int = 2
+    # 'supervised' = each round runs under the supervisor (ROADMAP
+    # Queue A item 20: it raises until the launcher is ported); 'inline'
+    # = Trainer.fit in-process.
+    train_mode: str = "supervised"
+    # Rollout soak per stage (shadow/canary dwell) for mid-run
+    # promotions — the loop's evaluator overlaps these with training.
+    soak_s: float = 5.0
+    # Local endpoint name the loop promotes into.
+    endpoint: str = "weather-loop"
+    # Challenger package root (one package dir per promotion attempt;
+    # slot-referenced packages are retained, stale ones pruned).
+    packages_dir: str = "data/loop_packages"
+    # Stop budgets: 0 = unbounded (production always-on).
+    max_rounds: int = 0
+    max_wall_s: float = 0.0
+    max_promotions: int = 0
+
+    @classmethod
+    def from_env(cls) -> "LoopConfig":
+        c = cls()
+        c.poll_s = _env("DCT_LOOP_POLL_S", c.poll_s, float)
+        c.eval_poll_s = _env("DCT_LOOP_EVAL_POLL_S", c.eval_poll_s, float)
+        c.epochs_per_round = _env(
+            "DCT_LOOP_EPOCHS_PER_ROUND", c.epochs_per_round, int
+        )
+        c.train_mode = _env(
+            "DCT_LOOP_TRAIN_MODE", c.train_mode, str
+        ).strip().lower()
+        c.soak_s = _env("DCT_LOOP_SOAK_S", c.soak_s, float)
+        c.endpoint = _env("DCT_LOOP_ENDPOINT", c.endpoint, str)
+        c.packages_dir = _env("DCT_LOOP_PACKAGES_DIR", c.packages_dir, str)
+        c.max_rounds = _env("DCT_LOOP_MAX_ROUNDS", c.max_rounds, int)
+        c.max_wall_s = _env("DCT_LOOP_MAX_WALL_S", c.max_wall_s, float)
+        c.max_promotions = _env(
+            "DCT_LOOP_MAX_PROMOTIONS", c.max_promotions, int
+        )
+        return c
+
+
+@dataclass
+class StreamConfig:
+    """The loop's ingest source, ``DCT_INGEST_MODE``: ``poll`` (the CSV
+    digest-polling watcher) or ``stream`` (the partitioned event log,
+    ROADMAP Queue A item 24, which raises until ported)."""
+
+    mode: str = "poll"
+
+    @classmethod
+    def from_env(cls) -> "StreamConfig":
+        c = cls()
+        c.mode = _env("DCT_INGEST_MODE", c.mode, str).strip().lower()
+        return c
+
+
+@dataclass
 class RunConfig:
-    """The bundle passed to the trainer."""
+    """The bundle passed to the trainer and the loop."""
 
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     dist: DistributedConfig = field(default_factory=DistributedConfig)
     tracking: TrackingConfig = field(default_factory=TrackingConfig)
+    loop: LoopConfig = field(default_factory=LoopConfig)
+    stream: StreamConfig = field(default_factory=StreamConfig)
 
     @classmethod
     def from_env(cls) -> "RunConfig":
         return cls(data=DataConfig.from_env(), model=ModelConfig.from_env(),
                    train=TrainConfig.from_env(),
                    dist=DistributedConfig.from_env(),
-                   tracking=TrackingConfig.from_env())
+                   tracking=TrackingConfig.from_env(),
+                   loop=LoopConfig.from_env(),
+                   stream=StreamConfig.from_env())
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)

@@ -3,11 +3,11 @@
 The ETL writes a parquet file or directory ``data.parquet`` into the
 processed dir; loading hard-fails with the reference's messages when it is
 missing, when no ``_norm`` feature column exists, or when the label column
-is absent. Features load as float32, labels as int32. ``pyarrow`` is
-imported only inside :func:`load_processed_dataset`, so a caller that
-passes its own arrays (``Trainer.fit(data=...)``) never needs it. Gathers
-are numpy indexing (the reference's native C++ data plane is ROADMAP
-Queue A item 25).
+is absent. Features load as float32, labels as int32. The parquet is read
+by the port's own codec (:mod:`dct_tpu_torch.etl.parquet`), which reads
+both what the port's ETL writes and what the reference's pyarrow writes.
+Gathers are numpy indexing (the reference's native C++ data plane is
+ROADMAP Queue A item 25).
 """
 
 from __future__ import annotations
@@ -57,14 +57,14 @@ def load_processed_dataset(
             "Did the preprocessing step finish successfully?"
         )
 
-    import pyarrow.parquet as pq
+    from dct_tpu_torch.etl import parquet
 
     try:
-        table = pq.read_table(parquet_path)
-    except Exception as e:  # pragma: no cover - IO failure surface
+        table = parquet.read_table(parquet_path)
+    except (OSError, parquet.ParquetError) as e:
         raise RuntimeError(f"Failed to read Parquet file: {e}") from e
 
-    names = list(table.column_names)
+    names = list(table)
     feature_cols = [c for c in names if c.endswith(feature_suffix)]
     if not feature_cols:
         raise ValueError(
@@ -76,12 +76,9 @@ def load_processed_dataset(
             f"CRITICAL ERROR: Label column '{label_column}' not found in "
             f"columns {names}."
         )
-    feats = np.stack(
-        [table.column(c).to_numpy(zero_copy_only=False) for c in feature_cols],
-        axis=1,
-    ).astype(np.float32)
-    labels = table.column(label_column).to_numpy(
-        zero_copy_only=False).astype(np.int32)
+    feats = np.stack([table[c] for c in feature_cols], axis=1).astype(
+        np.float32)
+    labels = table[label_column].astype(np.int32)
     return WeatherArrays(features=feats, labels=labels,
                          feature_names=feature_cols)
 

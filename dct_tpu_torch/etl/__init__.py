@@ -1,1 +1,1 @@
-"""ETL state the trainer reads (the ETL itself is a later slice)."""
+"""The ETL handoff: weather.csv -> the processed parquet the trainer reads."""

@@ -379,3 +379,81 @@ def test_trainer_fit_mlp_on_card(card, tmp_path):
     assert "last.ckpt" in names and os.path.exists(res.best_model_path)
     assert os.path.exists(tmp_path / "m" / "train_state" / "p0" / "state"
                           / "state.npz")
+
+
+def test_gate_torch_engine_on_card_matches_numpy_engine(card):
+    from dct_tpu_torch.evaluation import harness
+    from dct_tpu_torch.serving.package import init_package_weights
+
+    meta = {"model": "weather_transformer", "input_dim": 5, "seq_len": 256,
+            "d_model": 64, "n_heads": 4, "n_layers": 2, "d_ff": 128,
+            "num_classes": 2, "dropout": 0.0}
+    weights = init_package_weights(meta, 4)
+    x = np.random.default_rng(5).standard_normal((20, 256, 5)).astype(
+        np.float32)
+    fa.reset_launches()
+    got = harness.batched_probs(weights, meta, x, batch_size=8,
+                                engine="torch")
+    assert fa.launch_counts()["flash_fwd"] == 2 * 3  # layers x chunks
+    want = harness.batched_probs(weights, meta, x, batch_size=8)
+    assert got.shape == want.shape == (20, 2)
+    assert float(np.abs(got - want).max()) <= 1e-4
+
+
+_NO_PYARROW = (
+    "import sys\n"
+    "class Block:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] == 'pyarrow':\n"
+    "            raise ImportError('pyarrow is blocked')\n"
+    "sys.meta_path.insert(0, Block())\n"
+)
+
+
+def test_parquet_round_trip_and_train_job_without_pyarrow(card, tmp_path):
+    """C3 on the card: the port's ETL writes the processed dir, its codec
+    reads it back, and ``python -m dct_tpu_torch.train_job`` trains from
+    it, in processes where importing pyarrow fails."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DCT_")}
+    env.update(PYTHONPATH=repo, DCT_PROCESSED_DIR=str(tmp_path / "proc"),
+               DCT_MODELS_DIR=str(tmp_path / "models"),
+               DCT_TRACKING_DIR=str(tmp_path / "mlruns"), DCT_EPOCHS="2",
+               DCT_BATCH_SIZE="32")
+    etl = _NO_PYARROW + (
+        "import numpy as np\n"
+        "from dct_tpu_torch.data.synthetic import generate_weather_csv\n"
+        "from dct_tpu_torch.etl import parquet\n"
+        "from dct_tpu_torch.etl.preprocess import preprocess_csv_to_parquet\n"
+        f"d = {str(tmp_path)!r}\n"
+        "csv = generate_weather_csv(d + '/raw.csv', rows=1200, seed=2)\n"
+        "out = preprocess_csv_to_parquet(csv, d + '/proc')\n"
+        "t = parquet.read_table(out)\n"
+        "assert len(t['label_encoded']) == 1200\n"
+        "cols = {'x': np.arange(9.0), 'y': np.arange(9, dtype=np.int32)}\n"
+        "parquet.write_table(d + '/rt.parquet', cols)\n"
+        "back = parquet.read_table(d + '/rt.parquet')\n"
+        "assert all(np.array_equal(back[k], v) and back[k].dtype == v.dtype\n"
+        "           for k, v in cols.items())\n"
+        "assert 'pyarrow' not in sys.modules\n"
+    )
+    r = subprocess.run([sys.executable, "-c", etl], env=env,
+                       cwd=str(tmp_path), capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr
+    job = _NO_PYARROW + (
+        "import runpy\n"
+        "try:\n"
+        "    runpy.run_module('dct_tpu_torch.train_job', run_name='__main__')\n"
+        "finally:\n"
+        "    assert 'pyarrow' not in sys.modules\n"
+    )
+    r = subprocess.run([sys.executable, "-c", job], env=env,
+                       cwd=str(tmp_path), capture_output=True, text=True,
+                       timeout=600)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    assert "device=cuda:0" in r.stdout and "done: val_loss" in r.stdout
+    assert os.path.exists(tmp_path / "models" / "last.ckpt")
