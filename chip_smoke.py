@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: kernels, serving,
-training, the continuous loop and the supervised training world.
+training, the continuous loop, the supervised training world and the
+multi-tenant scheduler.
 
     python3 chip_smoke.py
 
@@ -141,7 +142,10 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
        2 rounds, the same configuration), 2,000 rows appended once round
        1's fit has started: exit 0, 2 rounds, at least one promotion, finite
        freshness; then a third run, SIGTERMed once its round has started:
-       exit 0, one round, and ``last.ckpt`` written after the signal.
+       the round's preemption guard takes the signal (the epoch in flight
+       ends and is saved), exit 0, reason ``preempted``, no round counted,
+       one ``preempt.checkpoint_saved`` and ``last.ckpt`` written after the
+       signal.
 11. (i) The supervised world at the width of 4., on (h)'s 6,304 rows (4,224
    train windows, as (g)), two epochs a world, each world ``python -m
    dct_tpu_torch.resilience.supervise --world-size 1 -- python -m
@@ -171,6 +175,35 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
    (4 forward launches per train step and per eval batch, 4 dK/dV and 4 dQ
    per train step); they join the ``kernels`` line's counts
    (``launches_by_path.supervised``).
+
+12. (j) The multi-tenant scheduler at the width of 4., every tenant (h)'s
+   bf16 transformer on (h)'s 6,304 rows (the hot tenant on 6,304 other
+   rows), through ``python -m dct_tpu_torch.scheduler_job`` on ``cuda:0``
+   with ``DCT_METRICS_DIR`` armed:
+   (j1) two inline tenants, ``alpha`` (weight 1) and ``beta`` (weight 2),
+       one epoch a round, one lease at a time, SIGTERMed once 14 leases
+       were released: exit 0, ``sched.stop`` with ``tenant.stop`` for both
+       and no ``tenant.parked``; each tenant's granted chip time
+       (``dct_tenant_chip_seconds_total`` on one aggregated scrape) within
+       20% of its share (1/3, 2/3); beta promotes at least twice (its
+       first deploy goes straight, later ones through the gate); the job's
+       flash launches equal the rounds x the per-epoch counts plus 8
+       forward launches per gate consult (one engine pass per package the
+       gate judged); the job loads the libraries this process built and
+       builds none, and no library under ``build/dct_tpu_torch`` changes;
+   (j2) supervised tenants ``bulk`` (low, 2 epochs a round, epoch 0 held
+       3 s by ``slow_epoch``), ``hot`` (high, 1 epoch, one round; its rows
+       arrive once bulk's world fired the slow epoch) and, for (j3),
+       ``sick`` (low, ``nan:epoch0`` under ``DCT_HALT_ON_NAN``), with
+       ``DCT_SCHED_PREEMPT_WAIT_S=2``: ``sched.preempt`` names bulk and
+       waiter hot; bulk's world exits 75 after saving epoch 0
+       (``supervise_preempted``, no relaunch), hot is granted and trains,
+       bulk's next lease resumes at epoch 1 (each ``epoch_end`` once) and
+       ends bitwise equal to (i)'s uninterrupted 2-epoch world;
+   (j3) sick's rank exits 76, the tenant parks (``health_halt``), bulk is
+       granted after sick's release, and the job exits 1. Each rank's
+       launches are one epoch of the per-epoch counts; the job's own are
+       the gate engines'. Prints each sub-phase's wall.
 
 Prints the ``kernels`` JSON line (each kernel with its f32 numbers at the
 top level, as earlier slices did, a ``bf16`` summary beside them, and its
@@ -1497,11 +1530,19 @@ def loop_job_phase(root: str, card: str) -> dict:
 
     drained, _ = _loop_job(env, root, "sigterm", on_round_start=sigterm)
     last = os.path.join(loop_env["DCT_MODELS_DIR"], "last.ckpt")
-    if not (drained["reason"] == "signal_15" and drained["rounds"] == 1
+    # The inline round's guard takes the signal: the epoch in flight ends,
+    # both tiers are saved, and the loop drains without counting the
+    # stopped round.
+    from dct_tpu_torch.observability.events import read_events
+
+    saved = _named(read_events(loop_env["DCT_EVENTS_DIR"]),
+                   "preempt.checkpoint_saved")
+    if not (drained["reason"] == "preempted" and drained["rounds"] == 0
             and "at" in signalled and drained["evaluator_errors"] == 0
-            and drained["ingest_errors"] == 0
+            and drained["ingest_errors"] == 0 and drained["error"] is None
+            and [s["ts"] >= signalled["at"] for s in saved] == [True]
             and os.path.getmtime(last) >= signalled["at"]):
-        raise AssertionError(f"(h2) SIGTERM drain: {drained}")
+        raise AssertionError(f"(h2) SIGTERM drain: {drained} {saved}")
     out = {"two_rounds": two, "two_rounds_wall_s": two_s,
            "sigterm": drained, "card": card}
     print(f"[smoke] (h2) loop_job {out}", flush=True)
@@ -1841,11 +1882,360 @@ def supervised_phase(root: str, card: str) -> dict:
             "sigterm_wall_s": drained_s}
     print(f"[smoke] (i5) loop_job supervised {loop}", flush=True)
     out = {"uninterrupted_wall_s": clean_s, "free_gib_at_start": free_gib,
+           "clean_models_dir": clean["DCT_MODELS_DIR"],
            "crash": crash, "hang": hang, "sigterm": sigterm, "loop": loop,
            "launches": launches, "per_epoch": per_epoch, "card": card}
     out["phase_s"] = time.perf_counter() - phase_t0
     print(f"[smoke] (i) supervised launches {launches} "
           f"(per epoch {per_epoch}); uninterrupted world {clean_s:.1f} s, "
+          f"phase {out['phase_s']:.1f} s on {card}", flush=True)
+    return out
+
+
+# ----------------------------------------------------------------------
+# (j) The multi-tenant scheduler at full width.
+
+SCHED_RELEASES = 14  # (j1): lease releases seen before the SIGTERM (>= 12)
+SCHED_QUOTA_BAND = 0.2  # (j1): granted share within 20% of the quota share
+SCHED_PREEMPT_WAIT_S = 2  # (j2): a starved waiter's wait before it preempts
+SCHED_SLOW_S = 3  # (j2): bulk's epoch 0 held this long (slow_epoch)
+
+
+def _job_lines(out: str, tag: str) -> list:
+    return [json.loads(line[len(tag) + 1:]) for line in out.splitlines()
+            if line.startswith(tag + " ")]
+
+
+def _sched_env(root: str, tenants: list, **extra) -> dict:
+    """``scheduler_job``'s environment: (h)'s full-width transformer and
+    loop settings (bf16, one epoch a round, the gate's torch engine), the
+    roster, the scheduler's own events and the metrics plane armed."""
+    env = _without_dct(os.environ)
+    env.update(_loop_env(root))
+    for key in ("DCT_RAW_CSV", "DCT_PROCESSED_DIR", "DCT_MODELS_DIR",
+                "DCT_LOOP_PACKAGES_DIR", "DCT_LOOP_ENDPOINT"):
+        del env[key]  # the scheduler assigns each tenant its own
+    env.update(PYTHONPATH=HERE, DCT_TENANTS=json.dumps(tenants),
+               DCT_SCHED_ROOT=os.path.join(root, "tenants"),
+               DCT_EVENTS_DIR=os.path.join(root, "events"),
+               DCT_METRICS_DIR=os.path.join(root, "metrics"),
+               DCT_METRICS_PUBLISH_S="0.5", DCT_SCHED_POLL_S="0.2",
+               DCT_LOOP_POLL_S="0.5", DCT_LOOP_EVAL_POLL_S="0.5")
+    env.update(extra)
+    return env
+
+
+def _scheduler_job(env: dict, root: str, name: str, *, watch=None,
+                   timeout=600) -> tuple[int, str]:
+    """``python -m dct_tpu_torch.scheduler_job``, its stderr into
+    ``<root>/<name>.log``; ``watch(proc)`` runs on a thread while it runs.
+    Returns the exit code and the job's stdout (the ranks print there
+    too)."""
+    log = open(os.path.join(root, f"{name}.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dct_tpu_torch.scheduler_job"], env=env,
+        cwd=HERE, stdout=subprocess.PIPE, stderr=log, text=True)
+    watcher = None
+    if watch is not None:
+        watcher = threading.Thread(target=watch, args=(proc,), daemon=True)
+        watcher.start()
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        log.close()
+        if watcher is not None:
+            watcher.join(timeout=10)
+    return proc.returncode, out
+
+
+def _lib_state() -> dict:
+    """Every kernel library under ``build/dct_tpu_torch`` with its mtime:
+    a rebuild would change the set or a time."""
+    from dct_tpu_torch.ops.build import BUILD_DIR
+
+    if not os.path.isdir(BUILD_DIR):  # a CPU rehearsal builds nothing
+        return {}
+    return {n: os.path.getmtime(os.path.join(BUILD_DIR, n))
+            for n in sorted(os.listdir(BUILD_DIR)) if n.endswith(".so")}
+
+
+def _check_job_kernels(out: str, where: str, names: tuple) -> dict:
+    """The job loaded the libraries ``names`` (the ones this process built
+    or loaded) and built none itself."""
+    from dct_tpu_torch.ops import build
+
+    got = _job_lines(out, "[scheduler_job] kernels")[-1]
+    if DEVICE == "cpu":  # the plain path loads no library
+        return got
+    want = {n: build.build_info[n]["path"] for n in names}
+    if {n: g["path"] for n, g in got.items()} != want or any(
+            g["built"] for g in got.values()):
+        raise AssertionError(f"({where}) kernel libraries {got}, want the "
+                             f"built ones {want} loaded, none built")
+    return got
+
+
+def _gate_per_consult() -> int:
+    """Forward launches of one gate engine pass: every layer, for the
+    champion and the challenger, over one chunk of held-out windows."""
+    return SERVE_CFG["n_layers"] * 2
+
+
+def _check_sched_launches(got: dict, want: dict, where: str) -> None:
+    if got != want:
+        raise AssertionError(f"({where}) launches {got}, want {want}")
+
+
+def sched_quota_phase(root: str, card: str, per_epoch: dict) -> dict:
+    """(j1): two inline tenants, weights 1 and 2, one epoch a round on (h)'s
+    rows; SIGTERM once SCHED_RELEASES leases were released."""
+    import signal
+
+    from dct_tpu_torch.data.synthetic import generate_weather_csv
+    from dct_tpu_torch.observability.aggregate import aggregate_text
+    from dct_tpu_torch.observability.events import read_events
+
+    os.makedirs(root, exist_ok=True)
+    raw = os.path.join(root, "raw", "weather.csv")
+    generate_weather_csv(raw, rows=LOOP_ROWS, seed=3)
+    tenants = [{"name": "alpha", "weight": 1.0, "env": {"DCT_RAW_CSV": raw}},
+               {"name": "beta", "weight": 2.0, "env": {"DCT_RAW_CSV": raw}}]
+    env = _sched_env(root, tenants, DCT_SCHED_CONCURRENT="1")
+    events_dir = env["DCT_EVENTS_DIR"]
+    signalled = {}
+
+    def sigterm_after_releases(proc):
+        while proc.poll() is None:
+            if len(_named(read_events(events_dir),
+                          "sched.release")) >= SCHED_RELEASES:
+                signalled["at"] = time.time()
+                proc.send_signal(signal.SIGTERM)
+                return
+            time.sleep(0.1)
+
+    libs = _lib_state()
+    t0 = time.perf_counter()
+    rc, out = _scheduler_job(env, root, "j1", watch=sigterm_after_releases)
+    wall_s = time.perf_counter() - t0
+    ev = read_events(events_dir)
+    summary = _job_lines(out, "[scheduler_job] summary")[-1]
+    stops = _named(ev, "tenant.stop")
+    if not (rc == 0 and "at" in signalled and _named(ev, "sched.stop")
+            and sorted(s["tenant"] for s in stops) == ["alpha", "beta"]
+            and not _named(ev, "tenant.parked")
+            and summary["reason"] == "signal_15"
+            and len(_named(ev, "sched.release")) == summary["total_rounds"]
+            >= SCHED_RELEASES):
+        raise AssertionError(f"(j1) exit {rc}: {summary} "
+                             f"{[(e['event'], e.get('tenant')) for e in ev]}")
+    # The quota account on ONE aggregated scrape of the metrics dir.
+    _, merged = aggregate_text(env["DCT_METRICS_DIR"], stale_s=0)
+    chip = {t: merged.value("dct_tenant_chip_seconds_total", {"tenant": t})
+            for t in ("alpha", "beta")}
+    total = sum(chip.values())
+    shares = {t: chip[t] / total for t in chip}
+    quota = {"alpha": 1 / 3, "beta": 2 / 3}
+    off = {t: abs(shares[t] - quota[t]) / quota[t] for t in quota}
+    if max(off.values()) > SCHED_QUOTA_BAND:
+        raise AssertionError(f"(j1) granted shares {shares} against {quota}")
+    beta_promotions = summary["tenants"]["beta"]["promotions"]
+    if beta_promotions < 2:  # the first deploys straight; later ones gate
+        raise AssertionError(f"(j1) beta promoted {beta_promotions} times")
+    # Launches: every round one epoch of (h)'s rows; 8 forward launches
+    # (4 layers x 2 models x one chunk of (h1)'s 432 windows) per gate
+    # consult, one engine pass per package the gate judged (every
+    # promotion but a tenant's first, and every hold).
+    consults = sum(s["promotions"] + s["held"] - (1 if s["promotions"] else 0)
+                   for s in stops)
+    rounds = summary["total_rounds"]
+    got = _job_lines(out, "[scheduler_job] launches")[-1]
+    want = {k: rounds * v for k, v in per_epoch.items()}
+    want["flash_fwd"] += _gate_per_consult() * consults
+    _check_sched_launches(got, want, "j1")
+    kernels = _check_job_kernels(out, "j1", ("flash_fwd", "flash_bwd"))
+    if _lib_state() != libs:
+        raise AssertionError("(j1) kernel libraries rebuilt")
+    grants = [e["tenant"] for e in _named(ev, "sched.grant")]
+    res = {"exit": rc, "wall_s": wall_s, "rounds": rounds,
+           "grants": grants, "chip_s": chip, "granted_share": shares,
+           "share_error": off, "promotions": {
+               s["tenant"]: s["promotions"] for s in stops},
+           "held": {s["tenant"]: s["held"] for s in stops},
+           "gate_consults": consults, "launches": got, "kernels": kernels,
+           "mean_wait_s": {t: summary["tenants"][t]["mean_wait_s"]
+                           for t in quota},
+           "goodput_fraction": {t: summary["tenants"][t]["goodput_fraction"]
+                                for t in quota}, "card": card}
+    print(f"[smoke] (j1) quota {res}", flush=True)
+    print(f"[smoke] (j1) wall {wall_s:.1f} s on {card}", flush=True)
+    return res
+
+
+def sched_revocation_phase(root: str, card: str, per_epoch: dict,
+                           clean_models_dir: str) -> dict:
+    """(j2) + (j3): supervised tenants ``bulk`` (low, 2 epochs a round,
+    epoch 0 held by ``slow_epoch``), ``hot`` (high, 1 epoch, its data
+    arriving once bulk's world trains) and ``sick`` (low, nan under the
+    halt policy)."""
+    from dct_tpu_torch.data.synthetic import generate_weather_csv
+    from dct_tpu_torch.observability.aggregate import aggregate_text
+    from dct_tpu_torch.observability.events import read_events
+
+    os.makedirs(root, exist_ok=True)
+    raw = os.path.join(root, "raw", "weather.csv")
+    raw_hot = os.path.join(root, "raw", "hot.csv")
+    generate_weather_csv(raw, rows=LOOP_ROWS, seed=3)  # (i)'s rows
+    tenants = [
+        {"name": "bulk", "priority": "low",
+         "env": {"DCT_RAW_CSV": raw, "DCT_LOOP_EPOCHS_PER_ROUND": "2",
+                 "DCT_LOOP_MAX_ROUNDS": "2",
+                 "DCT_FAULT_SPEC": "slow_epoch@rank0:epoch0",
+                 "DCT_FAULT_SLEEP_S": str(SCHED_SLOW_S)}},
+        {"name": "hot", "priority": "high",
+         "env": {"DCT_RAW_CSV": raw_hot, "DCT_LOOP_MAX_ROUNDS": "1"}},
+        {"name": "sick", "priority": "low",
+         "env": {"DCT_RAW_CSV": raw, "DCT_FAULT_SPEC": "nan:epoch0",
+                 "DCT_HALT_ON_NAN": "1"}},
+    ]
+    env = _sched_env(root, tenants, DCT_LOOP_TRAIN_MODE="supervised",
+                     DCT_SCHED_PREEMPT_WAIT_S=str(SCHED_PREEMPT_WAIT_S))
+    troot = env["DCT_SCHED_ROOT"]
+    bulk_events = os.path.join(troot, "bulk", "events")
+    staged = {}
+
+    def stage_hot_data(proc):
+        # hot's data arrives once bulk's world trains (its epoch 0 began).
+        while proc.poll() is None:
+            if _named(read_events(bulk_events), "fault.injected"):
+                generate_weather_csv(raw_hot, rows=LOOP_ROWS, seed=5)
+                staged["at"] = time.time()
+                return
+            time.sleep(0.05)
+
+    libs = _lib_state()
+    t0 = time.perf_counter()
+    rc, out = _scheduler_job(env, root, "j2", watch=stage_hot_data)
+    wall_s = time.perf_counter() - t0
+    ev = read_events(env["DCT_EVENTS_DIR"])
+    summary = _job_lines(out, "[scheduler_job] summary")[-1]
+    bulk = read_events(bulk_events)
+    preempts = _named(ev, "sched.preempt")
+    order = [(e["event"], e.get("tenant")) for e in ev
+             if e["event"] in ("sched.grant", "sched.release",
+                               "sched.preempt", "tenant.parked")]
+    # (j2) revocation: bulk's world exits 75, no relaunch in the lease.
+    if not (rc == 1 and "at" in staged
+            and [(p["tenant"], p["waiter"]) for p in preempts]
+            == [("bulk", "hot")]
+            and len(_named(bulk, "supervise_preempted")) == 1
+            and not _named(bulk, "restart.relaunch")
+            and [e["returncode"] for e in _named(bulk, "rank_exit")]
+            == [75, 0]
+            and [e["epochs_completed"] for e in _named(
+                bulk, "preempt.checkpoint_saved")] == [1]
+            and [e["epoch"] for e in _named(bulk, "epoch_end")] == [0, 1]
+            and [r.get("preempted") for r in _named(bulk, "loop.round")]
+            == [True, None]):
+        raise AssertionError(f"(j2) exit {rc}: {order} "
+                             f"{[(e['component'], e['event']) for e in bulk]}")
+    after = order[order.index(("sched.preempt", "bulk")):]
+    hot_epochs = _named(read_events(os.path.join(troot, "hot", "events")),
+                        "epoch_end")
+    if not (("sched.grant", "hot") in after and len(hot_epochs) == 1):
+        raise AssertionError(f"(j2) hot after the preemption: {order}")
+    # The resumed trajectory against (i)'s uninterrupted 2-epoch world.
+    got = _resume_state({"DCT_MODELS_DIR": os.path.join(troot, "bulk",
+                                                        "models")})
+    want = _resume_state({"DCT_MODELS_DIR": clean_models_dir})
+    equal = len(got) == len(want) and all(
+        np.array_equal(a, b) for a, b in zip(got, want))
+    diff = max(float(np.max(np.abs(a.astype(np.float64)
+                                   - b.astype(np.float64))))
+               for a, b in zip(got, want))
+    if not equal:
+        raise AssertionError(f"(j2) resumed bulk differs from the "
+                             f"uninterrupted world: max diff {diff}")
+    # (j3) isolation: sick halts (76) and parks; bulk keeps taking rounds.
+    sick = read_events(os.path.join(troot, "sick", "events"))
+    parked = _named(ev, "tenant.parked")
+    if not ([e["returncode"] for e in _named(sick, "rank_exit")] == [76]
+            and [(p["tenant"], p["classification"]) for p in parked]
+            == [("sick", "health_halt")]
+            and ("sched.grant", "bulk") in order[
+                order.index(("sched.release", "sick")):]
+            and summary["tenants"]["sick"]["state"] == "parked"
+            and summary["tenants"]["bulk"]["state"] == "stopped"):
+        raise AssertionError(f"(j3) isolation: {order}")
+    # Every rank of the session trained one epoch of (h)'s rows' size
+    # (bulk twice, hot, sick's halted epoch 0); the job's own launches are
+    # the gate engines'.
+    ranks = _job_lines(out, "[train_job] launches")
+    _check_sched_launches(
+        sorted(json.dumps(c, sort_keys=True) for c in ranks),
+        [json.dumps(per_epoch, sort_keys=True)] * 4, "j2 ranks")
+    job = _job_lines(out, "[scheduler_job] launches")[-1]
+    stops = _named(ev, "tenant.stop")
+    consults = sum(s["promotions"] + s["held"] - (1 if s["promotions"] else 0)
+                   for s in stops)
+    _check_sched_launches(job, {"flash_fwd": _gate_per_consult() * consults,
+                                "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}, "j2")
+    # The job itself runs only the gate engines (forward); the ranks load
+    # both libraries from the same build (the set and times checked next).
+    kernels = _check_job_kernels(out, "j2", ("flash_fwd",))
+    if _lib_state() != libs:
+        raise AssertionError("(j2) kernel libraries rebuilt")
+    _, merged = aggregate_text(env["DCT_METRICS_DIR"], stale_s=0)
+    saved = _named(bulk, "preempt.checkpoint_saved")[0]["ts"]
+    preempt_ts = preempts[0]["ts"]
+    res = {"exit": rc, "wall_s": wall_s, "order": order,
+           "preempt_waited_s": preempts[0]["waited_s"],
+           "revoked_to_saved_s": saved - preempt_ts,
+           "bulk_bitwise_equal": equal, "bulk_max_abs_diff": diff,
+           "sick_parked": parked[0]["classification"],
+           "restarts_total": merged.total("dct_restarts_total"),
+           "parked_gauge": merged.value("dct_tenant_parked",
+                                        {"tenant": "sick"}),
+           "rank_launches": {k: sum(c[k] for c in ranks) for k in per_epoch},
+           "job_launches": job, "gate_consults": consults,
+           "kernels": kernels, "card": card}
+    print(f"[smoke] (j2/j3) revocation and isolation {res}", flush=True)
+    print(f"[smoke] (j2/j3) wall {wall_s:.1f} s on {card}", flush=True)
+    return res
+
+
+def scheduler_phase(root: str, card: str, clean_models_dir: str) -> dict:
+    """(j): ``python -m dct_tpu_torch.scheduler_job`` on the card: (j1)
+    quota, then (j2) revocation with (j3) isolation in one session."""
+    from dct_tpu_torch.config import DataConfig, RunConfig
+    from dct_tpu_torch.etl.preprocess import preprocess_csv_to_parquet
+    from dct_tpu_torch.data.synthetic import generate_weather_csv
+
+    phase_t0 = time.perf_counter()
+    os.makedirs(root, exist_ok=True)
+    # The per-epoch counts of (h)'s rows (the same for every tenant here).
+    probe = os.path.join(root, "probe")
+    generate_weather_csv(os.path.join(probe, "raw.csv"), rows=LOOP_ROWS,
+                         seed=3)
+    preprocess_csv_to_parquet(os.path.join(probe, "raw.csv"),
+                              os.path.join(probe, "processed"))
+    per_epoch = _expected_train_launches(RunConfig(data=DataConfig(
+        processed_dir=os.path.join(probe, "processed"))))
+    quota = sched_quota_phase(os.path.join(root, "quota"), card, per_epoch)
+    revoke = sched_revocation_phase(os.path.join(root, "revoke"), card,
+                                    per_epoch, clean_models_dir)
+    launches = {k: quota["launches"][k] + revoke["rank_launches"][k]
+                + revoke["job_launches"][k] for k in per_epoch}
+    gate = {k: 0 for k in per_epoch}
+    gate["flash_fwd"] = _gate_per_consult() * (quota["gate_consults"]
+                                               + revoke["gate_consults"])
+    out = {"quota": quota, "revoke": revoke, "launches": launches,
+           "gate_launches": gate,
+           "phase_s": time.perf_counter() - phase_t0, "card": card}
+    print(f"[smoke] (j) scheduler launches {launches} (gate {gate}); "
+          f"(j1) {quota['wall_s']:.1f} s, (j2/j3) {revoke['wall_s']:.1f} s, "
           f"phase {out['phase_s']:.1f} s on {card}", flush=True)
     return out
 
@@ -1924,7 +2314,12 @@ def main() -> int:
     sup_root = os.path.join(HERE, "build", "chip_smoke_supervised")
     shutil.rmtree(sup_root, ignore_errors=True)  # (i) starts from nothing
     torch.cuda.empty_cache()  # the worlds below share the card with us
-    sup_counts = supervised_phase(sup_root, card)["launches"]
+    supervised = supervised_phase(sup_root, card)
+    sup_counts = supervised["launches"]
+    sched_root = os.path.join(HERE, "build", "chip_smoke_scheduler")
+    shutil.rmtree(sched_root, ignore_errors=True)  # (j) starts from nothing
+    sched = scheduler_phase(sched_root, card, supervised["clean_models_dir"])
+    sched_counts = sched["launches"]
 
     def bf16_summary(rows):
         row = [r for r in rows
@@ -1946,13 +2341,15 @@ def main() -> int:
                      + fit_counts["flash_fwd"]
                      + loop_counts["train"]["flash_fwd"]
                      + loop_counts["gate"]["flash_fwd"]
-                     + sup_counts["flash_fwd"]),
+                     + sup_counts["flash_fwd"]
+                     + sched_counts["flash_fwd"]),
         "launches_by_path": {"serve": launches,
                              "train": train_counts["flash_fwd"],
                              "fit": fit_counts["flash_fwd"],
                              "loop_train": loop_counts["train"]["flash_fwd"],
                              "gate": loop_counts["gate"]["flash_fwd"],
-                             "supervised": sup_counts["flash_fwd"]},
+                             "supervised": sup_counts["flash_fwd"],
+                             "scheduler": sched_counts["flash_fwd"]},
         "gate_launches_per_consult": loop_counts["gate"]["flash_fwd"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -1973,12 +2370,14 @@ def main() -> int:
             "replaces": f"dct_tpu/ops/pallas_attention.py:{line} "
                         f"(_{name}_kernel; pallas_call at :{call})",
             "launches": (train_counts[name] + fit_counts[name]
-                         + loop_counts["train"][name] + sup_counts[name]),
+                         + loop_counts["train"][name] + sup_counts[name]
+                         + sched_counts[name]),
             "launches_by_path": {"train": train_counts[name],
                                  "fit": fit_counts[name],
                                  "loop_train": loop_counts["train"][name],
                                  "gate": loop_counts["gate"][name],
-                                 "supervised": sup_counts[name]},
+                                 "supervised": sup_counts[name],
+                                 "scheduler": sched_counts[name]},
             "launches_per_step": train_counts[name] / train_steps,
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],

@@ -8,12 +8,14 @@ code reads, with the reference's defaults and ``DCT_*`` environment names
 ``MASTER_PORT``/``MLFLOW_TRACKING_URI``): ``DataConfig`` (``:34-60``),
 ``TrainConfig`` (``:164-282``), ``DistributedConfig`` (``:311-346``),
 ``TrackingConfig`` (``:348-369``), ``ObservabilityConfig`` (the event
-log, spans, heartbeats and health policy of ``:413-470``),
+log, spans, heartbeats and health policy of ``:413-470`` and the metrics
+plane's ``metrics_dir`` and ``metrics_publish_s``, ``:468-471``),
 ``ResilienceConfig`` (the supervisor, preemption and fault-plan knobs of
 ``:606-660``), ``EvaluationConfig`` (``:672-766``), ``ServingConfig``
 (``:770-860``), ``LoopConfig`` (``:918-976``), ``StreamConfig`` (its
-``mode``, ``:979``) and the ``RunConfig`` bundle the trainer and the loop
-take. ``EvaluationConfig`` stays out of the bundle: the gate reads it from
+``mode``, ``:979``), ``SchedulerConfig`` (``:1040-1083``) and the
+``RunConfig`` bundle the trainer, the loop and the scheduler take.
+``EvaluationConfig`` stays out of the bundle: the gate reads it from
 the environment where it is used, as the reference's does.
 """
 
@@ -263,9 +265,11 @@ class ObservabilityConfig:
     rank heartbeats and the training-health policy, on by default; every
     writer degrades to a no-op on OS errors. ``run_id`` is the
     run-correlation ID stamped on every record, normally minted by the
-    launcher and delivered through ``DCT_RUN_ID``. The reference's
-    Prometheus dump, telemetry batching, metrics, SLO, time-series,
-    anomaly and incident planes are ROADMAP Queue A item 27."""
+    launcher and delivered through ``DCT_RUN_ID``. ``metrics_dir`` arms
+    the cross-process metrics plane
+    (:mod:`dct_tpu_torch.observability.aggregate`). The reference's
+    Prometheus dump, telemetry batching, SLO, time-series, anomaly and
+    incident planes are ROADMAP Queue A item 27."""
 
     enabled: bool = True
     events_dir: str = "logs/events"
@@ -284,6 +288,13 @@ class ObservabilityConfig:
     halt_on_spike: bool = False
     spike_zscore: float = 8.0
     spike_window: int = 16
+    # Cross-process metrics plane: processes publish atomic registry
+    # snapshots under this dir and a scrape merges the live siblings into
+    # fleet totals. "" = plane off.
+    metrics_dir: str = ""
+    # Min seconds between snapshot publishes per process (the hot-path
+    # throttle; an idle process's timer republishes on the same cadence).
+    metrics_publish_s: float = 2.0
 
     @classmethod
     def from_env(cls) -> "ObservabilityConfig":
@@ -301,6 +312,9 @@ class ObservabilityConfig:
         c.halt_on_spike = _env("DCT_HALT_ON_SPIKE", c.halt_on_spike, bool)
         c.spike_zscore = _env("DCT_SPIKE_ZSCORE", c.spike_zscore, float)
         c.spike_window = _env("DCT_SPIKE_WINDOW", c.spike_window, int)
+        c.metrics_dir = _env("DCT_METRICS_DIR", c.metrics_dir, str)
+        c.metrics_publish_s = _env(
+            "DCT_METRICS_PUBLISH_S", c.metrics_publish_s, float)
         return c
 
 
@@ -514,8 +528,50 @@ class StreamConfig:
 
 
 @dataclass
+class SchedulerConfig:
+    """The multi-tenant scheduler (:mod:`dct_tpu_torch.scheduler`): N
+    always-on tenants sharing one card with chip-time quota, priority
+    classes and fault isolation.
+
+    ``spec`` is the tenant roster, inline JSON or a ``tenants.json`` path
+    (grammar in ``scheduler/spec.py``). Training rounds time-share the
+    card through round leases granted by strict priority class, then
+    weighted deficit; ``concurrent`` leases may run at once. A starved
+    higher-class waiter preempts a running lower-class round gracefully
+    after ``preempt_wait_s`` (0 = never preempt). ``shared_cache``: every
+    tenant loads the one kernel build under ``build/dct_tpu_torch/`` (the
+    reference pins one compile/AOT store here; the port has none, ROADMAP
+    Queue A item 18). Budgets (``max_*``) exist for smokes and benches;
+    production leaves them 0.
+    """
+
+    spec: str = ""
+    root: str = "data/tenants"
+    concurrent: int = 1
+    poll_s: float = 0.5
+    preempt_wait_s: float = 0.0
+    shared_cache: bool = True
+    max_wall_s: float = 0.0
+    max_rounds: int = 0
+
+    @classmethod
+    def from_env(cls) -> "SchedulerConfig":
+        c = cls()
+        c.spec = _env("DCT_TENANTS", c.spec, str)
+        c.root = _env("DCT_SCHED_ROOT", c.root, str)
+        c.concurrent = max(1, _env("DCT_SCHED_CONCURRENT", c.concurrent, int))
+        c.poll_s = _env("DCT_SCHED_POLL_S", c.poll_s, float)
+        c.preempt_wait_s = _env(
+            "DCT_SCHED_PREEMPT_WAIT_S", c.preempt_wait_s, float)
+        c.shared_cache = _env("DCT_SCHED_SHARED_CACHE", c.shared_cache, bool)
+        c.max_wall_s = _env("DCT_SCHED_MAX_WALL_S", c.max_wall_s, float)
+        c.max_rounds = _env("DCT_SCHED_MAX_ROUNDS", c.max_rounds, int)
+        return c
+
+
+@dataclass
 class RunConfig:
-    """The bundle passed to the trainer and the loop."""
+    """The bundle passed to the trainer, the loop and the scheduler."""
 
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
@@ -526,6 +582,7 @@ class RunConfig:
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     loop: LoopConfig = field(default_factory=LoopConfig)
     stream: StreamConfig = field(default_factory=StreamConfig)
+    sched: SchedulerConfig = field(default_factory=SchedulerConfig)
 
     @classmethod
     def from_env(cls) -> "RunConfig":
@@ -536,7 +593,8 @@ class RunConfig:
                    obs=ObservabilityConfig.from_env(),
                    resilience=ResilienceConfig.from_env(),
                    loop=LoopConfig.from_env(),
-                   stream=StreamConfig.from_env())
+                   stream=StreamConfig.from_env(),
+                   sched=SchedulerConfig.from_env())
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)

@@ -15,7 +15,9 @@ atomically published artifacts:
   ``inline`` runs ``Trainer.fit`` in-process on the loop's device.
 - the INGEST WATCHER (daemon thread): digest-polls the raw staging CSV and
   feeds the incremental ETL, so a fresh generation is published while
-  training computes. ``DCT_INGEST_MODE=stream`` raises: item 24.
+  training computes. A loop started before its staging file exists waits
+  for the first generation before round 1. ``DCT_INGEST_MODE=stream``
+  raises: item 24.
 - the PROMOTION EVALUATOR (daemon thread): watches the deploy-tier best
   checkpoint and walks each new one through gate + rollout against the
   live champion, MID-RUN.
@@ -24,16 +26,26 @@ atomically published artifacts:
 primitives: ETL, then a round, then one evaluator pass.
 
 Shutdown: :meth:`AlwaysOnLoop.request_stop` (``loop_job`` calls it on
-SIGTERM) stops the loop after the round in flight, then joins both
-threads, runs one final evaluator sweep over what the last round
-published, and returns the session summary (also the ``loop.stop``
-event). A SIGTERM that lands during a supervised round reaches the world
-through the supervisor: the ranks finish their span, save and exit 75, and
-the loop drains with reason ``preempted``. An inline round runs to its end
-with SIGTERM left to ``loop_job``'s handler (the reference's inline round
-stops at the trainer's next span boundary instead). The reference's
-scheduler hooks (``round_gate``, ``extra_round_env``, ``launcher_kwargs``,
-``preempt_round``) come with the scheduler.
+SIGTERM between rounds) stops the loop after the round in flight, then
+joins both threads, runs one final evaluator sweep over what the last
+round published, and returns the session summary (also the ``loop.stop``
+event). A SIGTERM that lands during a round reaches the trainer: in a
+supervised round through the supervisor (the ranks finish their span, save
+and exit 75), in an inline round on the main thread through the round's
+:class:`~dct_tpu_torch.resilience.preempt.PreemptionGuard` (the fit stops
+at its next safe point with a durable resume snapshot); either way the
+loop drains with reason ``preempted``.
+
+Multi-tenant hooks (:mod:`dct_tpu_torch.scheduler`): ``round_gate`` is
+consulted before EVERY round and blocks until the scheduler grants a round
+lease (False: the session is draining); ``on_round`` receives each round's
+record (the lease release); ``extra_round_env`` rides into every
+supervised round's ranks (the tenant's ``DCT_*`` overrides) beneath the
+loop's own keys; ``launcher_kwargs`` gives each tenant's worlds their own
+coordinator port. :meth:`AlwaysOnLoop.preempt_round` revokes the round in
+flight gracefully: the trainer finishes its step or span and saves, the
+round ends early (``preempted`` in its record) and the loop returns to the
+gate.
 """
 
 from __future__ import annotations
@@ -90,6 +102,10 @@ class AlwaysOnLoop:
         *,
         device=None,
         client=None,
+        on_round=None,
+        round_gate=None,
+        extra_round_env=None,
+        launcher_kwargs=None,
     ):
         from dct_tpu_torch.device import resolve_device
         from dct_tpu_torch.observability.events import (
@@ -101,6 +117,16 @@ class AlwaysOnLoop:
         self.cfg = cfg
         self.loop_cfg = cfg.loop
         self.device = resolve_device(device)
+        self._on_round = on_round
+        self._round_gate = round_gate
+        self._extra_round_env = dict(extra_round_env or {})
+        self._launcher_kwargs = dict(launcher_kwargs or {})
+        # Scheduler-initiated graceful ROUND preemption: set by
+        # preempt_round(); the in-flight round checkpoints and ends early,
+        # and the loop returns to the gate instead of draining.
+        self._round_preempt = threading.Event()
+        self._inline_guard = None
+        self.preempted_rounds = 0
         # One run-correlation ID for the session: every round's ranks and
         # the loop's own records carry it.
         self.run_id = cfg.obs.run_id or current_run_id()
@@ -149,22 +175,51 @@ class AlwaysOnLoop:
             self.stop_reason = reason
         self._stop.set()
 
+    @property
+    def stopping(self) -> bool:
+        return self._stop.is_set()
+
+    def preempt_round(self) -> None:
+        """Gracefully preempt the IN-FLIGHT round (the scheduler's lease
+        revocation): the trainer finishes its step or span and makes the
+        resume snapshot durable, then the loop returns to the round gate
+        with the session alive. A no-op when no round runs (the flag is
+        cleared at the next round's start)."""
+        self._round_preempt.set()
+        guard = self._inline_guard
+        if guard is not None:
+            guard.request()
+
     # -- training rounds ------------------------------------------------
     def _run_round_inline(self) -> dict:
+        """One in-process round. Its record's ``goodput_s`` is the sum of
+        the fit's ``epoch_seconds`` (the port's measured train time), which
+        stands in for the goodput ledger's ``train_step`` category that
+        the reference books (ROADMAP Queue A item 27)."""
+        from dct_tpu_torch.resilience.preempt import PreemptionGuard
         from dct_tpu_torch.train.trainer import Trainer
 
         cfg = _round_config(self.cfg, self.loop_cfg.epochs_per_round)
-        # SIGTERM stays with loop_job's drain handler: the round finishes.
-        cfg = dataclasses.replace(cfg, resilience=dataclasses.replace(
-            cfg.resilience, graceful_preemption=False))
+        # The loop owns the round's guard, so preempt_round() can request
+        # a graceful stop from another thread (on the main thread the
+        # guard also takes SIGTERM, as a trainer-built one would).
+        guard = PreemptionGuard()
+        self._inline_guard = guard
+        if self._round_preempt.is_set():
+            guard.request()
         try:
-            result = Trainer(cfg, device=self.device).fit()
-        except FileNotFoundError:
-            # The ingest thread's full-rebuild swap has a two-rename
-            # window with no parquet dir; a round starting inside it
-            # retries instead of ending the session.
-            time.sleep(0.2)
-            result = Trainer(cfg, device=self.device).fit()
+            try:
+                result = Trainer(cfg, device=self.device,
+                                 preempt_guard=guard).fit()
+            except FileNotFoundError:
+                # The ingest thread's full-rebuild swap has a two-rename
+                # window with no parquet dir; a round starting inside it
+                # retries instead of ending the session.
+                time.sleep(0.2)
+                result = Trainer(cfg, device=self.device,
+                                 preempt_guard=guard).fit()
+        finally:
+            self._inline_guard = None
         epoch_s = float(sum(result.epoch_seconds))
         self.train_epoch_wall_s += epoch_s
         if result.steady_samples_per_sec:
@@ -177,6 +232,7 @@ class AlwaysOnLoop:
             "train_losses": [h["train_loss"] for h in result.history],
             "val_losses": [h["val_loss"] for h in result.history],
             "epoch_s": round(epoch_s, 4),
+            "goodput_s": round(epoch_s, 4),
             "best_model_path": result.best_model_path,
         }
 
@@ -184,7 +240,8 @@ class AlwaysOnLoop:
         from dct_tpu_torch.launch.launcher import LocalProcessLauncher
         from dct_tpu_torch.resilience.faults import FAULT_CRASH_EXIT
 
-        world_size = int(os.environ.get("DCT_WORLD_SIZE", "1") or 1)
+        world_size = int(self._extra_round_env.get("DCT_WORLD_SIZE")
+                         or os.environ.get("DCT_WORLD_SIZE", "1") or 1)
         # The ranks rebuild RunConfig.from_env(): every path and knob THIS
         # loop was constructed with travels, or a programmatic RunConfig
         # would train into env-default dirs while the watcher and the
@@ -206,7 +263,11 @@ class AlwaysOnLoop:
         }
         if self.device.type == "cpu":
             env["DCT_DEVICE"] = "cpu"
-        res = LocalProcessLauncher().supervise(
+        # Per-tenant overrides (scheduler mode) ride UNDER the loop's own
+        # keys: the tenant env shaped this loop's cfg in the first place,
+        # and the cfg is the round's contract.
+        env = {**self._extra_round_env, **env}
+        res = LocalProcessLauncher(**self._launcher_kwargs).supervise(
             [sys.executable, "-m", "dct_tpu_torch.train_job"],
             world_size=world_size,
             env=env,
@@ -214,6 +275,7 @@ class AlwaysOnLoop:
             backoff_s=self.cfg.resilience.restart_backoff_s,
             backoff_factor=self.cfg.resilience.restart_backoff_factor,
             jitter=self.cfg.resilience.restart_jitter,
+            preempt_event=self._round_preempt,
         )
         # A drill is per session: once the plan provably fired (a rank
         # died with the injected-crash code) and was healed in this round,
@@ -232,7 +294,15 @@ class AlwaysOnLoop:
         }
         if res.attempts:
             rec["attempt_wall_s"] = round(res.attempts[-1].wall_seconds, 3)
+            # Quota accounting: the last attempt's wall is the round's
+            # useful window; everything before it was healing.
+            rec["goodput_s"] = rec["attempt_wall_s"]
         if res.classification == "preempted" and not res.success:
+            if self._round_preempt.is_set() and not self._stop.is_set():
+                # Lease revocation: the world saved and exited 75; the
+                # round ends early and the loop lives.
+                rec["preempted"] = True
+                return rec
             # The supervisor caught SIGTERM (it owns the process signals
             # while a round is in flight): the world saved its resume
             # snapshot; drain.
@@ -260,6 +330,8 @@ class AlwaysOnLoop:
     def run(self) -> dict:
         """Run until a stop budget, :meth:`request_stop`, or SIGTERM
         (through ``loop_job``); returns the session summary."""
+        from dct_tpu_torch.resilience.preempt import PreemptedError
+
         lc = self.loop_cfg
         t0 = time.time()
         self.events.emit(
@@ -287,6 +359,19 @@ class AlwaysOnLoop:
             )
             t.start()
             threads.append(t)
+        if ingest_armed:
+            # Cold start before the staging file exists: idle at the poll
+            # cadence until the watcher publishes the first generation
+            # instead of failing round 1 on an absent parquet (the
+            # reference does this for its stream ingest; its poll mode
+            # fails the round). The stop budgets bound the wait.
+            from dct_tpu_torch.etl.preprocess import read_etl_state
+
+            while (not self._stop.is_set()
+                   and self._budget_exhausted(t0) is None
+                   and not read_etl_state(
+                       self.cfg.data.processed_dir).get("generation")):
+                self._stop.wait(max(lc.poll_s, 0.05))
         error: str | None = None
         try:
             while not self._stop.is_set():
@@ -294,24 +379,68 @@ class AlwaysOnLoop:
                 if reason is not None:
                     self.request_stop(reason)
                     break
+                if self._round_gate is not None:
+                    # Scheduler mode: block until a round lease is granted.
+                    # False = the session is draining.
+                    try:
+                        granted = self._round_gate()
+                    except Exception as e:  # noqa: BLE001 — a broken gate stops THIS loop only
+                        error = f"{type(e).__name__}: {e}"[:300]
+                        self.events.emit("loop", "loop.error",
+                                         where="round_gate", error=error)
+                        self.request_stop("gate_error")
+                        break
+                    if not granted:
+                        self.request_stop("gate_closed")
+                        break
+                self._round_preempt.clear()
                 round_t0 = time.time()
                 try:
                     rec = (self._run_round_inline()
                            if lc.train_mode == "inline"
                            else self._run_round_supervised())
+                except PreemptedError as e:
+                    if self._round_preempt.is_set() and not self._stop.is_set():
+                        # Lease revocation of an inline round: the trainer
+                        # saved a durable resume snapshot; the round ends
+                        # early and the loop returns to the gate. Its
+                        # completed epochs are kept, so they count.
+                        rec = {"mode": lc.train_mode,
+                               "epochs": lc.epochs_per_round,
+                               "preempted": True,
+                               "goodput_s": round(e.epoch_seconds, 4)}
+                    else:
+                        # The inline round honored SIGTERM: the resume
+                        # snapshot is durable; drain.
+                        self.request_stop("preempted")
+                        break
                 except Exception as e:  # noqa: BLE001 — name it, then stop cleanly
                     error = f"{type(e).__name__}: {e}"[:300]
                     self.events.emit("loop", "loop.error", where="train",
                                      error=error)
                     self.request_stop("train_error")
+                    if self._on_round is not None:
+                        # The scheduler must still release the lease the
+                        # failed round held.
+                        try:
+                            self._on_round({"error": error})
+                        except Exception:  # noqa: BLE001 — a bad callback must not mask the error
+                            pass
                     break
                 rec["round_wall_s"] = round(time.time() - round_t0, 3)
                 self.rounds += 1
+                if rec.get("preempted"):
+                    self.preempted_rounds += 1
                 rec["round"] = self.rounds
                 self.round_results.append(rec)
                 self.events.emit("loop", "loop.round", **{
                     k: v for k, v in rec.items()
                     if k not in ("train_losses", "val_losses")})
+                if self._on_round is not None:
+                    try:
+                        self._on_round(rec)
+                    except Exception:  # noqa: BLE001 — a bad callback must not kill the loop
+                        pass
         finally:
             self.request_stop("completed")
             for t in threads:
@@ -338,6 +467,7 @@ class AlwaysOnLoop:
             "reason": self.stop_reason,
             "error": error,
             "rounds": self.rounds,
+            "preempted_rounds": self.preempted_rounds,
             "wall_s": round(wall_s, 3),
             "ingested_generations": self.ingest.processed,
             "promotions": len(promos),

@@ -29,20 +29,24 @@ processes, one per rank:
   and exponential backoff; ``preempted`` is a free restart,
   ``health_halt`` gives up at once. Events: ``supervise_start``,
   ``restart.relaunch``, ``restart.recovered`` / ``supervise_end``,
-  ``restart.gave_up``, ``supervise_terminated``. The reference's
-  scheduler hooks (a caller's preemption event that hands the world back)
-  come with the scheduler.
+  ``restart.gave_up``, ``supervise_terminated``. A caller's
+  ``preempt_event`` (the multi-tenant scheduler's lease revocation) tears
+  the world down gracefully once set: the ranks save and exit 75, and the
+  ``preempted`` attempt returns (``supervise_preempted``) instead of
+  relaunching, handing the card back.
 
-Two planes that the reference arms from the environment have no
-counterpart here: the metrics plane (``DCT_METRICS_DIR``, the per-rank
-progress-age gauge and the restart counters) and the anomaly plane over
-the telemetry history (``DCT_TS_DIR``). Both are ROADMAP Queue A item 27;
-setting either raises ``ValueError`` rather than running without it. The
-reference also pins one compile-cache dir into every attempt; here there
-is nothing to pin: a relaunched rank loads the kernel libraries that
-``ops/build.py`` left on disk. The goodput ledger that would book the lost
-wall clock (``DCT_STARTUP_RECOVERY_DEBT_S``) is item 27 too; the
-supervisor reports ``lost_wall_s`` on its ``restart.*`` events.
+With ``DCT_METRICS_DIR`` set, both publish on the metrics plane: the
+launcher the per-rank progress-age gauge (``dct_rank_progress_age_seconds``,
+a live snapshot retired at the launch's end), the supervisor the restart
+counters by classification and the lost-wall gauge (a final snapshot). The
+anomaly plane over the telemetry history (``DCT_TS_DIR``) is ROADMAP
+Queue A item 27; setting it raises ``ValueError`` rather than running
+without it. The reference also pins one compile-cache dir into every
+attempt; here there is nothing to pin: a relaunched rank loads the kernel
+libraries that ``ops/build.py`` left on disk. The goodput ledger that
+would book the lost wall clock (``DCT_STARTUP_RECOVERY_DEBT_S``) is item
+27 too; the supervisor reports ``lost_wall_s`` on its ``restart.*``
+events.
 
 Exec-template quoting contract: ``{cmd}`` is substituted with ONE
 shlex-quoted token holding the full shell command, so the template must
@@ -66,6 +70,7 @@ import threading
 import time
 from dataclasses import dataclass, field
 
+from dct_tpu_torch.observability.aggregate import SnapshotPublisher
 from dct_tpu_torch.observability.events import (
     EventLog,
     mint_run_id,
@@ -76,6 +81,7 @@ from dct_tpu_torch.observability.heartbeat import (
     HeartbeatMonitor,
     heartbeat_path,
 )
+from dct_tpu_torch.observability.metrics import MetricsRegistry
 from dct_tpu_torch.observability.spans import (
     SpanRecorder,
     env_parent_span_id,
@@ -85,13 +91,20 @@ from dct_tpu_torch.observability.spans import (
 from dct_tpu_torch.resilience.supervisor import (
     EXIT_INFRA_CLEANUP,
     EXIT_INFRA_HEALTHCHECK,
+    EXIT_PREEMPTED,
     RestartPolicy,
     classify_failure,
 )
 
+#: Exit codes of a world the launcher tore down for a revocation that lost
+#: nothing durable: a clean exit, a saved-and-exited 75, or our own SIGTERM
+#: (a rank still starting, before its guard is up) and the SIGKILL after
+#: the grace window.
+_REVOKED_CODES = frozenset({0, EXIT_PREEMPTED, -signal.SIGTERM,
+                            -signal.SIGKILL})
+
 #: Environment switches of reference planes the port has not ported.
 _UNPORTED_PLANES = (
-    ("DCT_METRICS_DIR", "the metrics plane"),
     ("DCT_TS_DIR", "the telemetry-history and anomaly plane"),
 )
 
@@ -113,6 +126,22 @@ def _launcher_event_log(env: dict) -> EventLog:
     return EventLog(
         os.path.join(events_dir, "events.jsonl") if enabled else None,
         run_id=env["DCT_RUN_ID"], rank=None)
+
+
+def _launcher_metrics_publisher(env: dict, proc: str):
+    """Metrics-plane publisher for the orchestrator side (None when the
+    plane is unarmed): the launcher and the supervisor publish into the
+    same snapshot dir the trainer and the scheduler do, so one scrape
+    sees them all."""
+    metrics_dir = env.get("DCT_METRICS_DIR") or ""
+    if not metrics_dir or not observability_enabled(env):
+        return None
+    try:
+        interval = float(env.get("DCT_METRICS_PUBLISH_S") or 2.0)
+    except ValueError:
+        interval = 2.0
+    return SnapshotPublisher(MetricsRegistry(), metrics_dir, proc=proc,
+                             interval_s=interval)
 
 
 def _launcher_span_recorder(env: dict) -> SpanRecorder:
@@ -436,6 +465,7 @@ class LocalProcessLauncher:
         # What the last launch() observed, for supervise()'s classifier.
         self._stall_killed = False
         self._timed_out = False
+        self._revoked = False
 
     def _hb_dir(self, env: dict) -> str:
         """The SAME dir ObservabilityConfig defaults the ranks to (they
@@ -449,10 +479,12 @@ class LocalProcessLauncher:
         *,
         world_size: int,
         env: dict[str, str] | None = None,
+        preempt_event=None,
     ) -> list[RankResult]:
         procs: list[subprocess.Popen] = []
         self._stall_killed = False
         self._timed_out = False
+        self._revoked = False
         base_env = dict(os.environ)
         base_env.update(env or {})
         _refuse_unported_planes(base_env)
@@ -473,6 +505,17 @@ class LocalProcessLauncher:
                              stall_seconds=self.heartbeat_stall_seconds,
                              run_id=base_env["DCT_RUN_ID"])
             if observability_enabled(base_env) else None)
+        # Per-rank PROGRESS age (seconds since step/epoch last advanced:
+        # write age alone cannot tell a beating-but-wedged rank from a
+        # healthy one) on the metrics plane.
+        metrics_pub = (_launcher_metrics_publisher(
+            base_env, f"launcher-{os.getpid()}")
+            if monitor is not None else None)
+        progress_gauge = (metrics_pub.registry.gauge(
+            "dct_rank_progress_age_seconds",
+            "Seconds since each rank's heartbeat (step, epoch) last "
+            "advanced (progress age, not write age).", agg="max")
+            if metrics_pub is not None else None)
         flagged: set[tuple[int, str]] = set()
         last_scan = 0.0
         try:
@@ -526,6 +569,14 @@ class LocalProcessLauncher:
                                 returncode=rc)
                     if rc != 0 and self.fail_fast and not killed:
                         _teardown_world()
+                if (preempt_event is not None and preempt_event.is_set()
+                        and not killed):
+                    # Cooperative preemption (the scheduler's lease
+                    # revocation): every rank's PreemptionGuard saves and
+                    # exits 75, so the world classifies "preempted" with
+                    # its checkpointed progress intact.
+                    self._revoked = True
+                    _teardown_world()
                 if killed and not escalated and (
                         time.monotonic() >= kill_deadline):
                     escalated = True
@@ -537,8 +588,10 @@ class LocalProcessLauncher:
                         time.monotonic() - last_scan
                         >= self.heartbeat_scan_seconds):
                     last_scan = time.monotonic()
-                    wedged = self._flag_heartbeats(monitor, codes, flagged,
-                                                   events)
+                    wedged = self._flag_heartbeats(
+                        monitor, codes, flagged, events,
+                        progress_gauge=progress_gauge,
+                        metrics_pub=metrics_pub)
                     if wedged and self.stall_kill and not killed:
                         self._stall_killed = True
                         events.emit(
@@ -578,6 +631,10 @@ class LocalProcessLauncher:
             return [RankResult(rank=r, returncode=codes[r])
                     for r in range(world_size)]
         finally:
+            if metrics_pub is not None:
+                # Progress age is a LIVE signal: retire the snapshot so a
+                # post-run scrape never reads a frozen age as current.
+                metrics_pub.close()
             live = [p for p in procs if p.poll() is None]
             if live:
                 # Exception-path teardown (supervisor terminated) with the
@@ -603,12 +660,24 @@ class LocalProcessLauncher:
             launch_span.end(error=True)
 
     def _flag_heartbeats(self, monitor: HeartbeatMonitor, codes: dict,
-                         flagged: set, events: EventLog) -> list[int]:
-        """One monitor pass: warn (stderr + event) once per (rank, state)
-        for stalled or missing ranks that have not exited, and once per new
-        epoch-skew level. Returns the ranks currently stalled or missing."""
+                         flagged: set, events: EventLog, progress_gauge=None,
+                         metrics_pub=None) -> list[int]:
+        """One monitor pass: publish each live rank's progress age, and
+        warn (stderr + event) once per (rank, state) for stalled or missing
+        ranks that have not exited, and once per new epoch-skew level.
+        Returns the ranks currently stalled or missing."""
         wedged: list[int] = []
         statuses = monitor.scan()
+        if progress_gauge is not None:
+            for s in statuses:
+                # Done and reaped ranks stop advancing by design: their
+                # growing age would page on a healthy completion.
+                if (s.progress_age_seconds is not None and s.state != "done"
+                        and s.rank not in codes):
+                    progress_gauge.set(round(s.progress_age_seconds, 3),
+                                       {"rank": s.rank})
+            if metrics_pub is not None:
+                metrics_pub.maybe_publish()
         for s in statuses:
             if s.rank in codes or s.state not in ("stalled", "missing"):
                 continue
@@ -651,6 +720,7 @@ class LocalProcessLauncher:
         max_attempts: int = 50,
         sleep_fn=time.sleep,
         clock=time.monotonic,
+        preempt_event=None,
     ) -> SuperviseResult:
         """Supervised relaunch-and-resume: run :meth:`launch` until the
         world succeeds, classifying every failure and relaunching
@@ -676,6 +746,13 @@ class LocalProcessLauncher:
         :class:`SupervisorTerminated`, which unwinds through launch()'s
         teardown: the ranks (in their own sessions) are SIGTERMed, save
         and exit 75, and the result is ``preempted``.
+
+        ``preempt_event`` (a :class:`threading.Event`): once set, the world
+        is SIGTERMed (the ranks save and exit 75) and a ``preempted``
+        attempt returns at once (``supervise_preempted``) instead of the
+        free relaunch; the caller's next lease resumes the trajectory. So
+        does a revoked world whose ranks died of that SIGTERM (or of the
+        SIGKILL after the grace window) before their guards were up.
         """
         base_env = dict(env or {})
         merged = dict(os.environ)
@@ -690,6 +767,20 @@ class LocalProcessLauncher:
                                backoff_factor=backoff_factor, jitter=jitter)
         events.emit("launcher", "supervise_start", world_size=world_size,
                     max_restarts=max_restarts, argv=list(argv))
+        # Restart accounting on the metrics plane, published as a FINAL
+        # snapshot when supervision ends (the restart history outlives
+        # the supervisor).
+        metrics_pub = _launcher_metrics_publisher(
+            merged, f"supervisor-{os.getpid()}")
+        restarts_ctr = lost_gauge = None
+        if metrics_pub is not None:
+            restarts_ctr = metrics_pub.registry.counter(
+                "dct_restarts_total",
+                "Supervised world relaunches, by failure classification.")
+            lost_gauge = metrics_pub.registry.gauge(
+                "dct_restart_lost_wall_seconds",
+                "Wall seconds lost to failed attempts and backoff.",
+                agg="sum")
         attempts: list[AttemptRecord] = []
         restarts = 0
         debt = 0.0
@@ -709,7 +800,8 @@ class LocalProcessLauncher:
                 t0 = clock()
                 t0_wall = time.time()
                 results = self.launch(argv, world_size=world_size,
-                                      env=base_env)
+                                      env=base_env,
+                                      preempt_event=preempt_event)
                 wall = clock() - t0
                 cls = classify_failure(
                     [r.returncode for r in results],
@@ -727,6 +819,24 @@ class LocalProcessLauncher:
                     return SuperviseResult(
                         results=results, attempts=attempts,
                         restarts=restarts, success=True, classification=cls)
+                if (preempt_event is not None and preempt_event.is_set()
+                        and (cls == "preempted" or (self._revoked and all(
+                            r.returncode in _REVOKED_CODES
+                            for r in results)))):
+                    # Lease revocation, not a failure: the world saved and
+                    # exited 75 by contract. Returning (instead of the free
+                    # relaunch) hands the card back to the grant loop. A
+                    # rank our SIGTERM met before its guard was up died of
+                    # it with nothing to save: that world is revoked too,
+                    # not a crash to relaunch into the same revocation
+                    # (which the reference does until its budget is spent).
+                    events.emit("launcher", "supervise_preempted",
+                                attempts=len(attempts),
+                                restarts_used=restarts)
+                    return SuperviseResult(
+                        results=results, attempts=attempts,
+                        restarts=restarts, success=False,
+                        classification="preempted")
                 if not policy.allows(restarts, cls) or (
                         len(attempts) >= max_attempts):
                     events.emit(
@@ -744,6 +854,10 @@ class LocalProcessLauncher:
                 debt += self._attempt_lost_seconds(
                     merged, run_id, cls, t0_wall, wall) + delay
                 self._clear_heartbeats(merged, world_size)
+                if restarts_ctr is not None:
+                    restarts_ctr.inc(1, {"classification": cls})
+                    lost_gauge.set(round(debt, 3))
+                    metrics_pub.publish()
                 events.emit(
                     "launcher", "restart.relaunch",
                     attempt=len(attempts) + 1, classification=cls,
@@ -763,6 +877,8 @@ class LocalProcessLauncher:
                 attempts=attempts, restarts=restarts, success=False,
                 classification="preempted")
         finally:
+            if metrics_pub is not None:
+                metrics_pub.close(final=True)
             for sig, prev in prev_handlers.items():
                 try:
                     signal.signal(sig, prev)

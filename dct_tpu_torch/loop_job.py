@@ -10,11 +10,12 @@ this process) until SIGTERM/SIGINT or a stop budget
 rounds and the gate's accelerator engine run on ``cuda:0``, or on the CPU
 with ``DCT_DEVICE=cpu``.
 
-SIGTERM drains. During a supervised round the supervisor owns the signal
-and forwards it to the world: the ranks finish their span, save a resume
-snapshot and exit 75, and the loop stops with reason ``preempted``.
-Otherwise (between rounds, or an inline round) this process's handler asks
-the loop to stop after the round in flight. Either way the ingest and
+SIGTERM drains. During a round the round owns the signal: a supervised
+round's supervisor forwards it to the world (the ranks finish their span,
+save a resume snapshot and exit 75), an inline round's trainer stops at its
+next step or span with a durable resume snapshot; the loop stops with
+reason ``preempted``. Between rounds this process's handler asks the loop
+to stop before the next round. Either way the ingest and
 evaluator threads join, one final evaluator sweep covers the last
 published checkpoint, and the process exits 0. A relaunch resumes the
 trajectory and the deployed champion.
@@ -45,10 +46,10 @@ def main() -> int:
           f"epochs/round={cfg.loop.epochs_per_round}", flush=True)
 
     def _drain(signum, frame):
-        # The supervisor owns the handler while a supervised round is in
-        # flight and restores this one after.
-        print(f"[loop_job] signal {signum}: draining after the round in "
-              "flight", flush=True)
+        # A round in flight owns the signal (the supervisor's handler or
+        # the trainer's guard) and restores this handler after.
+        print(f"[loop_job] signal {signum}: draining before the next round",
+              flush=True)
         loop.request_stop(f"signal_{signum}")
 
     for sig in (signal.SIGTERM, signal.SIGINT):

@@ -8,7 +8,12 @@ carries a hash of its source, so an edited kernel is rebuilt and a stale
 library is never loaded; the hash covers the ``csrc/*.cuh`` headers the
 source includes (``#include "name.cuh"``, followed through headers that
 include others), so an edited header rebuilds every library that includes
-it. nvcc's output (with ptxas's registers, shared
+it, and the build itself: ``NVCC_FLAGS`` and the ``nvcc --version`` text
+of the toolkit (read once per process, when a library is first loaded), so
+a changed flag or compiler never loads a library built by another. Every
+process that needs a kernel (each tenant of the scheduler, each rank of a
+supervised world) loads the one build under ``build/dct_tpu_torch/``.
+nvcc's output (with ptxas's registers, shared
 memory and spills per kernel) is kept beside the library as
 ``lib<name>-<hash>.log``. A failed build raises with that output attached.
 :func:`load_kernels` starts one ``nvcc`` per missing library, all at once,
@@ -92,10 +97,29 @@ def source_digest(src: str) -> str:
     return h.hexdigest()[:12]
 
 
-def library_stem(name: str, csrc: str = _CSRC) -> str:
-    """``build/dct_tpu_torch/lib<name>-<digest>`` for ``csrc/<name>.cu``."""
-    digest = source_digest(os.path.join(csrc, f"{name}.cu"))
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}")
+def library_stem(name: str, csrc: str = _CSRC, *, toolkit: str = "") -> str:
+    """``build/dct_tpu_torch/lib<name>-<digest>`` for ``csrc/<name>.cu``:
+    the digest covers the sources (:func:`source_digest`), ``NVCC_FLAGS``
+    and ``toolkit``, the ``nvcc --version`` text of the compiler."""
+    h = hashlib.sha1()
+    for part in (source_digest(os.path.join(csrc, f"{name}.cu")),
+                 *NVCC_FLAGS, toolkit):
+        h.update(part.encode() + b"\0")
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}")
+
+
+_toolkit: str | None = None
+
+
+def toolkit_version() -> str:
+    """``nvcc --version`` of the compiler the builds use (asked once per
+    process)."""
+    global _toolkit
+    if _toolkit is None:
+        _toolkit = subprocess.run(
+            [_cuda_tool("nvcc"), "--version"], capture_output=True,
+            text=True, check=True, timeout=120).stdout
+    return _toolkit
 
 
 def load_kernel(name: str) -> ctypes.CDLL:
@@ -115,7 +139,7 @@ def load_kernels(*names: str) -> dict[str, ctypes.CDLL]:
                 continue
             src = os.path.join(_CSRC, f"{name}.cu")
             os.makedirs(BUILD_DIR, exist_ok=True)
-            stem = library_stem(name)
+            stem = library_stem(name, toolkit=toolkit_version())
             todo[name] = (src, f"{stem}.so", f"{stem}.log")
         procs = {}
         for name, (src, out, log_path) in todo.items():

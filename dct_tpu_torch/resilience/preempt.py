@@ -17,7 +17,7 @@ its last checkpoint. The contract here:
    no restart budget consumed.
 
 The guard installs only on the main thread (Python delivers signals
-there; workers get a no-op guard that simply never requests) and always
+there; on another thread only :meth:`request` sets it) and always
 restores the previous handler, so nested rigs (pytest, Airflow workers)
 keep their own SIGTERM semantics.
 """
@@ -56,6 +56,16 @@ class PreemptionGuard:
         # Async-signal-safe by construction: two attribute writes, no
         # locks, no I/O. Everything observable happens at the trainer's
         # next safe point.
+        self.requested = True
+        self.signal_time = self._clock()
+
+    def request(self) -> None:
+        """Programmatic preemption: the multi-tenant scheduler's lease
+        revocation (:mod:`dct_tpu_torch.scheduler`). Sets the SAME flag the
+        SIGTERM handler sets, so the trainer's safe-point contract (finish
+        the step or span, durable snapshot, :class:`PreemptedError`) is
+        identical; callable from any thread (plain attribute writes, like
+        the handler)."""
         self.requested = True
         self.signal_time = self._clock()
 

@@ -41,7 +41,14 @@ norms), so no step gains a host sync:
   write is joined, ``preempt.signal_received`` and
   ``preempt.checkpoint_saved`` go on the record, and
   :class:`~dct_tpu_torch.resilience.preempt.PreemptedError` is raised
-  (``train_job`` exits 75 on it).
+  (``train_job`` exits 75 on it). A caller may pass its own guard
+  (``Trainer(cfg, preempt_guard=...)``): another thread's
+  :meth:`~dct_tpu_torch.resilience.preempt.PreemptionGuard.request` then
+  stops a fit running off the main thread, where no SIGTERM arrives (the
+  multi-tenant scheduler's lease revocation);
+- with ``DCT_METRICS_DIR`` set, the coordinator publishes per-epoch
+  gauges (:class:`~dct_tpu_torch.observability.dump.LiveTrainMetrics`) on
+  the metrics plane.
 
 The per-batch path (``use_scan=False``) reads each step's loss anyway, so
 there the hooks run per step, as the reference's eager path does.
@@ -79,6 +86,10 @@ from dct_tpu_torch.models.registry import (
     get_model,
     is_causal_model,
     is_sequence_model,
+)
+from dct_tpu_torch.observability.dump import (
+    LiveTrainMetrics,
+    live_train_metrics,
 )
 from dct_tpu_torch.observability.events import EventLog, event_log_from_config
 from dct_tpu_torch.observability.health import (
@@ -175,9 +186,13 @@ class _Planes:
     plan: faults.FaultPlan
     guard: PreemptionGuard
     heartbeat: HeartbeatWriter | None
+    live_metrics: LiveTrainMetrics | None = None
     epoch_span: Span | None = None
     ckpt_span: Span | None = None
     epochs_run: int = 0
+    # Seconds of the epochs this fit completed (a preempted fit's
+    # PreemptedError carries them as ``epoch_seconds``).
+    epoch_seconds: float = 0.0
 
     def beat(self, **kw) -> None:
         if self.heartbeat is not None:
@@ -185,9 +200,13 @@ class _Planes:
 
 
 class Trainer:
-    def __init__(self, cfg: RunConfig, *, device=None, tracker=None):
+    def __init__(self, cfg: RunConfig, *, device=None, tracker=None,
+                 preempt_guard: PreemptionGuard | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # A caller-owned guard (the scheduler's revocation channel): fit()
+        # consults it instead of building its own.
+        self._preempt_guard = preempt_guard
         self.coordinator = is_coordinator()
         self.tracker = tracker if tracker is not None else get_tracker(
             tracking_uri=cfg.tracking.tracking_uri,
@@ -200,8 +219,9 @@ class Trainer:
         # Not ported here, each a ROADMAP Queue A item: the compile cache
         # (item 18; the port's kernels are built once by ops/build.py and
         # a relaunch loads them from disk); profiling (item 19); the
-        # live-metrics plane, the goodput ledger and its startup-recovery
-        # debt (item 27); lineage (item 29); pipelined spans (item 30).
+        # goodput ledger, its startup-recovery debt and the end-of-run
+        # metrics dump (item 27); lineage (item 29); pipelined spans
+        # (item 30).
         cfg = self.cfg
         rank = process_index()
         events = event_log_from_config(cfg.obs, rank=rank)
@@ -213,7 +233,8 @@ class Trainer:
         plan = faults.FaultPlan.parse(cfg.resilience.fault_spec, rank=rank,
                                       sleep_s=cfg.resilience.fault_sleep_s)
         faults.set_default(plan)
-        guard = PreemptionGuard()
+        guard = (self._preempt_guard if self._preempt_guard is not None
+                 else PreemptionGuard())
         if cfg.resilience.graceful_preemption:
             guard.install()
         heartbeat = None
@@ -226,14 +247,16 @@ class Trainer:
                     epochs=cfg.train.epochs, resume=cfg.train.resume,
                     world_size=process_count())
         planes = _Planes(events, tracer, fit_span, health, plan, guard,
-                         heartbeat)
+                         heartbeat, live_train_metrics(
+                             cfg.obs, run_id=events.run_id, rank=rank))
         completed = preempted = False
         result = None
         try:
             result = self._fit(data, planes)
             completed = True
-        except PreemptedError:
+        except PreemptedError as e:
             preempted = True
+            e.epoch_seconds = planes.epoch_seconds
             self._end_tracking_quietly("KILLED")
             raise
         except TrainingHealthError:
@@ -241,6 +264,8 @@ class Trainer:
             raise
         finally:
             guard.uninstall()
+            if planes.live_metrics is not None:
+                planes.live_metrics.close()
             # "done" stops the monitor ageing this rank; "preempted" and
             # "failed" name ends an exit code alone cannot.
             planes.beat(phase="done" if completed else (
@@ -477,6 +502,7 @@ class Trainer:
             k = len(sub_epochs)
             planes.beat(step=global_step, epoch=e0 + k - 1, phase="train")
             per_epoch_updates = span_updates // k if k else 0
+            epoch_updates = samples // (global_batch * accum * k)
             stop_early = False
             last_rec = None
             for i, (epoch_loss, val_loss, val_acc, (tp, fp, fn)) in (
@@ -501,6 +527,11 @@ class Trainer:
                 events.emit("trainer", "epoch_end", epoch=e0 + i,
                             train_loss=rec["train_loss"],
                             val_loss=val_loss, val_acc=val_acc)
+                if planes.live_metrics is not None:
+                    planes.live_metrics.epoch_end(
+                        val_loss=val_loss, samples_per_sec=samples / seconds,
+                        step_seconds=seconds / k / max(1, epoch_updates),
+                        grad_norm=health.last_grad_norm)
                 last_rec = rec
                 if cfg.train.early_stop_patience > 0 and not stop_early:
                     es_best, es_stale, stop_early = early_stop_update(
@@ -660,6 +691,7 @@ class Trainer:
                     stop_early = bookkeep(
                         epoch, [(epoch_loss, *metrics)], seconds, samples, 0)
                 epoch_seconds.append(seconds)
+                planes.epoch_seconds += seconds
                 epoch_samples.append(samples)
                 epoch += k
                 # Graceful preemption at the span boundary: the span's

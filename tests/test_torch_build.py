@@ -2,6 +2,7 @@
 built from (CPU; no ``nvcc`` needed, nothing is compiled)."""
 
 import shutil
+import subprocess
 
 from dct_tpu_torch.ops import build
 
@@ -40,3 +41,34 @@ def test_edited_sm90_header_renames_both_kernel_libraries(tmp_path):
     header.write_text(header.read_text() + "\n// edited\n")
     after = {n: build.library_stem(n, csrc=str(csrc)) for n in before}
     assert all(after[n] != before[n] for n in before)
+
+
+def test_library_name_covers_flags_and_toolkit(tmp_path, monkeypatch):
+    """A changed nvcc flag or compiler gives the library a new name, so a
+    library built by another toolchain is never loaded."""
+    _write(tmp_path / "k.cu", "// k\n")
+    base = build.library_stem("k", csrc=str(tmp_path), toolkit="nvcc 12.8")
+    assert build.library_stem("k", csrc=str(tmp_path),
+                              toolkit="nvcc 12.8") == base
+    assert build.library_stem("k", csrc=str(tmp_path),
+                              toolkit="nvcc 12.9") != base
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
+    assert build.library_stem("k", csrc=str(tmp_path),
+                              toolkit="nvcc 12.8") != base
+
+
+def test_toolkit_version_is_read_once_and_only_when_loading(monkeypatch):
+    """The CPU never asks for nvcc: the version is read at the first
+    load of a library, once per process."""
+    calls = []
+
+    def fake_run(cmd, **kw):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, stdout="nvcc fake\n")
+
+    monkeypatch.setattr(build, "_toolkit", None)
+    monkeypatch.setattr(build, "_cuda_tool", lambda tool: f"/x/{tool}")
+    monkeypatch.setattr(build.subprocess, "run", fake_run)
+    assert calls == []
+    assert build.toolkit_version() == build.toolkit_version() == "nvcc fake\n"
+    assert calls == [["/x/nvcc", "--version"]]

@@ -508,3 +508,77 @@ def test_supervised_crash_drill_on_card_heals_to_the_uninterrupted_run(
         vl = [[e["val_loss"] for e in ev if e["event"] == "epoch_end"][-1]
               for ev in (events, clean_events)]
         assert abs(vl[0] - vl[1]) <= 0.03, vl
+
+
+def test_two_tenant_inline_session_on_card_launches_the_kernels(
+        card, tmp_path, monkeypatch):
+    """Two inline tenants of a small transformer (T=256) time-share
+    cuda:0 under the scheduler: both tenants' rounds launch the three
+    kernels, each gate consult the forward kernel, and the session loads
+    the kernel libraries without building them again."""
+    import json
+
+    from dct_tpu_torch.config import (
+        ObservabilityConfig,
+        RunConfig,
+        SchedulerConfig,
+    )
+    from dct_tpu_torch.data.dataset import load_processed_dataset
+    from dct_tpu_torch.data.pipeline import BatchLoader, contiguous_split
+    from dct_tpu_torch.data.synthetic import generate_weather_csv
+    from dct_tpu_torch.data.windows import make_windows
+    from dct_tpu_torch.ops import build
+    from dct_tpu_torch.scheduler import WorkloadScheduler, parse_tenants
+
+    build.load_kernels("flash_fwd", "flash_bwd")  # built before the session
+
+    def libraries():
+        return {n: os.path.getmtime(os.path.join(build.BUILD_DIR, n))
+                for n in os.listdir(build.BUILD_DIR) if n.endswith(".so")}
+
+    built = libraries()
+    # Enough rows that the gate's held-out split holds whole windows.
+    raw = generate_weather_csv(str(tmp_path / "raw.csv"), rows=2000, seed=4)
+    monkeypatch.setenv("DCT_TRACKING_DIR", str(tmp_path / "mlruns"))
+    monkeypatch.setenv("DCT_GATE_ENGINE", "torch")  # the gate's read of it
+    cfg = RunConfig(
+        obs=ObservabilityConfig(events_dir=str(tmp_path / "events"),
+                                heartbeat_dir=str(tmp_path / "hb")),
+        sched=SchedulerConfig(root=str(tmp_path / "tenants"), poll_s=0.2,
+                              max_rounds=4))
+    small = {"DCT_RAW_CSV": raw, "DCT_LOOP_TRAIN_MODE": "inline",
+             "DCT_LOOP_EPOCHS_PER_ROUND": "1", "DCT_LOOP_SOAK_S": "0",
+             "DCT_LOOP_POLL_S": "0.2", "DCT_LOOP_EVAL_POLL_S": "0.2",
+             "DCT_GATE_ENGINE": "torch", "DCT_MODEL": "weather_transformer",
+             "DCT_SEQ_LEN": "256", "DCT_D_MODEL": "64", "DCT_N_HEADS": "4",
+             "DCT_N_LAYERS": "2", "DCT_D_FF": "128", "DCT_BATCH_SIZE": "16"}
+    sched = WorkloadScheduler(cfg, tenants=parse_tenants(json.dumps([
+        {"name": "alpha"}, {"name": "beta", "weight": 2}])),
+        base_env=small, device="cuda:0")
+    fa.reset_launches()
+    summary = sched.run()
+    counts = fa.launch_counts()
+    assert summary["reason"] == "max_rounds" and summary["total_rounds"] == 4
+    for name in ("alpha", "beta"):
+        t = summary["tenants"][name]
+        assert t["rounds"] >= 1 and t["state"] == "stopped" and not t["error"]
+    # Every round one epoch: 2 layers x (train steps + eval batches)
+    # forward, 2 x train steps each backward; the gate's engine adds 2
+    # layers x 2 models x its chunks per consult (one engine pass per
+    # package judged: every promotion but a tenant's first, every hold).
+    windows = make_windows(load_processed_dataset(
+        str(tmp_path / "tenants" / "alpha" / "processed")), 256)
+    tr, va = contiguous_split(len(windows), val_fraction=0.2, gap=256)
+    n_tr = BatchLoader(windows, tr, global_batch=16, shuffle=True).num_batches
+    n_va = BatchLoader(windows, va, global_batch=16,
+                       shuffle=False).num_batches
+    rounds = summary["total_rounds"]
+    assert counts["flash_bwd_dkdv"] == counts["flash_bwd_dq"] == (
+        rounds * 2 * n_tr)
+    gate = counts["flash_fwd"] - rounds * 2 * (n_tr + n_va)
+    stops = [json.loads(x) for x in open(tmp_path / "events" / "events.jsonl")
+             if '"tenant.stop"' in x]
+    consults = sum(s["promotions"] + s["held"] - (s["promotions"] > 0)
+                   for s in stops)
+    assert gate >= 0 and gate % 4 == 0 and (gate > 0) == (consults > 0)
+    assert libraries() == built

@@ -208,8 +208,10 @@ def test_stall_kill_tears_down_a_wedged_rank(tmp_path):
 
 
 def test_unported_planes_raise_naming_item_27(tmp_path):
+    # The metrics plane (DCT_METRICS_DIR) is ported: test_torch_metrics_plane
+    # drives the launcher and the supervisor with it set.
     lch = LocalProcessLauncher()
-    for var in ("DCT_METRICS_DIR", "DCT_TS_DIR"):
+    for var in ("DCT_TS_DIR",):
         with pytest.raises(ValueError, match="item 27"):
             lch.launch([sys.executable, "-c", "pass"], world_size=1,
                        env=_env(tmp_path, **{var: str(tmp_path / "m")}))
@@ -305,3 +307,50 @@ def test_supervisor_termination_tears_down_ranks(tmp_path):
     with pytest.raises(ProcessLookupError):
         os.kill(pid, 0)  # reaped before supervise returned
     assert "supervise_terminated" in [e["event"] for e in _events(tmp_path)]
+
+
+# -- lease revocation (the scheduler's preempt_event) ---------------------
+
+
+@pytest.mark.parametrize("guarded", [True, False])
+def test_supervise_returns_a_revoked_world_without_relaunch(tmp_path,
+                                                            guarded):
+    """A set preempt_event SIGTERMs the world; a rank with its guard up
+    saves and exits 75, a rank still starting dies of the SIGTERM. Either
+    way the attempt returns ``supervise_preempted``: no relaunch, no
+    restart budget spent."""
+    code = ("import signal, sys, time\n"
+            + ("signal.signal(signal.SIGTERM, lambda *a: sys.exit(75))\n"
+               if guarded else "")
+            + "time.sleep(60)\n")
+    event = threading.Event()
+    timer = threading.Timer(1.0, event.set)
+    timer.start()
+    lch = LocalProcessLauncher(stagger_seconds=0.0, timeout=60.0,
+                               poll_seconds=0.05, preempt_grace_s=5.0)
+    t0 = time.monotonic()
+    res = lch.supervise([sys.executable, "-c", code], world_size=1,
+                        env=_env(tmp_path), backoff_s=0.05, jitter=0.0,
+                        preempt_event=event)
+    timer.join()
+    assert time.monotonic() - t0 < 30
+    assert not res.success and res.classification == "preempted"
+    assert len(res.attempts) == 1 and res.restarts == 0
+    assert [r.returncode for r in res.results] == [
+        75 if guarded else -signal.SIGTERM]
+    names = [e["event"] for e in _events(tmp_path)]
+    assert names.count("supervise_preempted") == 1
+    assert "restart.relaunch" not in names
+
+
+def test_supervise_without_revocation_relaunches_a_sigterm_death(tmp_path):
+    """Without a revocation a rank's signal death is a crash, relaunched
+    as before."""
+    marker = tmp_path / "m"
+    code = ("import os, signal\n"
+            f"m = {str(marker)!r}\n"
+            "if not os.path.exists(m):\n"
+            "    open(m, 'w').close(); os.kill(os.getpid(), signal.SIGTERM)\n")
+    res, _ = _supervise(tmp_path, code)
+    assert res.success and [a.classification for a in res.attempts] == [
+        "crash", "success"]

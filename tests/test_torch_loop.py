@@ -11,8 +11,8 @@ evaluator, and ``python -m dct_tpu_torch.loop_job``.
   generations, the same promote/hold, val_loss within 1e-5.
 - A live loop ingests an appended generation through the delta path and
   promotes a model trained on it.
-- ``loop_job`` drains on SIGTERM with exit 0 after publishing the round in
-  flight; ``stream`` raises naming ROADMAP item 24, while ``supervised``
+- ``loop_job`` drains on SIGTERM with exit 0, the inline round stopped at
+  its trainer's next step with a durable resume snapshot; ``stream`` raises naming ROADMAP item 24, while ``supervised``
   (the default) runs: a round whose world gives up ends ``loop_job`` with
   exit 1 (its healthy rounds are in ``test_torch_supervised.py``).
 """
@@ -372,13 +372,20 @@ def test_loop_job_drains_on_sigterm_after_the_round_in_flight(tmp_path):
             proc.communicate()
     assert proc.returncode == 0, out[-3000:]
     summary = _summary(out)
-    assert summary["reason"] == "signal_15" and summary["error"] is None
-    assert summary["rounds"] == 1
-    last = os.path.join(base, "models", "last.ckpt")
-    assert os.path.getmtime(last) >= signalled  # the round published
+    # The inline round's PreemptionGuard takes the SIGTERM (as the
+    # reference's does): the fit stops at its next step with a durable
+    # resume snapshot and the loop drains.
+    assert summary["reason"] == "preempted" and summary["error"] is None
+    assert summary["rounds"] == 0 and summary["preempted_rounds"] == 0
+    events = [json.loads(x) for x in open(os.path.join(base, "events",
+                                                       "events.jsonl"))]
+    saved = [e for e in events if e["event"] == "preempt.checkpoint_saved"]
+    assert len(saved) == 1 and saved[0]["ts"] >= signalled
     with open(os.path.join(base, "models", "train_state", "p0", "state",
                            "meta.json")) as f:
-        assert json.load(f)["epochs_completed"] == 4
+        meta = json.load(f)
+    assert meta["epochs_completed"] == saved[0]["epochs_completed"] < 4
+    assert meta["target_epochs"] == 4
 
 
 def test_loop_job_default_supervised_mode_exits_1_naming_item_20(tmp_path):

@@ -41,6 +41,18 @@ ENV_OF = {
         "halt_on_spike": ("DCT_HALT_ON_SPIKE", "yes"),
         "spike_zscore": ("DCT_SPIKE_ZSCORE", "3.5"),
         "spike_window": ("DCT_SPIKE_WINDOW", "7"),
+        "metrics_dir": ("DCT_METRICS_DIR", "/tmp/metrics"),
+        "metrics_publish_s": ("DCT_METRICS_PUBLISH_S", "0.25"),
+    },
+    "SchedulerConfig": {
+        "spec": ("DCT_TENANTS", '[{"name":"a"}]'),
+        "root": ("DCT_SCHED_ROOT", "/tmp/tenants"),
+        "concurrent": ("DCT_SCHED_CONCURRENT", "2"),
+        "poll_s": ("DCT_SCHED_POLL_S", "0.1"),
+        "preempt_wait_s": ("DCT_SCHED_PREEMPT_WAIT_S", "1.5"),
+        "shared_cache": ("DCT_SCHED_SHARED_CACHE", "0"),
+        "max_wall_s": ("DCT_SCHED_MAX_WALL_S", "30"),
+        "max_rounds": ("DCT_SCHED_MAX_ROUNDS", "7"),
     },
     "ResilienceConfig": {
         "max_restarts": ("DCT_MAX_RESTARTS", "5"),

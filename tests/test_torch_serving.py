@@ -338,12 +338,21 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert r.returncode == 0, r.stderr
     n_modules, bad, names = r.stdout.strip().splitlines()
     assert int(n_modules) >= 30 and bad == "[]"
-    # The supervised launch's modules are among those walked.
+    # The supervised launch's and the scheduler's modules are among those
+    # walked.
     for mod in ("launch.launcher", "observability.events",
                 "observability.spans", "observability.heartbeat",
                 "observability.health", "resilience.faults",
                 "resilience.preempt", "resilience.supervisor",
-                "resilience.supervise"):
+                "resilience.supervise", "observability.prometheus",
+                "observability.metrics", "observability.aggregate",
+                "observability.dump", "scheduler.spec", "scheduler.quota",
+                "scheduler.scheduler", "scheduler_job",
+                "orchestration.compat", "dags.multi_tenant_dag",
+                "dags.continuous_loop_dag", "dags.training_dag",
+                "dags.spark_etl_dag", "dags.pipeline_dag",
+                "dags.azure_manual_deploy_dag",
+                "dags.azure_auto_deploy_dag"):
         assert f"'dct_tpu_torch.{mod}'" in names, mod
 
     files = [os.path.join(REPO, "chip_smoke.py")]
