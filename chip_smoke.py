@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: kernels, serving,
-training, the continuous loop, the supervised training world and the
-multi-tenant scheduler.
+training, the continuous loop, the supervised training world, the
+multi-tenant scheduler and the completed serving tier.
 
     python3 chip_smoke.py
 
@@ -205,9 +205,54 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
        launches are one epoch of the per-epoch counts; the job's own are
        the gate engines'. Prints each sub-phase's wall.
 
+(k) Completes the serving path at the same full width (``serving_phase``;
+   ``--phase k`` runs only the kernel build and (k), over a random
+   checkpoint and synthetic rows):
+   (k1) the int8 twin of the f32 ``weather_transformer`` package (seed 0)
+       through the HTTP server on the card, 1, 3, 8 and 32 windows:
+       answers finite, summing to 1, within 0.05 (``prob_bound``) of the
+       f32 package's, within 1e-4 of the port's CPU path on the int8
+       package; 4 flash launches a padded forward; resident bytes of both
+       (``torch.cuda.memory_allocated`` deltas and the scorer's tensors);
+       (k1b) an MLP package from the port's ``score_gen`` served on the
+       card within 1e-5 of the numpy runtime (C4);
+   (k2) ``python -m dct_tpu_torch.serve`` over (g)'s checkpoint: process
+       start to the banner, the first and the tenth one-window request,
+       with the warm start and with ``serve.main(warm=False)``;
+   (k3) ``DCT_SERVE_PROCS`` 1 and 2 over the f32 package: at 2 a
+       ``crash_worker@proc1:req2`` fault kills child 1, which is respawned
+       (``serve.pool_child_death``, ``serve.pool_respawn``), both procs
+       answer on one fleet scrape; then a closed-loop sweep at concurrency
+       1, 4 and 16 of 8-window requests (rps, p50, p99; launches read off
+       ``dct_kernel_launches`` on the scrape, 4 a flush), and at 1 the
+       same with one window; SIGTERM exits 0;
+   (k4) ``slow_score:ms100`` with ``DCT_SERVE_ADMIT=1`` and the in-process
+       autoscaler: 16 keep-alive senders of 4 one-window low-priority
+       requests each; sheds are 429 with ``Retry-After``; the shed counter
+       and ``dct_serve_workers`` on one scrape; the workers scale up and
+       back to 1; the admitted answers equal an unarmed server's bit for
+       bit;
+   (k5) endpoint mode: the f32 package (blue) and its int8 twin (green)
+       at 50/50, mirror to green: both slots routed, ``?slot=`` pins, a
+       stage flip written to the state JSON applies to the next request,
+       per-slot counters on ``/metrics``, 4 launches a forward (mirror
+       copies included);
+   (k6) ``python -m dct_tpu_torch.predict_job`` over (h)'s processed rows
+       with (g)'s checkpoint in chunks of 256 windows (one d_ff activation
+       is 2 GiB in f32 at that chunk; the job's default 8192 would need
+       64 GiB): windows/s, 4 launches a chunk, the parquet read back by
+       the port's codec, the first 16 windows within 1e-4 of the numpy
+       engine;
+   (k7) the knobs that select a plain path are refused on the card,
+       naming themselves, with no launch: ``DCT_FLASH=off`` and
+       ``DCT_FLASH_BLOCK_Q=96`` stop the server at its warm start; one f32
+       train step under ``DCT_FLASH_BWD=remat`` launches its 4 forwards
+       and raises in the backward with no backward launch.
+
 Prints the ``kernels`` JSON line (each kernel with its f32 numbers at the
 top level, as earlier slices did, a ``bf16`` summary beside them, and its
-``tensor_core_instructions`` by dtype), then the card line, then, last,
+``tensor_core_instructions`` by dtype; ``launches_by_path`` gains
+``serve_k``, ``predict`` and ``knobs``), then the card line, then, last,
 ``{"ok": true, "device": {...}}``. Any failure raises.
 """
 
@@ -2240,7 +2285,764 @@ def scheduler_phase(root: str, card: str, clean_models_dir: str) -> dict:
     return out
 
 
-def main() -> int:
+
+# ----------------------------------------------------------------------
+# (k) The serving path, completed: int8, the warm start, the pool,
+# overload, endpoint mode, the predict job and the DCT_FLASH knobs.
+
+PROB_BOUND = 0.05  # int8 against its f32 twin (the package's prob_bound)
+PREDICT_CHUNK = 256  # windows a forward: one d_ff activation is 2 GiB f32
+SWEEP_LEVELS = (1, 4, 16)
+SWEEP_REQUESTS = 24  # per level, 8 windows a request
+BURST_THREADS, BURST_EACH = 16, 4  # (k4): keep-alive senders x requests
+K_META = dict(model="weather_transformer", name="weather_transformer",
+              input_dim=5, num_classes=2, horizon=1, **SERVE_CFG)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _start(server):
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return thread
+
+
+def _stop(server, thread):
+    server.shutdown()
+    server.server_close()
+    thread.join(30)
+
+
+def _windows(rng, n):
+    return rng.standard_normal((n, SERVE_CFG["seq_len"], 5)).astype(
+        np.float32)
+
+
+def _post_raw(port, windows, path="/score", headers=None):
+    """(status, payload, headers, ms) of one POST; a 4xx/5xx is returned,
+    not raised."""
+    import urllib.error
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=json.dumps({"data": windows.tolist()}).encode(),
+        headers=headers or {})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, body, hdrs = r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        status, body, hdrs = e.code, e.read(), dict(e.headers)
+    return status, json.loads(body), hdrs, (time.perf_counter() - t0) * 1e3
+
+
+def _scrape(port) -> str:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=60) as r:
+        return r.read().decode()
+
+
+def _metric(text: str, name: str, labels: str = "") -> float:
+    """The fleet total of ``name{labels}`` (the line without ``proc``)."""
+    key = f"{name}{{{labels}}}" if labels else name
+    for line in text.splitlines():
+        if line.startswith(key + " "):
+            return float(line.rsplit(" ", 1)[1])
+    raise AssertionError(f"{key} not on the scrape")
+
+
+def _procs(text: str) -> set:
+    return {line.split('proc="')[1].split('"')[0]
+            for line in text.splitlines()
+            if line.startswith("dct_requests_total{") and 'proc="' in line}
+
+
+def _check_probs(where, probs, n):
+    if probs.shape[0] != n or not np.isfinite(probs).all():
+        raise AssertionError(f"{where}: bad answer {probs.shape} for {n}")
+    if np.abs(probs.sum(axis=-1) - 1).max() > 1e-5:
+        raise AssertionError(f"{where}: probabilities do not sum to 1")
+
+
+def k_int8_phase(fa, root: str) -> dict:
+    """(k1) the int8 twin of the f32 package through the HTTP server
+    against the f32 package and the port's CPU path; (k1b) an MLP package
+    written by the port's ``score_gen``, served on the card."""
+    from dct_tpu_torch.checkpoint.manager import save_checkpoint
+    from dct_tpu_torch.config import ServingConfig
+    from dct_tpu_torch.models.registry import config_from_meta, get_model
+    from dct_tpu_torch.serving.batching import TorchScorer
+    from dct_tpu_torch.serving.package import (
+        init_package_weights,
+        load_package,
+        write_package,
+    )
+    from dct_tpu_torch.serving.quant import quantize_package
+    from dct_tpu_torch.serving.runtime import score_payload
+    from dct_tpu_torch.serving.score_gen import generate_score_package
+    from dct_tpu_torch.serving.server import make_server
+
+    pkgs = {"f32": os.path.join(root, "f32"), "int8": os.path.join(root,
+                                                                    "int8")}
+    write_package(pkgs["f32"], init_package_weights(K_META, seed=0), K_META)
+    quantize_package(pkgs["f32"], pkgs["int8"], "int8")
+    out = {"sizes": list(REQUEST_SIZES)}
+    answers = {}
+    for variant in ("f32", "int8"):
+        _sync()
+        mem0 = torch.cuda.memory_allocated()
+        server = make_server(pkgs[variant], device=DEVICE,
+                             serving=ServingConfig(workers=2))
+        _sync()
+        resident = torch.cuda.memory_allocated() - mem0
+        thread = _start(server)
+        rng = np.random.default_rng(7)
+        lat, answers[variant] = {}, {}
+        try:
+            fa.reset_launches()
+            forwards0 = server.scorer.forwards
+            for n in REQUEST_SIZES:
+                x = _windows(rng, n)
+                status, payload, _, ms = _post_raw(server.server_address[1],
+                                                   x)
+                if status != 200:
+                    raise AssertionError(f"(k1) {variant}: {status} {payload}")
+                probs = np.asarray(payload["probabilities"])
+                _check_probs(f"(k1) {variant}", probs, n)
+                answers[variant][n] = (x, probs)
+                lat[str(n)] = ms
+            launches = fa.launches
+            forwards = server.scorer.forwards - forwards0
+        finally:
+            _stop(server, thread)
+        if launches != SERVE_CFG["n_layers"] * forwards or forwards < 1:
+            raise AssertionError(f"(k1) {variant}: {launches} launches for "
+                                 f"{forwards} forwards")
+        out[variant] = {"resident_bytes_allocated": resident,
+                        "resident_bytes_tensors":
+                            server.scorer.resident_bytes(),
+                        "latency_ms": lat, "launches": launches,
+                        "forwards": forwards}
+        del server
+        torch.cuda.empty_cache()
+    twin_err = max(float(np.abs(answers["int8"][n][1]
+                                - answers["f32"][n][1]).max())
+                   for n in REQUEST_SIZES)
+    if not twin_err <= PROB_BOUND:
+        raise AssertionError(f"(k1) int8 vs f32 {twin_err} > {PROB_BOUND}")
+    weights, meta = load_package(pkgs["int8"])
+    x, probs = answers["int8"][32]
+    pick = [0, 31]
+    cpu_err = float(np.abs(TorchScorer(weights, meta, "cpu")(x[pick])
+                           - probs[pick]).max())
+    if not cpu_err <= TOL[torch.float32]:
+        raise AssertionError(f"(k1) int8 card vs cpu {cpu_err}")
+    out.update(int8_vs_f32_max_abs=twin_err, int8_cuda_vs_cpu=cpu_err,
+               memory_ratio=(out["int8"]["resident_bytes_tensors"]
+                             / out["f32"]["resident_bytes_tensors"]))
+    print(f"[smoke] (k1) int8 {out}", flush=True)
+
+    # (k1b) the MLP package of the port's own packager (C4).
+    mlp_meta = {"model": "weather_mlp", "name": "weather_mlp",
+                "input_dim": 5, "hidden_dim": 64, "num_classes": 2}
+    torch.manual_seed(0)
+    ckpt = save_checkpoint(os.path.join(root, "mlp.ckpt"),
+                           get_model(config_from_meta(mlp_meta),
+                                     device="cpu"), mlp_meta)
+    mlp_pkg = os.path.join(root, "mlp")
+    generate_score_package(ckpt, mlp_pkg)
+    server = make_server(mlp_pkg, device=DEVICE,
+                         serving=ServingConfig(workers=1))
+    thread = _start(server)
+    rows = np.random.default_rng(3).standard_normal((8, 5)).astype(np.float32)
+    try:
+        fa.reset_launches()
+        status, payload, _, ms = _post_raw(server.server_address[1], rows)
+        mlp_launches = fa.launches
+    finally:
+        _stop(server, thread)
+    weights, meta = load_package(mlp_pkg)
+    ref = np.asarray(score_payload(weights, meta, rows.tolist())
+                     ["probabilities"])
+    got = np.asarray(payload["probabilities"])
+    err = float(np.abs(got - ref).max()) if status == 200 else float("inf")
+    if status != 200 or not err <= 1e-5 or server.device.type != DEVICE:
+        raise AssertionError(f"(k1b) mlp {status} {payload} err {err}")
+    out["mlp"] = {"keys": sorted(weights), "device": str(server.device),
+                  "vs_numpy_max_abs_err": err, "latency_ms": ms,
+                  "launches": mlp_launches}
+    print(f"[smoke] (k1b) mlp package on the card {out['mlp']}", flush=True)
+    return out
+
+
+class _Proc:
+    """A server subprocess whose stdout lines are collected on a thread."""
+
+    def __init__(self, cmd, env, log_path):
+        self.lines = []
+        self.log = open(log_path, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, env=env, cwd=HERE, text=True,
+                                     stdout=subprocess.PIPE, stderr=self.log)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append((time.perf_counter(), line.rstrip("\n")))
+
+    def wait_for(self, prefix, timeout=240.0) -> float:
+        """Seconds from the start to the first stdout line with ``prefix``."""
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            for t, line in list(self.lines):
+                if line.startswith(prefix):
+                    return t - self.t0
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.02)
+        self.stop()
+        raise AssertionError(f"no {prefix!r} line (exit {self.proc.poll()}; "
+                             f"stderr in {self.log.name})")
+
+    def line(self, prefix):
+        found = [line for _, line in self.lines if line.startswith(prefix)]
+        return found[-1] if found else None
+
+    def terminate(self, timeout=120.0) -> int:
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        finally:
+            self.stop()
+        self.reader.join(10)
+        return rc
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+        self.log.close()
+
+
+def _child_env(**extra) -> dict:
+    """This environment without ``DCT_*``, the checkout first on the path,
+    and ``extra``."""
+    env = _without_dct(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    if DEVICE == "cpu":
+        env["DCT_DEVICE"] = "cpu"
+    env.update(extra)
+    return env
+
+
+def _serve_env(root, name, port, **extra) -> dict:
+    return _child_env(**{
+        "DCT_SERVE_HOST": "127.0.0.1", "DCT_SERVE_PORT": str(port),
+        "DCT_EVENTS_DIR": os.path.join(root, f"events-{name}"),
+        "DCT_METRICS_DIR": os.path.join(root, f"metrics-{name}"),
+        "DCT_METRICS_PUBLISH_S": "0.2", **extra})
+
+
+def k_warm_phase(root: str, ckpt: str) -> dict:
+    """(k2) ``python -m dct_tpu_torch.serve`` over a checkpoint: process
+    start to the banner, the first and the tenth request, with the warm
+    start and without it (``serve.main(warm=False)``)."""
+    out = {}
+    x = _windows(np.random.default_rng(5), 1)
+    for warm in (True, False):
+        port = _free_port()
+        name = "warm" if warm else "cold"
+        proc = _Proc([sys.executable, "-c",
+                      "import sys; from dct_tpu_torch import serve; "
+                      f"sys.exit(serve.main(warm={warm}))"],
+                     _serve_env(root, name, port, DCT_CKPT=ckpt,
+                                DCT_METRICS_DIR=""),
+                     os.path.join(root, f"{name}.log"))
+        ready_s = proc.wait_for("serving ")
+        lat = []
+        for _ in range(10):
+            status, payload, _, ms = _post_raw(port, x)
+            if status != 200:
+                proc.stop()
+                raise AssertionError(f"(k2) {name}: {status} {payload}")
+            lat.append(ms)
+        rc = proc.terminate()
+        line = proc.line("[serve] launches ")
+        launches = json.loads(line.split(" ", 2)[2].replace("'", '"')) \
+            if line else None
+        want = SERVE_CFG["n_layers"] * (10 + warm)
+        if rc != 0 or not launches or launches["flash_fwd"] != want:
+            raise AssertionError(f"(k2) {name}: exit {rc}, launches "
+                                 f"{launches}, want {want}")
+        out[name] = {"start_to_ready_s": ready_s, "first_ms": lat[0],
+                     "tenth_ms": lat[9], "median_ms": statistics.median(lat),
+                     "launches": launches}
+    print(f"[smoke] (k2) warm start {out}", flush=True)
+    return out
+
+
+def k_pool_phase(root: str, pkg: str) -> dict:
+    """(k3) ``DCT_SERVE_PROCS`` 1 and 2: the heal drill (``crash_worker``
+    on child 1) at 2, then the same closed-loop sweep on each, launches
+    read off the fleet scrape, SIGTERM to exit 0; at 1 the sweep also runs
+    at one window a request. (``scripts/serve_concurrency_compare.py``
+    holds a server past concurrency 1 against the reference's.)"""
+    from dct_tpu_torch.serving import loadgen
+
+    body = json.dumps({"data": _windows(np.random.default_rng(9), 8).tolist()
+                       }).encode()
+    out = {}
+    for procs in (1, 2):
+        name = f"procs{procs}"
+        port = _free_port()
+        extra = dict(DCT_PACKAGE_DIR=pkg, DCT_SERVE_PROCS=str(procs),
+                     DCT_SERVE_WORKERS="2")
+        if procs == 2:
+            extra.update(DCT_FAULT_SPEC="crash_worker@proc1:req2",
+                         DCT_SERVE_MAX_RESTARTS="2")
+        env = _serve_env(root, name, port, **extra)
+        proc = _Proc([sys.executable, "-m", "dct_tpu_torch.serve"], env,
+                     os.path.join(root, f"{name}.log"))
+        try:
+            proc.wait_for("serving ")
+            x1 = _windows(np.random.default_rng(1), 1)
+            deadline = time.perf_counter() + 240
+            healed, answered = procs == 1, 0
+            while time.perf_counter() < deadline:
+                try:
+                    status, payload, _, _ = _post_raw(port, x1)
+                    answered += status == 200
+                except OSError:  # not bound yet, or the torn connection
+                    time.sleep(0.2)
+                    continue
+                names = [e["event"] for e in _events_of(env)]
+                healed = healed or "serve.pool_respawn" in names
+                if healed and answered >= 4 and (
+                        procs == 1 or len(_procs(_scrape(port))) == procs):
+                    break
+            if not healed:
+                raise AssertionError(f"(k3) {name}: no respawn")
+            time.sleep(0.6)  # every child republished
+            before = _scrape(port)
+            sweep = loadgen.sweep_closed_loop(
+                "127.0.0.1", port, body, levels=list(SWEEP_LEVELS),
+                requests_per_level=SWEEP_REQUESTS, duration_s=60.0)
+            time.sleep(0.6)
+            after = _scrape(port)
+            if procs == 1:
+                # One window a request: an eighth of the body to parse.
+                small = loadgen.sweep_closed_loop(
+                    "127.0.0.1", port, json.dumps({"data": x1.tolist()}
+                                                  ).encode(),
+                    levels=[1, 4], requests_per_level=SWEEP_REQUESTS,
+                    duration_s=60.0)
+            launches = (_metric(after, "dct_kernel_launches",
+                                'kernel="flash_fwd"')
+                        - _metric(before, "dct_kernel_launches",
+                                  'kernel="flash_fwd"'))
+            flushes = (_metric(after, "dct_serve_batch_rows_count")
+                       - _metric(before, "dct_serve_batch_rows_count"))
+            seen = _procs(after)
+            rc = proc.terminate()
+        finally:
+            proc.stop()
+        events = _events_of(env)
+        names = [e["event"] for e in events]
+        errors = sum(r["errors"] for r in sweep["levels"])
+        if (rc != 0 or errors or len(seen) != procs
+                or launches != SERVE_CFG["n_layers"] * flushes):
+            raise AssertionError(
+                f"(k3) {name}: exit {rc}, {errors} errors, procs {seen}, "
+                f"{launches} launches for {flushes} flushes")
+        if procs == 2:
+            death = [e for e in events
+                     if e["event"] == "serve.pool_child_death"]
+            if (not death or death[0]["index"] != 1
+                    or names.index("serve.pool_child_death")
+                    > names.index("serve.pool_respawn")):
+                raise AssertionError(f"(k3) heal drill events {names}")
+        out[name] = {
+            "levels": [{k: r[k] for k in ("concurrency", "requests", "qps",
+                                          "p50_ms", "p99_ms", "duration_s")}
+                       for r in sweep["levels"]],
+            "launches": launches, "flushes": flushes, "procs_seen": len(seen),
+            "pool_events": [n for n in names if n.startswith("serve.pool")],
+            "exit": rc}
+        if procs == 1:
+            out[name]["one_window_levels"] = [
+                {k: r[k] for k in ("concurrency", "requests", "qps", "p50_ms",
+                                   "p99_ms")} for r in small["levels"]]
+    print(f"[smoke] (k3) pool {out}", flush=True)
+    return out
+
+
+def k_overload_phase(fa, root: str) -> dict:
+    """(k4) ``slow_score`` with admission and the in-process autoscaler on:
+    ``BURST_THREADS`` keep-alive senders of ``BURST_EACH`` one-window
+    requests each (no retry); sheds come back 429 with ``Retry-After``;
+    the shed counter and the capacity gauge on one scrape; the workers
+    scale up and back; the admitted answers equal an unarmed server's bit
+    for bit (one window a flush on both)."""
+    import http.client
+
+    from dct_tpu_torch.config import ServingConfig
+    from dct_tpu_torch.resilience import faults
+    from dct_tpu_torch.serving.package import load_package
+    from dct_tpu_torch.serving.server import make_server_from_weights
+
+    weights, meta = load_package(os.path.join(root, "f32"))
+    armed = ServingConfig(max_batch=1, workers=1, admit=True,
+                          admit_max_queue=4, admit_wait_ms=100.0,
+                          retry_after_s=0.05, autoscale=True, scale_min=1,
+                          scale_max=3, scale_poll_s=0.05, scale_up_queue=2,
+                          scale_down_queue=0, scale_hysteresis=1,
+                          scale_cooldown_s=0.2)
+    faults.set_default(faults.FaultPlan.parse("slow_score:ms100"))
+    server = make_server_from_weights(weights, meta, serving=armed,
+                                      device=DEVICE)
+    thread = _start(server)
+    port = server.server_address[1]
+    xs = _windows(np.random.default_rng(11), BURST_THREADS * BURST_EACH)
+    results = [None] * len(xs)
+    peak = [1]
+    done = threading.Event()
+
+    def watch():
+        while not done.is_set():
+            peak[0] = max(peak[0], server.batcher.workers)
+            time.sleep(0.005)
+
+    def sender(t):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        try:
+            for i in range(t * BURST_EACH, (t + 1) * BURST_EACH):
+                conn.request("POST", "/score", json.dumps(
+                    {"data": xs[i:i + 1].tolist()}).encode(),
+                    {"Content-Type": "application/json",
+                     "x-dct-priority": "low"})
+                resp = conn.getresponse()
+                results[i] = (resp.status, json.loads(resp.read()),
+                              dict(resp.getheaders()))
+        finally:
+            conn.close()
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    try:
+        fa.reset_launches()
+        forwards0 = server.scorer.forwards
+        t0 = time.perf_counter()
+        burst = [threading.Thread(target=sender, args=(t,))
+                 for t in range(BURST_THREADS)]
+        for t in burst:
+            t.start()
+        for t in burst:
+            t.join(300)
+        burst_s = time.perf_counter() - t0
+        text = _scrape(port)
+        launches = fa.launches
+        forwards = server.scorer.forwards - forwards0
+        deadline = time.perf_counter() + 20
+        while server.batcher.workers > 1 and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        settled = server.batcher.workers
+    finally:
+        done.set()
+        faults.set_default(None)
+        _stop(server, thread)
+    shed = [r for r in results if r is not None and r[0] == 429]
+    admitted = [(i, r) for i, r in enumerate(results)
+                if r is not None and r[0] == 200]
+    if (not shed or not admitted or len(shed) + len(admitted) != len(xs)
+            or not all(r[2].get("Retry-After", "").isdigit() for r in shed)):
+        raise AssertionError(f"(k4) statuses {[r and r[0] for r in results]}")
+    shed_total = _metric(text, "dct_serve_shed_total", 'class="low"')
+    gauge = _metric(text, "dct_serve_workers")
+    if (shed_total != len(shed) or peak[0] < 2 or settled != 1
+            or launches != SERVE_CFG["n_layers"] * forwards):
+        raise AssertionError(f"(k4) shed {shed_total} vs {len(shed)}, workers "
+                             f"peak {peak[0]} settled {settled}, {launches} "
+                             f"launches for {forwards} forwards")
+    plain = make_server_from_weights(weights, meta, device=DEVICE,
+                                     serving=ServingConfig(max_batch=1,
+                                                           workers=1))
+    thread = _start(plain)
+    try:
+        for i, r in admitted:
+            status, payload, _, _ = _post_raw(plain.server_address[1],
+                                              xs[i:i + 1])
+            if status != 200 or payload["probabilities"] != r[1][
+                    "probabilities"]:
+                raise AssertionError(f"(k4) admitted answer {i} differs from "
+                                     "the unarmed server's")
+    finally:
+        _stop(plain, thread)
+    out = {"requests": len(xs), "admitted": len(admitted),
+           "shed": len(shed), "shed_rate": len(shed) / len(xs),
+           "burst_s": burst_s,
+           "retry_after_header_s": sorted({int(r[2]["Retry-After"])
+                                           for r in shed}),
+           "scrape_shed_total": shed_total, "scrape_workers_gauge": gauge,
+           "workers_peak": peak[0], "workers_settled": settled,
+           "launches": launches, "forwards": forwards,
+           "admitted_bitwise_equal_unarmed": True}
+    print(f"[smoke] (k4) overload {out}", flush=True)
+    return out
+
+
+def k_endpoint_phase(fa, root: str) -> dict:
+    """(k5) two slots, the f32 package and its int8 twin, 50/50 with a
+    mirror to the int8 slot: routing, ``?slot=`` pinning, per-slot
+    counters, a stage flip written to the state JSON mid-serve."""
+    from dct_tpu_torch.config import ServingConfig
+    from dct_tpu_torch.deploy.local import LocalEndpointClient
+    from dct_tpu_torch.serving.server import make_endpoint_server
+
+    state = os.path.join(root, "endpoint_state.json")
+    name = "k-endpoint"
+    client = LocalEndpointClient(state_path=state)
+    client.create_endpoint(name)
+    client.deploy(name, "blue", os.path.join(root, "f32"))
+    client.deploy(name, "green", os.path.join(root, "int8"))
+    client.set_traffic(name, {"blue": 50, "green": 50})
+    client.set_mirror_traffic(name, {"green": 100})
+    server = make_endpoint_server(name, state_path=state, device=DEVICE,
+                                  serving=ServingConfig(workers=2))
+    thread = _start(server)
+    port = server.server_address[1]
+    x = _windows(np.random.default_rng(13), 1)
+
+    def forwards():
+        return sum(s.forwards for _, s in server.batcher._scorers.values())
+
+    try:
+        fa.reset_launches()
+        f0 = forwards()
+        routed = [_post_raw(port, x)[1]["slot"] for _ in range(16)]
+        pinned = {slot: _post_raw(port, x, path=f"/score?slot={slot}")[1]
+                  for slot in ("blue", "green")}
+        LocalEndpointClient(state_path=state).set_traffic(
+            name, {"blue": 0, "green": 100})
+        flipped = [_post_raw(port, x)[1]["slot"] for _ in range(6)]
+        time.sleep(0.5)  # the last mirror copies score after their replies
+        text = _scrape(port)
+        launches, n_fwd = fa.launches, forwards() - f0
+    finally:
+        _stop(server, thread)
+    counts = {s: _metric(text, "dct_requests_total", f'slot="{s}"')
+              for s in ("blue", "green")}
+    pin_err = float(np.abs(np.asarray(pinned["blue"]["probabilities"])
+                           - np.asarray(pinned["green"]["probabilities"])
+                           ).max())
+    mirrored = sum(1 for _ in open(state + "_mirror.jsonl"))
+    if (set(routed) != {"blue", "green"} or set(flipped) != {"green"}
+            or [p["slot"] for p in pinned.values()] != ["blue", "green"]
+            or not pin_err <= PROB_BOUND or mirrored < 1
+            or launches != SERVE_CFG["n_layers"] * n_fwd):
+        raise AssertionError(f"(k5) routed {routed}, flipped {flipped}, "
+                             f"pinned err {pin_err}, mirrored {mirrored}, "
+                             f"{launches} launches for {n_fwd} forwards")
+    out = {"routed": {s: routed.count(s) for s in ("blue", "green")},
+           "after_flip": {s: flipped.count(s) for s in ("blue", "green")},
+           "scrape_requests_by_slot": counts, "mirrored": mirrored,
+           "pinned_blue_vs_green_max_abs": pin_err, "launches": launches,
+           "forwards": n_fwd}
+    print(f"[smoke] (k5) endpoint {out}", flush=True)
+    return out
+
+
+def k_predict_phase(root: str, ckpt: str, processed: str) -> dict:
+    """(k6) ``python -m dct_tpu_torch.predict_job`` on the card over (h)'s
+    processed rows with (g)'s checkpoint, chunks of ``PREDICT_CHUNK``;
+    the numpy engine on the first 16 windows of the first chunk."""
+    from dct_tpu_torch import predict_job
+    from dct_tpu_torch.data.dataset import load_processed_dataset
+    from dct_tpu_torch.data.windows import make_windows
+    from dct_tpu_torch.etl.parquet import read_table
+    from dct_tpu_torch.serving.score_gen import weights_from_checkpoint
+
+    out_path = os.path.join(root, "predictions.parquet")
+    env = _child_env(DCT_CKPT=ckpt, DCT_PROCESSED_DIR=processed,
+                     DCT_PREDICTIONS=out_path,
+                     DCT_PREDICT_CHUNK=str(PREDICT_CHUNK))
+    r = subprocess.run([sys.executable, "-m", "dct_tpu_torch.predict_job"],
+                       env=env, cwd=HERE, capture_output=True, text=True,
+                       timeout=600)
+    line = [x for x in r.stdout.splitlines()
+            if x.startswith("[predict_job] scored ")]
+    if r.returncode != 0 or not line:
+        raise AssertionError(f"(k6) exit {r.returncode}: {r.stderr[-2000:]}")
+    m = re.match(r"\[predict_job\] scored (\d+) in ([0-9.]+) s .*launches "
+                 r"(\{.*\})", line[-1])
+    n, seconds = int(m.group(1)), float(m.group(2))
+    launches = json.loads(m.group(3).replace("'", '"'))
+    chunks = -(-n // PREDICT_CHUNK)
+    table = read_table(out_path)
+    probs = np.stack([table["prob_0"], table["prob_1"]], axis=1)
+    weights, meta = weights_from_checkpoint(ckpt)
+    windows = make_windows(load_processed_dataset(processed),
+                           int(meta["seq_len"]))
+    ref = predict_job.score(weights, meta, windows.features[:16], 16,
+                            engine="numpy")
+    err = float(np.abs(probs[:16] - ref).max())
+    want = {"flash_fwd": SERVE_CFG["n_layers"] * chunks, "flash_bwd_dkdv": 0,
+            "flash_bwd_dq": 0}
+    if (launches != want or len(table["row"]) != n or not err <= 1e-4
+            or not np.isfinite(probs).all()
+            or np.abs(probs.sum(axis=1) - 1).max() > 1e-5):
+        raise AssertionError(f"(k6) launches {launches} (want {want}), rows "
+                             f"{len(table['row'])} of {n}, numpy err {err}")
+    out = {"windows": n, "chunk": PREDICT_CHUNK, "chunks": chunks,
+           "score_s": seconds, "windows_per_s": n / seconds,
+           "launches": launches, "launches_per_chunk": launches["flash_fwd"]
+           / chunks, "torch_vs_numpy_first16_max_abs": err,
+           "columns": sorted(table)}
+    print(f"[smoke] (k6) predict job {out}", flush=True)
+    return out
+
+
+def k_knobs_phase(fa, root: str) -> dict:
+    """(k7) On the card a knob that would select a plain path raises,
+    naming itself, and launches nothing: ``DCT_FLASH=off`` and a
+    ``DCT_FLASH_BLOCK_Q`` that does not divide T stop the server at its
+    warm start, before the port is bound. One train step under
+    ``DCT_FLASH_BWD=remat`` launches its forwards and raises in the
+    backward with no backward launch; the same step without the knob
+    launches all three kernels on every layer."""
+    from dct_tpu_torch.config import ServingConfig
+    from dct_tpu_torch.serving.server import make_server
+    from dct_tpu_torch.train import steps
+
+    refusals = {}
+    for name, key, value in (("flash_off", "DCT_FLASH", "off"),
+                             ("blocks", "DCT_FLASH_BLOCK_Q", "96")):
+        os.environ[key] = value
+        fa.reset_launches()
+        try:
+            server = make_server(os.path.join(root, "f32"), device=DEVICE,
+                                 serving=ServingConfig(workers=1))
+            server.server_close()
+            server.batcher.close()
+            raise AssertionError(f"(k7) {key}={value}: the server started")
+        except ValueError as e:
+            msg = str(e)
+        finally:
+            del os.environ[key]
+        if f"{key}=" not in msg or fa.launches != 0:
+            raise AssertionError(f"(k7) {key}={value}: {fa.launches} "
+                                 f"launches, error {msg!r}")
+        refusals[name] = {"launches": fa.launches, "error": msg}
+    (xs, ys, ws), _ = train_data("weather_transformer")
+    state = train_state("weather_transformer", torch.float32, dropout=0.0)
+    fa.reset_launches()
+    steps.loss_and_grads(state, xs[0], ys[0], ws[0])
+    _sync()
+    kernel_counts = fa.launch_counts()
+    os.environ["DCT_FLASH_BWD"] = "remat"
+    try:
+        fa.reset_launches()
+        steps.loss_and_grads(state, xs[0], ys[0], ws[0])
+        raise AssertionError("(k7) DCT_FLASH_BWD=remat: the backward ran")
+    except ValueError as e:
+        remat_msg = str(e)
+    finally:
+        del os.environ["DCT_FLASH_BWD"]
+    _sync()
+    remat_counts = fa.launch_counts()
+    n = SERVE_CFG["n_layers"]
+    if (remat_counts != {"flash_fwd": n, "flash_bwd_dkdv": 0,
+                         "flash_bwd_dq": 0}
+            or "DCT_FLASH_BWD=remat" not in remat_msg
+            or kernel_counts != {"flash_fwd": n, "flash_bwd_dkdv": n,
+                                 "flash_bwd_dq": n}):
+        raise AssertionError(f"(k7) remat launches {remat_counts}, error "
+                             f"{remat_msg!r}, kernel path {kernel_counts}")
+    out = {"refusals": refusals,
+           "remat": {"launches": remat_counts, "error": remat_msg,
+                     "kernel_path_launches": kernel_counts}}
+    print(f"[smoke] (k7) knobs {out}", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def serving_phase(fa, root: str, ckpt: str, processed: str,
+                  card: str) -> dict:
+    """(k1)-(k7); each sub-phase's launches and wall."""
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    phase_t0 = time.perf_counter()
+    walls = {}
+
+    def timed(key, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        walls[key] = time.perf_counter() - t0
+        return res
+
+    k1 = timed("k1", k_int8_phase, fa, root)
+    k2 = timed("k2", k_warm_phase, root, ckpt)
+    k3 = timed("k3", k_pool_phase, root, os.path.join(root, "f32"))
+    k4 = timed("k4", k_overload_phase, fa, root)
+    k5 = timed("k5", k_endpoint_phase, fa, root)
+    k6 = timed("k6", k_predict_phase, root, ckpt, processed)
+    k7 = timed("k7", k_knobs_phase, fa, root)
+    in_process = (k1["f32"]["launches"] + k1["int8"]["launches"]
+                  + k1["mlp"]["launches"] + k4["launches"] + k5["launches"])
+    children = (sum(v["launches"]["flash_fwd"] for v in k2.values())
+                + int(sum(v["launches"] for v in k3.values())))
+    out = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k5": k5, "k6": k6,
+           "k7": k7, "walls_s": walls,
+           "launches": {"serve_k": in_process + children,
+                        "serve_k_children": children,
+                        "predict": k6["launches"]["flash_fwd"],
+                        "knobs": {k: k7["remat"]["kernel_path_launches"][k]
+                                  + k7["remat"]["launches"][k]
+                                  for k in k7["remat"]["launches"]}},
+           "phase_s": time.perf_counter() - phase_t0, "card": card}
+    print(f"[smoke] (k) serving launches {out['launches']}, walls "
+          f"{walls}, phase {out['phase_s']:.1f} s on {card}", flush=True)
+    return out
+
+
+def serving_probe(root: str) -> tuple[str, str]:
+    """A random full-width checkpoint and a processed dir of LOOP_ROWS
+    synthetic rows, for ``--phase k`` (the whole script uses (g)'s
+    checkpoint and (h)'s rows)."""
+    from dct_tpu_torch.checkpoint.manager import save_checkpoint
+    from dct_tpu_torch.data.synthetic import generate_weather_csv
+    from dct_tpu_torch.etl.preprocess import preprocess_csv_to_parquet
+    from dct_tpu_torch.models.registry import config_from_meta, get_model
+
+    os.makedirs(root, exist_ok=True)
+    torch.manual_seed(0)
+    ckpt = save_checkpoint(os.path.join(root, "last.ckpt"), get_model(
+        config_from_meta(K_META), device="cpu"), K_META)
+    raw = os.path.join(root, "raw", "weather.csv")
+    generate_weather_csv(raw, rows=LOOP_ROWS, seed=1)
+    processed = os.path.join(root, "processed")
+    preprocess_csv_to_parquet(raw, processed)
+    return ckpt, processed
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phase", choices=("all", "k"), default="all",
+                    help="k: build the kernels and run only (k), over a "
+                         "random full-width checkpoint and synthetic rows")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -2272,6 +3074,19 @@ def main() -> int:
                 raise AssertionError(f"tensor-core kernel {fn}: {rep}")
     tc_counts = tensor_core_instructions(build)
     print(f"[smoke] tensor-core instructions: {tc_counts}", flush=True)
+
+    if args.phase == "k":
+        probe_root = os.path.join(HERE, "build", "chip_smoke_probe")
+        shutil.rmtree(probe_root, ignore_errors=True)
+        ckpt, processed = serving_probe(probe_root)
+        serving_phase(fa, os.path.join(HERE, "build", "chip_smoke_serving"),
+                      ckpt, processed, card)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
 
     variants = check_flash_kernel(fa)
     bwd_variants = check_bwd_kernels(fa)
@@ -2320,6 +3135,12 @@ def main() -> int:
     shutil.rmtree(sched_root, ignore_errors=True)  # (j) starts from nothing
     sched = scheduler_phase(sched_root, card, supervised["clean_models_dir"])
     sched_counts = sched["launches"]
+    torch.cuda.empty_cache()
+    served_k = serving_phase(
+        fa, os.path.join(HERE, "build", "chip_smoke_serving"),
+        os.path.join(fit_root, "models-tf", "last.ckpt"),
+        os.path.join(loop_root, "episodic", "processed"), card)
+    k_counts = served_k["launches"]
 
     def bf16_summary(rows):
         row = [r for r in rows
@@ -2342,14 +3163,19 @@ def main() -> int:
                      + loop_counts["train"]["flash_fwd"]
                      + loop_counts["gate"]["flash_fwd"]
                      + sup_counts["flash_fwd"]
-                     + sched_counts["flash_fwd"]),
+                     + sched_counts["flash_fwd"]
+                     + k_counts["serve_k"] + k_counts["predict"]
+                     + k_counts["knobs"]["flash_fwd"]),
         "launches_by_path": {"serve": launches,
                              "train": train_counts["flash_fwd"],
                              "fit": fit_counts["flash_fwd"],
                              "loop_train": loop_counts["train"]["flash_fwd"],
                              "gate": loop_counts["gate"]["flash_fwd"],
                              "supervised": sup_counts["flash_fwd"],
-                             "scheduler": sched_counts["flash_fwd"]},
+                             "scheduler": sched_counts["flash_fwd"],
+                             "serve_k": k_counts["serve_k"],
+                             "predict": k_counts["predict"],
+                             "knobs": k_counts["knobs"]["flash_fwd"]},
         "gate_launches_per_consult": loop_counts["gate"]["flash_fwd"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -2371,13 +3197,15 @@ def main() -> int:
                         f"(_{name}_kernel; pallas_call at :{call})",
             "launches": (train_counts[name] + fit_counts[name]
                          + loop_counts["train"][name] + sup_counts[name]
-                         + sched_counts[name]),
+                         + sched_counts[name] + k_counts["knobs"][name]),
             "launches_by_path": {"train": train_counts[name],
                                  "fit": fit_counts[name],
                                  "loop_train": loop_counts["train"][name],
                                  "gate": loop_counts["gate"][name],
                                  "supervised": sup_counts[name],
-                                 "scheduler": sched_counts[name]},
+                                 "scheduler": sched_counts[name],
+                                 "serve_k": 0, "predict": 0,
+                                 "knobs": k_counts["knobs"][name]},
             "launches_per_step": train_counts[name] / train_steps,
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],

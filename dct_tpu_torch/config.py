@@ -12,8 +12,8 @@ log, spans, heartbeats and health policy of ``:413-470`` and the metrics
 plane's ``metrics_dir`` and ``metrics_publish_s``, ``:468-471``),
 ``ResilienceConfig`` (the supervisor, preemption and fault-plan knobs of
 ``:606-660``), ``EvaluationConfig`` (``:672-766``), ``ServingConfig``
-(``:770-860``), ``LoopConfig`` (``:918-976``), ``StreamConfig`` (its
-``mode``, ``:979``), ``SchedulerConfig`` (``:1040-1083``) and the
+(``:768-915``, every field), ``LoopConfig`` (``:918-976``),
+``StreamConfig`` (its ``mode``, ``:979``), ``SchedulerConfig`` (``:1040-1083``) and the
 ``RunConfig`` bundle the trainer, the loop and the scheduler take.
 ``EvaluationConfig`` stays out of the bundle: the gate reads it from
 the environment where it is used, as the reference's does.
@@ -128,16 +128,54 @@ class ModelConfig:
 
 @dataclass
 class ServingConfig:
-    """The micro-batcher's knobs: a flush takes up to ``max_batch`` rows,
-    waiting at most ``batch_window_ms`` past the oldest queued request
-    (0 = opportunistic); ``workers`` scoring threads drain the queue
-    (0 = score inline on the handler thread); ``fast_parse`` parses the
-    ``{"data": ...}`` envelope straight from the request bytes."""
+    """The serving tier's knobs, with the reference's names, defaults and
+    ``DCT_SERVE_*`` variables (``dct_tpu/config.py:768-915``): the
+    micro-batcher (a flush takes up to ``max_batch`` rows, waiting at most
+    ``batch_window_ms`` past the oldest queued request, 0 = opportunistic;
+    ``workers`` scoring threads, 0 = inline), the pool's ``processes``,
+    the engine, the envelope fast parse, the load generator, admission
+    control, the autoscaler and the pool's restart budget.
+
+    ``engine`` is the one stated divergence: the port's engines are
+    ``torch`` (the default: the registry model on the card, the
+    counterpart of the reference's opt-in ``jax``) and ``numpy`` (the
+    reference's default, bit-identical to it). ``DCT_SERVE_ENGINE=jax``
+    raises, naming ``torch``."""
 
     max_batch: int = 64
     batch_window_ms: float = 0.0
     workers: int = 2
+    # Serving processes sharing one port through SO_REUSEPORT (ServerPool).
+    processes: int = 1
+    engine: str = "torch"
     fast_parse: bool = True
+    # Load generator: open-loop qps (0 = closed loop), the per-level wall
+    # budget, requests per level, the sweep's levels.
+    loadgen_qps: float = 0.0
+    loadgen_duration_s: float = 2.0
+    loadgen_requests: int = 300
+    loadgen_concurrency: str = "1,4,16"
+    # Admission control (serving/admission.py): off by default.
+    admit: bool = False
+    priority_header: str = "x-dct-priority"
+    admit_max_queue: int = 256
+    admit_wait_ms: float = 500.0
+    retry_after_s: float = 0.25
+    # The autoscaler (serving/autoscale.py): pool processes, or batcher
+    # worker threads in one process.
+    autoscale: bool = False
+    scale_min: int = 1
+    scale_max: int = 4
+    scale_up_queue: float = 32.0
+    scale_down_queue: float = 2.0
+    scale_poll_s: float = 1.0
+    scale_hysteresis: int = 2
+    scale_cooldown_s: float = 5.0
+    # The pool's respawn budget before its circuit breaks.
+    max_restarts: int = 3
+
+    def __post_init__(self):
+        self.engine = check_engine(self.engine)
 
     @classmethod
     def from_env(cls) -> "ServingConfig":
@@ -147,8 +185,79 @@ class ServingConfig:
             "DCT_SERVE_BATCH_WINDOW_MS", c.batch_window_ms, float
         )
         c.workers = _env("DCT_SERVE_WORKERS", c.workers, int)
+        c.processes = _env("DCT_SERVE_PROCS", c.processes, int)
+        c.engine = check_engine(_env("DCT_SERVE_ENGINE", c.engine, str))
         c.fast_parse = _env("DCT_SERVE_FAST_PARSE", c.fast_parse, bool)
+        c.loadgen_qps = _env("DCT_SERVE_LOADGEN_QPS", c.loadgen_qps, float)
+        c.loadgen_duration_s = _env(
+            "DCT_SERVE_LOADGEN_DURATION_S", c.loadgen_duration_s, float
+        )
+        c.loadgen_requests = _env(
+            "DCT_SERVE_LOADGEN_REQUESTS", c.loadgen_requests, int
+        )
+        c.loadgen_concurrency = _env(
+            "DCT_SERVE_LOADGEN_CONCURRENCY", c.loadgen_concurrency, str
+        )
+        c.admit = _env("DCT_SERVE_ADMIT", c.admit, bool)
+        c.priority_header = _env(
+            "DCT_SERVE_PRIORITY_HEADER", c.priority_header, str
+        ).strip().lower()
+        c.admit_max_queue = _env(
+            "DCT_SERVE_ADMIT_MAX_QUEUE", c.admit_max_queue, int
+        )
+        c.admit_wait_ms = _env(
+            "DCT_SERVE_ADMIT_WAIT_MS", c.admit_wait_ms, float
+        )
+        c.retry_after_s = _env(
+            "DCT_SERVE_RETRY_AFTER_S", c.retry_after_s, float
+        )
+        c.autoscale = _env("DCT_SERVE_AUTOSCALE", c.autoscale, bool)
+        c.scale_min = _env("DCT_SERVE_SCALE_MIN", c.scale_min, int)
+        c.scale_max = _env("DCT_SERVE_SCALE_MAX", c.scale_max, int)
+        c.scale_up_queue = _env(
+            "DCT_SERVE_SCALE_UP_Q", c.scale_up_queue, float
+        )
+        c.scale_down_queue = _env(
+            "DCT_SERVE_SCALE_DOWN_Q", c.scale_down_queue, float
+        )
+        c.scale_poll_s = _env("DCT_SERVE_SCALE_POLL_S", c.scale_poll_s, float)
+        c.scale_hysteresis = _env(
+            "DCT_SERVE_SCALE_HYSTERESIS", c.scale_hysteresis, int
+        )
+        c.scale_cooldown_s = _env(
+            "DCT_SERVE_SCALE_COOLDOWN_S", c.scale_cooldown_s, float
+        )
+        c.max_restarts = _env("DCT_SERVE_MAX_RESTARTS", c.max_restarts, int)
         return c
+
+    def concurrency_levels(self) -> list[int]:
+        """The loadgen sweep's concurrency levels, parsed and sanitized
+        (bad tokens dropped; at least level 1)."""
+        levels = []
+        for tok in str(self.loadgen_concurrency).split(","):
+            tok = tok.strip()
+            if tok.isdigit() and int(tok) > 0:
+                levels.append(int(tok))
+        return sorted(set(levels)) or [1]
+
+
+SERVE_ENGINES = ("torch", "numpy")
+
+
+def check_engine(engine: str) -> str:
+    """A serving engine name, normalized; ``jax`` and unknown names raise."""
+    engine = str(engine or "torch").strip().lower()
+    if engine == "jax":
+        raise ValueError(
+            "DCT_SERVE_ENGINE=jax is the reference's engine; the port's "
+            "counterpart is 'torch' (the registry model on the card), "
+            "beside 'numpy'"
+        )
+    if engine not in SERVE_ENGINES:
+        raise ValueError(
+            f"DCT_SERVE_ENGINE={engine!r} must be one of {SERVE_ENGINES}"
+        )
+    return engine
 
 
 @dataclass
@@ -295,6 +404,8 @@ class ObservabilityConfig:
     # Min seconds between snapshot publishes per process (the hot-path
     # throttle; an idle process's timer republishes on the same cadence).
     metrics_publish_s: float = 2.0
+    # A sibling snapshot older than this drops out of a fleet scrape.
+    metrics_stale_s: float = 30.0
 
     @classmethod
     def from_env(cls) -> "ObservabilityConfig":
@@ -315,6 +426,8 @@ class ObservabilityConfig:
         c.metrics_dir = _env("DCT_METRICS_DIR", c.metrics_dir, str)
         c.metrics_publish_s = _env(
             "DCT_METRICS_PUBLISH_S", c.metrics_publish_s, float)
+        c.metrics_stale_s = _env(
+            "DCT_METRICS_STALE_S", c.metrics_stale_s, float)
         return c
 
 

@@ -16,11 +16,11 @@ The product is a :class:`GateDecision` (``promote`` / ``hold`` /
 ``rollback`` plus the evidence), which
 :class:`~dct_tpu_torch.deploy.rollout.RolloutOrchestrator` consults between
 stages and maps to ``rollback()`` on anything but promote. Every decision
-is folded into a JSON ledger (:func:`record_decision`). The reference also
-renders that ledger on the serving tier's ``GET /metrics`` and as a
-``deploy_gate.prom`` textfile (``render_gate_metrics``, ``:558-601``); those
-wait for the serving planes, ROADMAP Queue A item 2. The ``eval.start`` /
-``eval.report`` events are item 27.
+is folded into a JSON ledger (:func:`record_decision`), rendered on the
+serving tier's ``GET /metrics`` (:func:`render_gate_metrics`) and as a
+``deploy_gate.prom`` textfile beside it, as the reference does
+(``:525-601``). The ``eval.start`` / ``eval.report`` events are ROADMAP
+Queue A item 27.
 """
 
 from __future__ import annotations
@@ -507,9 +507,8 @@ def record_decision(
     decision: GateDecision, *, ledger_path: str = ""
 ) -> None:
     """Fold one decision into the ledger (decision counters + last
-    decision + last drift PSI). Best-effort: telemetry never blocks a
-    rollout. (The reference also refreshes a ``deploy_gate.prom``
-    textfile beside it: ROADMAP Queue A item 2.)"""
+    decision + last drift PSI) and refresh the ``deploy_gate.prom``
+    textfile beside it. Best-effort: telemetry never blocks a rollout."""
     path = gate_ledger_path(ledger_path)
     try:
         try:
@@ -533,6 +532,53 @@ def record_decision(
         tmp = f"{path}.tmp.{os.getpid()}"
         with open(tmp, "w") as f:
             json.dump(ledger, f, indent=2)
+        os.replace(tmp, path)
+        _write_gate_prom(ledger, os.path.join(
+            os.path.dirname(path) or ".", "deploy_gate.prom"
+        ))
+    except OSError:
+        pass
+
+
+def render_gate_metrics(ledger_path: str = "") -> str:
+    """Exposition-format text of the gate counters, appended to the
+    serving server's ``GET /metrics`` body ("" when no ledger exists)."""
+    try:
+        with open(gate_ledger_path(ledger_path)) as f:
+            ledger = json.load(f)
+    except (OSError, ValueError):
+        return ""
+    return _gate_families_text(ledger)
+
+
+def _gate_families_text(ledger: dict) -> str:
+    from dct_tpu_torch.observability.prometheus import MetricFamily, render
+
+    decisions = MetricFamily(
+        "dct_deploy_gate_decisions_total", "counter",
+        "Promotion-gate decisions by outcome (promote/hold/rollback).",
+    )
+    for name in (PROMOTE, HOLD, ROLLBACK):
+        n = int((ledger.get("decisions") or {}).get(name, 0))
+        decisions.add(n, {"decision": name})
+    fams = [decisions]
+    if "max_psi" in ledger:
+        fams.append(
+            MetricFamily(
+                "dct_drift_psi", "gauge",
+                "Max per-feature PSI of the latest gated evaluation "
+                "(new ETL output vs the champion's training snapshot).",
+            ).add(float(ledger["max_psi"]))
+        )
+    return render(fams)
+
+
+def _write_gate_prom(ledger: dict, path: str) -> None:
+    """The textfile-collector twin of the ``/metrics`` surface."""
+    try:
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            f.write(_gate_families_text(ledger))
         os.replace(tmp, path)
     except OSError:
         pass

@@ -8,10 +8,29 @@
   on a CPU tensor.
 
 :func:`make_attention_fn` picks one by :func:`select_attention_path`, the
-same rule as the reference: flash when ``T >= 256`` and ``T % 128 == 0``,
-else blockwise for long sequences, else dense. The sequence-parallel
-engines (ring, all-to-all), the ``DCT_FLASH`` policy and the
-``DCT_FLASH_BLOCK_Q/K`` tile knobs are not ported.
+same rule as the reference: flash when the ``DCT_FLASH`` policy allows it
+(:func:`flash_mode`), ``T >= 256`` and ``T`` is a multiple of the flash
+blocks, else blockwise for long sequences, else dense. The policy
+(``dct_tpu/ops/attention.py:232-253``), by mode and the tensor's device:
+
+- ``auto`` (the default) and ``on``: the flash path; on a CUDA tensor it
+  launches the kernel, on a CPU tensor it runs the kernel's plain version;
+- ``off``: never the flash path (blockwise or dense) on a CPU tensor;
+- ``interpret``: the flash path on a CPU tensor (the plain version is the
+  port's interpret mode).
+
+``DCT_FLASH_BLOCK_Q`` / ``DCT_FLASH_BLOCK_K`` (default 128) drive the
+selection as the reference's do (``:884-905``): on a CPU tensor, blocks
+that do not divide ``T`` degrade the call to blockwise or dense, and
+blocks that do set the plain version's blocks. The CUDA kernels do not
+take them as tile sizes (they pick their own: 64 rows a warpgroup, 16-64
+in the streamed f32 tiles).
+
+On a CUDA tensor a setting that would select a plain path where the
+kernel runs raises, naming it: ``off``, ``interpret``, and blocks that
+do not divide ``T``. So none of them turns into a quiet plain path on
+the card. The sequence-parallel engines (ring, all-to-all) are not
+ported.
 
 Layouts are the reference's: q ``[B, H, T, D]``, k/v ``[B, G, T, D]`` with
 ``H % G == 0`` (grouped-query attention, group-major heads).
@@ -20,6 +39,7 @@ Layouts are the reference's: q ``[B, H, T, D]``, k/v ``[B, G, T, D]`` with
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -152,32 +172,90 @@ def blockwise_attention_lse(q, k, v, *, block_size: int = 512,
     return _finalize(l, o, q.dtype), m + torch.log(torch.clamp(l, min=1e-20))
 
 
+def flash_mode() -> str:
+    """The ``DCT_FLASH`` policy: ``auto`` (default; unknown words too, as
+    in the reference), ``on``, ``off`` or ``interpret``."""
+    mode = os.environ.get("DCT_FLASH", "auto").strip().lower()
+    if mode in ("off", "0", "false", "no"):
+        return "off"
+    if mode in ("on", "1", "true", "yes"):
+        return "on"
+    if mode == "interpret":
+        return "interpret"
+    return "auto"
+
+
+def flash_allowed(device="cpu") -> bool:
+    """Whether the policy lets a tensor on ``device`` take the flash path.
+    ``off`` and ``interpret`` on a CUDA device raise: both select a plain
+    path, which runs on CPU tensors only."""
+    mode = flash_mode()
+    if torch.device(device).type == "cuda" and mode in ("off", "interpret"):
+        raise ValueError(
+            f"DCT_FLASH={os.environ['DCT_FLASH'].strip()} selects a plain "
+            "PyTorch path, which runs on CPU tensors only; on the card set "
+            "DCT_FLASH=on (the kernel) or move the tensors to the CPU "
+            "(DCT_DEVICE=cpu), where DCT_FLASH=off and interpret apply"
+        )
+    return mode != "off"
+
+
+def flash_blocks() -> tuple[int, int]:
+    """``(DCT_FLASH_BLOCK_Q, DCT_FLASH_BLOCK_K)``, default 128 each."""
+    return (int(os.environ.get("DCT_FLASH_BLOCK_Q", "128")),
+            int(os.environ.get("DCT_FLASH_BLOCK_K", "128")))
+
+
 def select_attention_path(t: int, *, block_size: int = 512,
                           flash_block: int = 128,
-                          flash_min_len: int = 256) -> str:
+                          flash_min_len: int = 256, device="cpu") -> str:
     """'flash' | 'blockwise' | 'dense' for a single-shard sequence of
-    length ``t`` (the reference's rule without its mesh branch)."""
-    if t >= flash_min_len and t % flash_block == 0:
+    length ``t`` on ``device`` (the reference's rule without its mesh
+    branch, under the ``DCT_FLASH`` policy)."""
+    if (flash_allowed(device) and t >= flash_min_len
+            and t % flash_block == 0):
         return "flash"
     if t > block_size and t % block_size == 0:
         return "blockwise"
     return "dense"
 
 
+def _check_cuda_blocks(t: int, bq: int, bk: int, block_size: int) -> None:
+    """On a CUDA tensor, raise where ``DCT_FLASH_BLOCK_Q/K`` would turn a
+    call that the default blocks send to the kernel into a plain path."""
+    if (select_attention_path(t, block_size=block_size, device="cuda")
+            == "flash" and (t % bq or t % bk)):
+        raise ValueError(
+            f"DCT_FLASH_BLOCK_Q={bq} / DCT_FLASH_BLOCK_K={bk} do not divide "
+            f"T={t}, which selects a plain PyTorch path on CPU tensors only; "
+            "the CUDA kernels pick their own tiles, so unset them on the card"
+        )
+
+
 def make_attention_fn(*, causal: bool = False, block_size: int = 512,
                       window: int | None = None):
-    """``attn(q, k, v) -> o`` by :func:`select_attention_path`. On the
-    flash path a CUDA tensor runs the kernel (or raises); a CPU tensor
-    runs the kernel's plain PyTorch version."""
+    """``attn(q, k, v) -> o`` by :func:`select_attention_path` with the
+    ``DCT_FLASH_BLOCK_Q/K`` blocks, read at each call as the reference
+    does. On the flash path a CUDA tensor runs the kernel (or raises, as
+    under a knob that would select a plain path); a CPU tensor runs the
+    kernel's plain PyTorch version."""
     _check_window(window, causal)
 
     def attn(q, k, v):
-        path = select_attention_path(q.shape[-2], block_size=block_size)
-        if path == "flash":
+        t = q.shape[-2]
+        bq, bk = flash_blocks()
+        if q.device.type == "cuda":
+            _check_cuda_blocks(t, bq, bk, block_size)
+        path = select_attention_path(t, block_size=block_size,
+                                     flash_block=max(bq, bk),
+                                     device=q.device)
+        if path == "flash" and t % bq == 0 and t % bk == 0:
             from dct_tpu_torch.ops import flash_attention as fa
 
-            return fa.flash_attention(q, k, v, causal=causal, window=window)
-        if path == "blockwise":
+            return fa.flash_attention(q, k, v, causal=causal, window=window,
+                                      block_q=bq, block_k=bk)
+        # A flash selection whose blocks do not divide t degrades here too.
+        if t > block_size and t % block_size == 0:
             return blockwise_attention(
                 q, k, v, block_size=block_size, causal=causal, window=window
             )

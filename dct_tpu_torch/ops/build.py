@@ -129,48 +129,63 @@ def load_kernel(name: str) -> ctypes.CDLL:
     return load_kernels(name)[name]
 
 
+def build_kernels(*names: str) -> dict[str, dict]:
+    """Compile each ``csrc/<name>.cu`` whose library is missing (one
+    ``nvcc`` per source, in parallel) without loading it: name ->
+    ``{"log", "path", "built"}``. It needs no CUDA context, so a serving
+    pool's parent builds before it forks, and its children only load."""
+    with _lock:
+        return _build(names)
+
+
+def _build(names) -> dict[str, dict]:
+    todo = {}
+    for name in names:
+        if name in todo:
+            continue
+        src = os.path.join(_CSRC, f"{name}.cu")
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        stem = library_stem(name, toolkit=toolkit_version())
+        todo[name] = (src, f"{stem}.so", f"{stem}.log")
+    procs = {}
+    for name, (src, out, log_path) in todo.items():
+        if not (os.path.exists(out) and os.path.exists(log_path)):
+            cmd = [_cuda_tool("nvcc"), *NVCC_FLAGS, "-o",
+                   f"{out}.tmp.{os.getpid()}", src]
+            procs[name] = (cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            ))
+    logs = {name: (cmd, proc.communicate()[0], proc.returncode)
+            for name, (cmd, proc) in procs.items()}
+    info = {}
+    for name, (src, out, log_path) in todo.items():
+        if name in logs:
+            cmd, log, rc = logs[name]
+            if rc != 0:
+                raise KernelBuildError(
+                    f"nvcc failed ({rc}) building {src}:\n"
+                    f"{' '.join(cmd)}\n{log}"
+                )
+            # The log first: a library with its log beside it is complete.
+            tmp_log = f"{log_path}.tmp.{os.getpid()}"
+            with open(tmp_log, "w") as f:
+                f.write(log)
+            os.replace(tmp_log, log_path)
+            os.replace(f"{out}.tmp.{os.getpid()}", out)
+        else:
+            with open(log_path) as f:
+                log = f.read()
+        info[name] = {"log": log, "path": out, "built": name in logs}
+    return info
+
+
 def load_kernels(*names: str) -> dict[str, ctypes.CDLL]:
     """:func:`load_kernel` for several kernels, their builds run in
     parallel (one ``nvcc`` per source)."""
     with _lock:
-        todo = {}
-        for name in names:
-            if name in _libs or name in todo:
-                continue
-            src = os.path.join(_CSRC, f"{name}.cu")
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            stem = library_stem(name, toolkit=toolkit_version())
-            todo[name] = (src, f"{stem}.so", f"{stem}.log")
-        procs = {}
-        for name, (src, out, log_path) in todo.items():
-            if not (os.path.exists(out) and os.path.exists(log_path)):
-                cmd = [_cuda_tool("nvcc"), *NVCC_FLAGS, "-o",
-                       f"{out}.tmp.{os.getpid()}", src]
-                procs[name] = (cmd, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True,
-                ))
-        logs = {name: (cmd, proc.communicate()[0], proc.returncode)
-                for name, (cmd, proc) in procs.items()}
-        for name, (src, out, log_path) in todo.items():
-            if name in logs:
-                cmd, log, rc = logs[name]
-                if rc != 0:
-                    raise KernelBuildError(
-                        f"nvcc failed ({rc}) building {src}:\n"
-                        f"{' '.join(cmd)}\n{log}"
-                    )
-                # The log first: a library with its log beside it is
-                # complete.
-                tmp_log = f"{log_path}.tmp.{os.getpid()}"
-                with open(tmp_log, "w") as f:
-                    f.write(log)
-                os.replace(tmp_log, log_path)
-                os.replace(f"{out}.tmp.{os.getpid()}", out)
-            else:
-                with open(log_path) as f:
-                    log = f.read()
-            _libs[name] = ctypes.CDLL(out)
-            build_info[name] = {"log": log, "path": out,
-                                "built": name in logs}
+        for name, info in _build(
+                [n for n in names if n not in _libs]).items():
+            _libs[name] = ctypes.CDLL(info["path"])
+            build_info[name] = info
         return {name: _libs[name] for name in names}

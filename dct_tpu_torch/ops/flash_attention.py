@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 import threading
 
 import torch
@@ -345,11 +346,41 @@ def flash_bwd_dq(q, k, v, o, lse, do, *, causal: bool = False,
     return dq[..., :d].contiguous() if dq.shape[-1] != d else dq
 
 
+def bwd_mode(device="cpu") -> str:
+    """``DCT_FLASH_BWD``: ``kernel`` (default) or ``remat``
+    (``pallas_attention.py:572-590``), read at each backward. ``remat``
+    differentiates a plain PyTorch path, so on a CUDA device it raises."""
+    mode = os.environ.get("DCT_FLASH_BWD", "kernel").strip().lower()
+    if mode not in ("kernel", "remat"):
+        raise ValueError(f"DCT_FLASH_BWD={mode!r} must be 'kernel' or 'remat'")
+    if mode == "remat" and torch.device(device).type == "cuda":
+        raise ValueError(
+            "DCT_FLASH_BWD=remat differentiates the plain blockwise path, "
+            "which runs on CPU tensors only; on the card the backward "
+            "launches kernels 2 and 3: unset DCT_FLASH_BWD or set it to kernel"
+        )
+    return mode
+
+
+def _remat_bwd(q, k, v, do, *, causal, scale, window, block_k):
+    """The ``remat`` escape hatch: differentiate the blockwise path (plain
+    PyTorch, CPU tensors only) instead of the kernel's plain backward."""
+    from dct_tpu_torch.ops.attention import blockwise_attention
+
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        o = blockwise_attention(*leaves, block_size=min(block_k, k.shape[-2]),
+                                causal=causal, scale=scale, window=window)
+        return torch.autograd.grad(o, leaves, do)
+
+
 class FlashAttention(torch.autograd.Function):
     """Flash attention with its backward (the reference's ``custom_vjp``,
     ``pallas_attention.py:547-596``): the forward saves (q, k, v, o, lse)
     as ``_vjp_fwd`` does; the backward runs kernels 2 and 3 on a CUDA
-    tensor and :func:`flash_attention_bwd_plain` on a CPU tensor."""
+    tensor and :func:`flash_attention_bwd_plain` on a CPU tensor, or under
+    ``DCT_FLASH_BWD=remat`` the gradient of the blockwise path on a CPU
+    tensor (on a CUDA tensor ``remat`` raises)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, window, block_q, block_k):
@@ -370,6 +401,10 @@ class FlashAttention(torch.autograd.Function):
         causal, scale, window, block_q, block_k = ctx.opts
         # dO arrives strided from o.transpose(1, 2).reshape(...) upstream.
         do = do.contiguous()
+        if bwd_mode(q.device) == "remat":
+            return (*_remat_bwd(q, k, v, do, causal=causal, scale=scale,
+                                window=window, block_k=block_k),
+                    None, None, None, None, None)
         if q.device.type == "cuda":
             kw = dict(causal=causal, scale=scale, window=window)
             dk, dv = flash_bwd_dkdv(q, k, v, o, lse, do, **kw)

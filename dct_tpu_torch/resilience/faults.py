@@ -76,12 +76,9 @@ config plumbing (the checkpoint manager) consult the same plan the
 trainer installed. An empty/unset spec is a no-op plan.
 
 Hook points wired in the port: ``epoch`` and ``step`` (the trainer),
-``data`` (the trainer's staging) and ``save`` (both checkpoint tiers), so
-``crash``, ``hang``, ``nan``, ``slow_epoch``, ``slow_save`` and
-``crash_save`` fire. The whole grammar parses, but nothing consults the
-``score`` point yet: ``crash_worker`` and ``slow_score`` come with the
-serving planes (the multi-process pool and its flush path), ROADMAP Queue
-A item 2.
+``data`` (the trainer's staging), ``save`` (both checkpoint tiers) and
+``score`` (the serving micro-batcher's flush), so every action of the
+grammar fires.
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """Score packages: ``model.npz`` + ``model_meta.json``.
 
 The format is the reference's (``dct_tpu/serving/score_gen.py``,
-``export_npz_weights``): flax-path-keyed arrays in the npz (``k::bf16``
-bit patterns for a bf16 package) and the model's self-describing meta in
-JSON. A package written here is served by the reference's numpy scorer
+``export_npz_weights``): flax-path-keyed arrays in the npz (the MLP as
+``w<i>``/``b<i>``; ``k::bf16`` bit patterns for a bf16 package, ``k::q8``
+and ``k::scale`` pairs for an int8 one) and the model's self-describing
+meta in JSON. A package written here is served by the reference's numpy scorer
 unchanged, and the port serves the reference's packages.
 """
 
@@ -18,7 +19,7 @@ from dct_tpu_torch.serving.runtime import assemble_weights
 
 
 def load_package(package_dir: str) -> tuple[dict, dict]:
-    """-> (serving weights: flax key -> f32 ndarray, meta)."""
+    """-> (serving weights: key -> f32 ndarray or ``QuantTensor``, meta)."""
     with np.load(os.path.join(package_dir, "model.npz")) as npz:
         flat = {k: npz[k] for k in npz.files}
     with open(os.path.join(package_dir, "model_meta.json")) as f:

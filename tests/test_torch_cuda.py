@@ -582,3 +582,166 @@ def test_two_tenant_inline_session_on_card_launches_the_kernels(
                    for s in stops)
     assert gate >= 0 and gate % 4 == 0 and (gate > 0) == (consults > 0)
     assert libraries() == built
+
+
+def _int8_twin(seed=4):
+    from dct_tpu_torch.serving.package import init_package_weights
+    from dct_tpu_torch.serving.quant import quantize_weights
+    from dct_tpu_torch.serving.runtime import assemble_weights
+
+    meta = dict(model="weather_transformer", input_dim=5, seq_len=T,
+                d_model=64, n_heads=2, n_layers=2, d_ff=128, num_classes=2,
+                horizon=1)
+    flat, qmeta = quantize_weights(init_package_weights(meta, seed), meta,
+                                   "int8")
+    return assemble_weights(flat), qmeta, flat
+
+
+def test_int8_package_on_card_matches_cpu(card):
+    from dct_tpu_torch.serving.batching import Int8Dense, TorchScorer
+
+    weights, meta, _ = _int8_twin()
+    x = np.random.default_rng(3).standard_normal((5, T, 5)).astype(np.float32)
+    gpu = TorchScorer(weights, meta, card)
+    layers = [m for m in gpu.model.modules() if isinstance(m, Int8Dense)]
+    assert layers and all(m.q8.dtype == torch.int8 and m.q8.is_cuda
+                          for m in layers)
+    fa.reset_launches()
+    probs = gpu(x)
+    assert fa.launches == meta["n_layers"]
+    np.testing.assert_allclose(probs, TorchScorer(weights, meta, "cpu")(x),
+                               atol=1e-4)
+
+
+def test_mlp_package_served_on_card(card, tmp_path):
+    import json
+    import threading
+    import urllib.request
+
+    from dct_tpu_torch.checkpoint.manager import save_checkpoint
+    from dct_tpu_torch.config import ServingConfig
+    from dct_tpu_torch.models.registry import config_from_meta, get_model
+    from dct_tpu_torch.serving.numpy_runtime import assemble_weights
+    from dct_tpu_torch.serving.numpy_runtime import score_payload
+    from dct_tpu_torch.serving.score_gen import generate_score_package
+    from dct_tpu_torch.serving.server import make_server
+
+    meta = {"model": "weather_mlp", "input_dim": 5, "hidden_dim": 64,
+            "num_classes": 2}
+    torch.manual_seed(0)
+    ckpt = save_checkpoint(str(tmp_path / "m.ckpt"),
+                           get_model(config_from_meta(meta), device="cpu"),
+                           meta)
+    generate_score_package(ckpt, str(tmp_path / "pkg"))
+    server = make_server(str(tmp_path / "pkg"),
+                         serving=ServingConfig(workers=1))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    x = np.random.default_rng(1).standard_normal((6, 5)).astype(np.float32)
+    try:
+        assert server.device.type == "cuda"
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/score",
+            data=json.dumps({"data": x.tolist()}).encode())
+        with urllib.request.urlopen(req, timeout=60) as r:
+            got = np.asarray(json.loads(r.read())["probabilities"])
+    finally:
+        server.shutdown()
+        server.server_close()
+    with np.load(str(tmp_path / "pkg" / "model.npz")) as npz:
+        weights = assemble_weights({k: npz[k] for k in npz.files})
+    ref = np.asarray(score_payload(weights, meta, x.tolist())["probabilities"])
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+
+
+def test_two_process_pool_answers_on_card(card, tmp_path):
+    """``python -m dct_tpu_torch.serve`` with ``DCT_SERVE_PROCS=2``: the
+    parent builds the kernels without touching CUDA, each forked child
+    takes cuda:0, both publish launches, SIGTERM drains to exit 0."""
+    import json
+    import signal
+    import socket
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+
+    from dct_tpu_torch.serving.package import init_package_weights
+    from dct_tpu_torch.serving.package import write_package
+
+    meta = dict(model="weather_transformer", input_dim=5, seq_len=T,
+                d_model=64, n_heads=2, n_layers=2, d_ff=128, num_classes=2,
+                horizon=1)
+    write_package(str(tmp_path / "pkg"), init_package_weights(meta, 0), meta)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DCT_")}
+    env.update(PYTHONPATH=repo, DCT_PACKAGE_DIR=str(tmp_path / "pkg"),
+               DCT_SERVE_PROCS="2", DCT_SERVE_HOST="127.0.0.1",
+               DCT_SERVE_PORT=str(port), DCT_METRICS_PUBLISH_S="0.1",
+               DCT_METRICS_DIR=str(tmp_path / "metrics"))
+    proc = subprocess.Popen([sys.executable, "-m", "dct_tpu_torch.serve"],
+                            env=env, cwd=str(tmp_path), text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    x = np.random.default_rng(0).standard_normal((2, T, 5)).tolist()
+    body = json.dumps({"data": x}).encode()
+    try:
+        procs, deadline = set(), time.time() + 180
+        while len(procs) < 2 and time.time() < deadline:
+            try:
+                with urllib.request.urlopen(urllib.request.Request(
+                        f"http://127.0.0.1:{port}/score", data=body),
+                        timeout=60) as r:
+                    assert np.isfinite(json.loads(r.read())["probabilities"]
+                                       ).all()
+                text = urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/metrics", timeout=30
+                ).read().decode()
+            except OSError:
+                time.sleep(0.5)
+                continue
+            procs = {ln.split('proc="')[1].split('"')[0]
+                     for ln in text.splitlines()
+                     if ln.startswith("dct_requests_total{") and "proc=" in ln}
+        assert len(procs) == 2
+        launches = [float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+                    if ln.startswith('dct_kernel_launches{kernel="flash_fwd"}')]
+        assert launches and launches[0] >= 2 * meta["n_layers"]
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+
+
+def test_flash_interpret_mode_raises_on_a_cuda_tensor(card, monkeypatch):
+    """Every knob that would select a plain path raises on a CUDA tensor,
+    naming itself, and launches nothing: ``DCT_FLASH=interpret`` and
+    ``off``, a block that does not divide T, and ``DCT_FLASH_BWD=remat``
+    in the backward (after the forward's launch)."""
+    from dct_tpu_torch.ops.attention import make_attention_fn
+
+    q, k, v = _qkv(9, 4, 64, torch.float32, card)
+    fa.reset_launches()
+    for key, value in (("DCT_FLASH", "interpret"), ("DCT_FLASH", "off"),
+                       ("DCT_FLASH_BLOCK_Q", "96")):
+        monkeypatch.setenv(key, value)
+        with pytest.raises(ValueError, match=f"{key}={value}"):
+            make_attention_fn()(q, k, v)
+        monkeypatch.delenv(key)
+    assert fa.launches == 0
+    monkeypatch.setenv("DCT_FLASH", "on")
+    o = make_attention_fn()(q, k, v)
+    assert fa.launches == 1
+    np.testing.assert_allclose(o.cpu().numpy(), make_attention_fn()(
+        q.cpu(), k.cpu(), v.cpu()).numpy(), atol=1e-4)
+    monkeypatch.setenv("DCT_FLASH_BWD", "remat")
+    fa.reset_launches()
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*leaves)
+    with pytest.raises(ValueError, match="DCT_FLASH_BWD=remat"):
+        out.sum().backward()
+    assert fa.launch_counts() == {"flash_fwd": 1, "flash_bwd_dkdv": 0,
+                                  "flash_bwd_dq": 0}

@@ -43,6 +43,7 @@ ENV_OF = {
         "spike_window": ("DCT_SPIKE_WINDOW", "7"),
         "metrics_dir": ("DCT_METRICS_DIR", "/tmp/metrics"),
         "metrics_publish_s": ("DCT_METRICS_PUBLISH_S", "0.25"),
+        "metrics_stale_s": ("DCT_METRICS_STALE_S", "12"),
     },
     "SchedulerConfig": {
         "spec": ("DCT_TENANTS", '[{"name":"a"}]'),

@@ -654,7 +654,13 @@ def test_broken_tenant_parks_without_touching_peer(tmp_path, monkeypatch):
 
 def _job_env(base, tenants, **extra):
     env = {k: v for k, v in os.environ.items() if not k.startswith("DCT_")}
+    # One intra-op thread a process: the job and every rank it starts run
+    # batch-4 CPU steps, and on a machine whose cores are busy with other
+    # tests torch's default (a thread per core) makes each op wait for
+    # preempted threads (with six busy processes beside it, the revocation
+    # session took 263 s so, and 29 s with one thread).
     env.update(
+        OMP_NUM_THREADS="1",
         PYTHONPATH=REPO, DCT_DEVICE="cpu", DCT_TENANTS=json.dumps(tenants),
         DCT_SCHED_ROOT=os.path.join(base, "tenants"),
         DCT_EVENTS_DIR=os.path.join(base, "events"),

@@ -4,8 +4,9 @@ A package written by the port is scored by ``dct_tpu.serving.runtime.
 score_payload`` and by the port's HTTP server on ``device="cpu"``; f32
 packages agree at 1e-5, ``::bf16`` packages (which the port runs at bf16
 compute and the numpy runtime widens to f32) at 2e-2. Also pinned: the
-HTTP contract, the micro-batcher, device resolution, and that the port
-imports nothing of JAX or of the JAX package.
+HTTP contract, the micro-batcher, device resolution, that an MLP package
+the port's ``score_gen`` writes is served (C4), and that the port imports
+nothing of JAX or of the JAX package.
 """
 
 import json
@@ -128,15 +129,15 @@ def test_bf16_twin_matches_reference_quantizer(monkeypatch):
         [0x3F808000, 0x3F818000, 0x3F817FFF, 0x7F7FFFFF, 0x00000001],
         np.uint32,
     ).view(np.float32)
-    flat, qmeta = port_quantize(weights, meta)
+    flat, qmeta = port_quantize(weights, meta, dtype="bf16")
     ref_flat, ref_meta = quantize_weights(weights, meta, dtype="bf16")
     assert qmeta == ref_meta and qmeta["quant"]["dtype"] == "bf16"
     assert set(flat) == set(ref_flat)
     for k in ref_flat:
         assert flat[k].dtype == ref_flat[k].dtype == np.uint16
         assert np.array_equal(flat[k], ref_flat[k]), k
-    with pytest.raises(NotImplementedError, match="int8"):
-        port_quantize(weights, meta, dtype="int8")
+    with pytest.raises(ValueError, match="int8"):
+        port_quantize(weights, meta, dtype="int4")
 
 
 def test_package_round_trip(tmp_path):
@@ -203,15 +204,50 @@ def test_http_contract(tmp_path):
         assert _post(srv.port, {"data": [[[1e39] * 5] * S]})[0] == 400
         assert _post(srv.port, {"data": []}, path="/nope")[0] == 404
 
-        def boom(x):
+        def boom(weights, meta, arrays):
             raise RuntimeError("device fault")
 
-        srv.server.batcher.scorer = boom
+        srv.server.batcher._dispatch = boom
         code, err = _post(srv.port, {"data": [[[0.5] * 5] * S]})
         assert code == 500 and "device fault" in err["error"]
-        srv.server.batcher.scorer = lambda x: np.full((len(x), 2), np.nan)
+        srv.server.batcher._dispatch = lambda w, m, arrays: [
+            np.full((len(a), 2), np.nan) for a in arrays]
         code, err = _post(srv.port, {"data": [[[0.5] * 5] * S]})
         assert code == 500 and "non-finite" in err["error"]
+
+
+def test_mlp_package_from_port_score_gen_is_served(tmp_path):
+    """C4: the port's packager writes the MLP as ``w<i>``/``b<i>`` (the
+    reference's layout); the port's HTTP server serves it, through both
+    engines, with the reference numpy engine's answers (torch within 1e-5,
+    numpy bit for bit)."""
+    from dct_tpu_torch.checkpoint.manager import save_checkpoint
+    from dct_tpu_torch.models.registry import config_from_meta, get_model
+    from dct_tpu_torch.serving.score_gen import generate_score_package
+
+    meta = {"model": "weather_mlp", "name": "weather_mlp", "input_dim": 5,
+            "hidden_dim": 64, "num_classes": 2,
+            "feature_names": ["a", "b", "c", "d", "e"]}
+    torch.manual_seed(0)
+    model = get_model(config_from_meta(meta), device="cpu")
+    ckpt = save_checkpoint(str(tmp_path / "mlp.ckpt"), model, meta)
+    pkg = str(tmp_path / "pkg")
+    generate_score_package(ckpt, pkg)
+    with np.load(os.path.join(pkg, "model.npz")) as npz:
+        flat = {k: npz[k] for k in npz.files}
+    assert sorted(flat) == ["b0", "b1", "w0", "w1"]
+    x = np.random.default_rng(2).standard_normal((7, 5)).astype(np.float32)
+    ref = np.asarray(score_payload(ref_assemble(flat), meta,
+                                   x.tolist())["probabilities"])
+    for engine, tol in (("torch", 1e-5), ("numpy", 0.0)):
+        with _Serving(pkg, workers=2, engine=engine) as srv:
+            code, got = _post(srv.port, {"data": x.tolist()})
+            one_code, one = _post(srv.port, {"data": x[3].tolist()})
+        assert code == 200 and one_code == 200, (got, one)
+        got = np.asarray(got["probabilities"], np.float32)
+        assert got.shape == (7, 2)
+        assert np.abs(got - ref).max() <= tol, engine
+        assert np.abs(np.asarray(one["probabilities"]) - ref[3:4]).max() <= tol
 
 
 def test_scorer_pads_to_power_of_two_and_answers_last_position():
@@ -229,19 +265,23 @@ def test_scorer_pads_to_power_of_two_and_answers_last_position():
     np.testing.assert_allclose(probs[2:3], alone, atol=1e-6)
 
 
+_W, _M = {}, {"model": "weather_mlp"}
+
+
 def test_microbatcher_merges_and_caps():
     sizes = []
 
-    def scorer(x):
-        sizes.append(len(x))
-        return np.tile([[0.25, 0.75]], (len(x), 1))
+    def dispatch(weights, meta, arrays):
+        sizes.append(sum(len(a) for a in arrays))
+        return [np.tile([[0.25, 0.75]], (len(a), 1)) for a in arrays]
 
-    b = MicroBatcher(scorer, max_batch=4, window_ms=300, workers=1)
+    b = MicroBatcher(max_batch=4, window_ms=300, workers=1, engine="numpy")
+    b._dispatch = dispatch
     try:
         out = {}
 
         def send(i, n):
-            out[i] = b.score(np.zeros((n, 2), np.float32))
+            out[i] = b.score(_W, _M, np.zeros((n, 2), np.float32))
 
         threads = [threading.Thread(target=send, args=(i, n))
                    for i, n in enumerate((1, 1, 3))]
@@ -260,25 +300,35 @@ def test_microbatcher_merges_and_caps():
 
 
 def test_microbatcher_inline_and_faults():
-    b = MicroBatcher(lambda x: np.full((len(x), 2), np.inf), workers=0)
+    b = MicroBatcher(workers=0, engine="numpy")
+    b._dispatch = lambda w, m, arrays: [np.full((len(a), 2), np.inf)
+                                        for a in arrays]
     with pytest.raises(ScoringError, match="non-finite"):
-        b.score(np.zeros((2, 2), np.float32))
+        b.score(_W, _M, np.zeros((2, 2), np.float32))
     b.close()
-    b = MicroBatcher(lambda x: x[:, :2] * 0 + 0.5, workers=1)
-    assert b.score(np.ones((3, 4), np.float32)).shape == (3, 2)
+    b = MicroBatcher(workers=1, engine="numpy")
+    b._dispatch = lambda w, m, arrays: [a[:, :2] * 0 + 0.5 for a in arrays]
+    assert b.score(_W, _M, np.ones((3, 4), np.float32)).shape == (3, 2)
     b.close()
     with pytest.raises(ScoringError, match="closed"):
-        b.score(np.ones((1, 4), np.float32))
+        b.score(_W, _M, np.ones((1, 4), np.float32))
 
 
 def test_int8_packages_are_refused(tmp_path):
+    """int8 packages are served since the port has them; what is still
+    refused is a malformed one: a ``::q8`` plane without its scales, and a
+    quant stanza naming a dtype no writer produces."""
     meta = _meta("weather_transformer")
     flat, qmeta = quantize_weights(init_package_weights(meta, 0), meta,
                                    dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        assemble_weights(flat)
-    with pytest.raises(NotImplementedError, match="int8"):
-        TorchScorer({}, qmeta, "cpu")
+    assert TorchScorer(assemble_weights(flat), qmeta, "cpu").quant == "int8"
+    torn = {k: v for k, v in flat.items()
+            if k != "block_0/ffn_in/kernel::scale"}
+    with pytest.raises(KeyError, match="ffn_in/kernel::scale"):
+        assemble_weights(torn)
+    with pytest.raises(ValueError, match="int4"):
+        TorchScorer(assemble_weights(flat), dict(qmeta, quant={
+            "dtype": "int4"}), "cpu")
 
 
 def test_resolve_device():
@@ -352,7 +402,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                 "dags.continuous_loop_dag", "dags.training_dag",
                 "dags.spark_etl_dag", "dags.pipeline_dag",
                 "dags.azure_manual_deploy_dag",
-                "dags.azure_auto_deploy_dag"):
+                "dags.azure_auto_deploy_dag", "serving.admission",
+                "serving.autoscale", "serving.loadgen", "serving.quant",
+                "serving.server", "serving.batching", "serve",
+                "predict_job"):
         assert f"'dct_tpu_torch.{mod}'" in names, mod
 
     files = [os.path.join(REPO, "chip_smoke.py")]
