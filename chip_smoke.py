@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: kernels, serving,
 training, the continuous loop, the supervised training world, the
-multi-tenant scheduler and the completed serving tier.
+multi-tenant scheduler, the completed serving tier and the GRU and MoE
+families.
 
     python3 chip_smoke.py
 
@@ -158,11 +159,15 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
    ``done``; prints the time to recover (the crashed rank's
    ``fault.injected`` to the relaunched rank's ``trainer.startup`` span
    end, where its first step is issued) with ``lost_wall_s`` and the
-   backoff. (i2) ``hang@rank0:epoch1`` with a 10 s heartbeat stall window:
-   stall-killed (SIGTERM, SIGKILL 3 s later), relaunched, exit 0; the
-   relaunched rank finds the card's memory free again. (i3) SIGTERM to
-   the rank while ``slow_epoch`` holds it (1 s) in epoch 0: it finishes the
-   epoch, saves, exits 75; a free relaunch finishes; no epoch lost. (i4)
+   backoff. (i2) ``hang@rank0:epoch1`` with a 30 s heartbeat stall window
+   (the monitor's startup grace too, so it must exceed a cold rank's 8-11 s
+   from launch to its first beat on an H100 host): stall-killed (SIGTERM,
+   SIGKILL 3 s later), relaunched once, exit 0; the relaunched rank finds
+   the card's memory free again. (i1) and (i2) print each attempt's
+   seconds from ``launch_start`` to its first beat (``fit_start``). (i3)
+   SIGTERM to the rank while ``slow_epoch`` holds it (1 s) in epoch 0: it
+   finishes the epoch, saves, exits 75; a free relaunch finishes; no epoch
+   lost. (i4)
    ``nan:epoch0`` under ``DCT_HALT_ON_NAN``: the rank exits 76, the
    supervisor 1, no relaunch. (i5) ``python -m dct_tpu_torch.loop_job``
    with no ``DCT_LOOP_TRAIN_MODE`` (supervised rounds): two rounds, rows
@@ -249,11 +254,39 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
        train step under ``DCT_FLASH_BWD=remat`` launches its 4 forwards
        and raises in the backward with no backward launch.
 
+(l) The GRU and MoE families (``families_phase``; ``--phase l`` runs only
+   the kernel build and (l), over synthetic rows):
+   (l1) ``weather_moe`` at the width of the bench's MoE leg
+       (``bench.py:998-1003``: d_model 512, 8 heads, 2 layers, d_ff 1024,
+       T=512, 32 experts, batch 8, bf16 compute; ``auto`` picks sorted):
+       one train body at dropout 0 against the same model with plain
+       attention (loss and every gradient within 2e-2 of that gradient's
+       max; 2 forward, 2 dK/dV and 2 dQ launches; the tokens whose first
+       choice differs between the two runs are counted and, where any
+       does, the gradients are compared again with the plain run's
+       routing pinned to the kernel run's; the worst leaf is printed); the
+       sorted and einsum
+       engines on the same weights and batch, f32 and bf16, top-1 and
+       top-2 (loss, logits and gradients within 1e-5 f32, 2e-2 bf16); the
+       bf16 train step of each engine, median of 5 (``sorted_ms``,
+       ``einsum_ms``, ``sorted_speedup``, the bench's ``moe`` leg);
+   (l2) ``python -m dct_tpu_torch.train_job`` for ``weather_moe`` (bf16)
+       and ``weather_gru`` (f32, hidden 64, 2 layers, T=32:
+       ``dct_tpu/config.py:74-83``), 2 epochs at batch 32 over (h)'s rows:
+       a finite val_loss, a checkpoint, the launches of every step and eval
+       batch (none for the GRU); its package through the HTTP server on the
+       card at 1, 3 and 8 windows within 1e-4 of the numpy runtime (the
+       worst window printed; the MoE
+       one forward per layer per request, the GRU none); ``predict_job`` in
+       chunks of 256 (the MoE over 356 synthetic windows, the GRU over
+       (h)'s): windows/s and every full chunk within 1e-4 of the numpy
+       engine on that chunk (the worst row printed).
+
 Prints the ``kernels`` JSON line (each kernel with its f32 numbers at the
 top level, as earlier slices did, a ``bf16`` summary beside them, and its
 ``tensor_core_instructions`` by dtype; ``launches_by_path`` gains
-``serve_k``, ``predict`` and ``knobs``), then the card line, then, last,
-``{"ok": true, "device": {...}}``. Any failure raises.
+``serve_k``, ``predict``, ``knobs`` and ``families``), then the card line,
+then, last, ``{"ok": true, "device": {...}}``. Any failure raises.
 """
 
 from __future__ import annotations
@@ -1597,7 +1630,11 @@ def loop_job_phase(root: str, card: str) -> dict:
 # ----------------------------------------------------------------------
 # (i) The supervised world at full width.
 
-SUP_STALL_S = 10  # (i2)'s heartbeat stall window, seconds
+# (i2)'s heartbeat stall window, seconds. The monitor also takes it as the
+# grace for a rank's first beat, which a cold rank on an H100 host writes
+# 8-11 s after its launch (torch import, CUDA context): a 10 s window
+# stall-killed a healthy relaunch as "missing".
+SUP_STALL_S = 30
 SUP_GRACE_S = 3  # SIGTERM -> SIGKILL escalation window in (i2)
 SUP_BAND = 0.03  # val-loss band if a healed world is not bitwise equal
 
@@ -1624,6 +1661,22 @@ def _events_of(env: dict) -> list[dict]:
 
 def _named(events, name):
     return [e for e in events if e["event"] == name]
+
+
+def _first_beat_s(events) -> list:
+    """Per attempt, seconds from its ``launch_start`` to the rank's first
+    beat (``fit_start`` follows the startup beat at once); None for an
+    attempt that never beat."""
+    out, start = [], None
+    for e in events:
+        if e["event"] == "launch_start":
+            if start is not None:
+                out.append(None)
+            start = e["ts"]
+        elif e["event"] == "fit_start" and start is not None:
+            out.append(round(e["ts"] - start, 3))
+            start = None
+    return out + ([None] if start is not None else [])
 
 
 def _epochs_of(per_epoch: dict, *epochs: int) -> list[dict]:
@@ -1776,6 +1829,7 @@ def supervised_phase(root: str, card: str) -> dict:
         "backoff_s": relaunch[0]["backoff_s"],
         "lost_wall_s": relaunch[0]["lost_wall_s"],
         "free_gib_at_start": _free_gib(out),
+        "first_beat_s": _first_beat_s(ev),
         **_against_clean(env, clean, "i1"),
     }
     print(f"[smoke] (i1) crash drill {crash}", flush=True)
@@ -1801,7 +1855,8 @@ def supervised_phase(root: str, card: str) -> dict:
             and [e["epoch"] for e in _named(ev, "epoch_end")] == [0, 1]
             and (DEVICE == "cpu"  # a CPU rehearsal prints no card memory
                  or (len(free) == 2 and free[1] >= free[0] - 1.0))):
-        raise AssertionError(f"(i2) hang drill exit {rc}, free {free}: "
+        raise AssertionError(f"(i2) hang drill exit {rc}, free {free}, "
+                             f"first beat {_first_beat_s(ev)} s: "
                              f"{[(e['component'], e['event']) for e in ev]}")
     add(_child_launches(out, _epochs_of(per_epoch, 1), "i2"))
     hang = {"exit": rc, "wall_s": hang_s,
@@ -1810,7 +1865,8 @@ def supervised_phase(root: str, card: str) -> dict:
             "stall_kill_after_fault_s": _named(ev, "restart.stall_kill")[0][
                 "ts"] - _named(ev, "fault.injected")[0]["ts"],
             "lost_wall_s": relaunch[0]["lost_wall_s"],
-            "free_gib_at_start": free, **_against_clean(env, clean, "i2")}
+            "free_gib_at_start": free, "first_beat_s": _first_beat_s(ev),
+            **_against_clean(env, clean, "i2")}
     print(f"[smoke] (i2) hang drill {hang}", flush=True)
 
     # (i3) SIGTERM to the rank in mid-epoch (held by slow_epoch): 75, a
@@ -3015,6 +3071,431 @@ def serving_phase(fa, root: str, ckpt: str, processed: str,
     return out
 
 
+# ------------------------------------------------------------------- (l)
+
+# bench.py:998-1003: the MoE leg's width (32 experts, d_ff 1024, batch 8,
+# bf16); dct_tpu/config.py:74-83: the repo's one GRU width.
+MOE_CFG = dict(seq_len=512, d_model=512, n_heads=8, n_layers=2, d_ff=1024,
+               n_experts=32)
+MOE_BATCH = 8
+GRU_CFG = dict(seq_len=32, hidden_dim=64, n_layers=2)
+FAMILY_EPOCHS = 2  # train_job epochs over (h)'s rows in (l2)
+FAMILY_BATCH = 32  # train_job's batch in (l2)
+ENGINE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# (l2)'s MoE predict: a full chunk and a partial one (the numpy engine
+# checks each full chunk, some 25-30 s a chunk at this width).
+MOE_PREDICT_ROWS = MOE_CFG["seq_len"] + PREDICT_CHUNK + 100
+
+
+def moe_state(compute_dtype, *, engine="auto", top_k=1):
+    """A full-width ``weather_moe`` train state on the card (seed 0,
+    dropout 0): the same weights whatever the engine."""
+    from dct_tpu_torch.config import ModelConfig
+    from dct_tpu_torch.models.registry import get_model
+    from dct_tpu_torch.train.state import create_train_state
+
+    cfg = ModelConfig(name="weather_moe", dropout=0.0, moe_dispatch=engine,
+                      router_top_k=top_k, **MOE_CFG)
+    model = get_model(cfg, input_dim=5, device=DEVICE,
+                      compute_dtype=compute_dtype)
+    return create_train_state(model, input_dim=5, lr=1e-3, seed=0,
+                              example_shape=(1, MOE_CFG["seq_len"], 5))
+
+
+def moe_batch(seed: int):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((MOE_BATCH, MOE_CFG["seq_len"], 5)).astype(
+        np.float32)
+    y = rng.integers(0, 2, MOE_BATCH).astype(np.int32)
+    return x, y, np.ones(MOE_BATCH, np.float32)
+
+
+def _rel_err(a, b) -> float:
+    scale = b.float().abs().max().item()
+    return (a.float() - b.float()).abs().max().item() / max(scale, 1e-30)
+
+
+def _router_hooks(model, logits: list, pin=None) -> list:
+    """Forward hooks on every MoE layer's router that append its logits
+    to ``logits``; with ``pin`` (an earlier run's logits), each layer's
+    logits take the pinned values (their gradient still flows through the
+    router), so routing and gates are the pinned run's."""
+    handles = []
+    for i, block in enumerate(model.blocks()):
+        def hook(mod, inputs, out, i=i):
+            logits.append(out.detach())
+            if pin is not None:
+                return out + (pin[i] - out).detach()
+        handles.append(block.moe.router.register_forward_hook(hook))
+    return handles
+
+
+def _routed(state, x, y, w, logits: list, pin=None):
+    """``steps.loss_and_grads`` with the routers' logits recorded (and
+    pinned, with ``pin``)."""
+    from dct_tpu_torch.train import steps
+
+    handles = _router_hooks(state.model, logits, pin)
+    try:
+        return steps.loss_and_grads(state, x, y, w)
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def worst_leaf(names, ga, gb) -> tuple[str, float]:
+    """The parameter whose gradient differs most, relative to its max."""
+    errs = [(_rel_err(a, b), n) for n, a, b in zip(names, ga, gb)]
+    err, name = max(errs)
+    return name, err
+
+
+def moe_train_phase(fa) -> dict:
+    """(l1): the MoE at the bench's width on the card: one train body with
+    the kernels against plain attention, the two engines on the same
+    weights (f32 and bf16, top-1 and top-2), and the step time of each."""
+    from dct_tpu_torch.train import steps
+
+    n_layers = MOE_CFG["n_layers"]
+    per_step = {"flash_fwd": n_layers, "flash_bwd_dkdv": n_layers,
+                "flash_bwd_dq": n_layers}
+    x, y, w = moe_batch(0)
+    out = {}
+
+    kern = moe_state(torch.bfloat16)
+    plain = moe_state(torch.bfloat16)
+    names = [n for n, _ in kern.model.named_parameters()]
+    for block in plain.model.blocks():
+        block.attn.attn_fn = lambda q, k, v: PlainAttention.apply(q, k, v,
+                                                                  False)
+    route_k, route_p = [], []
+    fa.reset_launches()
+    loss_k, grads_k = _routed(kern, x, y, w, route_k)
+    torch.cuda.synchronize()
+    counts = fa.launch_counts()
+    if counts != per_step:
+        raise AssertionError(f"(l1) launches {counts}, want {per_step}")
+    # auto at this width: k*N*E*C = 4096*32*160 >= 2^21, so sorted.
+    want_engine = kern.model.block_0.moe.engine_for(
+        MOE_BATCH * MOE_CFG["seq_len"])
+    engines = [b.moe.last_engine for b in kern.model.blocks()]
+    if engines != [want_engine] * n_layers:
+        raise AssertionError(f"(l1) auto picked {engines}, want "
+                             f"{want_engine}")
+    loss_p, grads_p = _routed(plain, x, y, w, route_p)
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    if not loss_err <= TOL[torch.bfloat16]:
+        raise AssertionError(f"(l1) loss {loss_k.item()} vs plain "
+                             f"{loss_p.item()}")
+    # Tokens whose first choice differs between the two runs (a routing
+    # tie that attention's rounding tipped) move whole expert gradients;
+    # where any did, the plain run is repeated with the kernel run's
+    # routing pinned, so the gradient check sees the attention alone.
+    flips = [int((a.argmax(-1) != b.argmax(-1)).sum())
+             for a, b in zip(route_k, route_p)]
+    unpinned = None
+    if any(flips):
+        unpinned = worst_leaf(names, grads_k, grads_p)
+        del grads_p
+        loss_p, grads_p = _routed(plain, x, y, w, [], pin=route_k)
+    if fa.launch_counts() != counts:
+        raise AssertionError("(l1) the plain path launched a kernel")
+    leaf = worst_leaf(names, grads_k, grads_p)
+    print(f"[smoke] (l1) routing flips per layer {flips} of "
+          f"{route_k[0].shape[0]} tokens, pinned {unpinned is not None} "
+          f"(unpinned worst leaf {unpinned}); worst leaf {leaf}", flush=True)
+    out["kernels_vs_plain"] = {
+        "loss": loss_k.item(), "aux": kern.model.aux_loss().item(),
+        "loss_rel_err": loss_err, "engines": engines,
+        "routing_flips_per_layer": flips,
+        "tokens_per_layer": int(route_k[0].shape[0]),
+        "unpinned_worst_leaf": unpinned, "pinned": unpinned is not None,
+        "grad_rel_err": grads_close(grads_k, grads_p, TOL[torch.bfloat16]),
+        "worst_leaf": leaf[0], "tol": TOL[torch.bfloat16],
+        "launches": counts}
+    print(f"[smoke] (l1) moe kernels vs plain {out['kernels_vs_plain']}",
+          flush=True)
+    del kern, plain, grads_k, grads_p
+
+    agree = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for top_k in (1, 2):
+            runs = {}
+            for engine in ("sorted", "einsum"):
+                st = moe_state(dtype, engine=engine, top_k=top_k)
+                loss, grads = steps.loss_and_grads(st, x, y, w)
+                st.model.eval()
+                with torch.no_grad():
+                    logits = st.model(torch.as_tensor(x, device=DEVICE))
+                runs[engine] = (loss, grads, logits)
+                del st
+            (ls, gs, os_), (le, ge, oe) = runs["sorted"], runs["einsum"]
+            tol = ENGINE_TOL[dtype]
+            row = {"dtype": str(dtype).replace("torch.", ""), "top_k": top_k,
+                   "loss_rel_err": abs(ls.item() - le.item()) / abs(le.item()),
+                   "logits_rel_err": _rel_err(os_, oe),
+                   "grad_rel_err": grads_close(gs, ge, tol), "tol": tol}
+            if not (row["loss_rel_err"] <= tol and row["logits_rel_err"] <= tol):
+                raise AssertionError(f"(l1) engines disagree {row}")
+            agree.append(row)
+            print(f"[smoke] (l1) sorted vs einsum {row}", flush=True)
+            del runs, gs, ge
+    out["engines_agree"] = agree
+
+    step = steps.make_train_step()
+    times, launches = {}, dict.fromkeys(per_step, 0)
+    for engine in ("sorted", "einsum"):
+        st = moe_state(torch.bfloat16, engine=engine)
+        dev = [torch.as_tensor(a, device=DEVICE) for a in (x, y, w)]
+        step(st, *dev)  # warm-up
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            st, metrics = step(st, *dev)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = fa.launch_counts()
+        if counts != {k: 5 * v for k, v in per_step.items()}:
+            raise AssertionError(f"(l1) {engine} steps launched {counts}")
+        if not bool(torch.isfinite(metrics["train_loss"])):
+            raise AssertionError(f"(l1) {engine}: non-finite loss")
+        for k, v in counts.items():
+            launches[k] += v
+        times[engine] = statistics.median(ms)
+        del st
+    out.update(sorted_ms=times["sorted"], einsum_ms=times["einsum"],
+               sorted_speedup=times["einsum"] / times["sorted"],
+               launches=launches)
+    print(f"[smoke] (l1) moe step (bf16, batch {MOE_BATCH}, median of 5): "
+          f"sorted {times['sorted']:.3f} ms, einsum {times['einsum']:.3f} "
+          f"ms, sorted_speedup {out['sorted_speedup']:.3f}", flush=True)
+    return out
+
+
+def _family_env(family: str) -> dict:
+    if family == "weather_moe":
+        cfg = {"DCT_MODEL": family, "DCT_SEQ_LEN": MOE_CFG["seq_len"],
+               "DCT_D_MODEL": MOE_CFG["d_model"],
+               "DCT_N_HEADS": MOE_CFG["n_heads"],
+               "DCT_N_LAYERS": MOE_CFG["n_layers"],
+               "DCT_D_FF": MOE_CFG["d_ff"],
+               "DCT_N_EXPERTS": MOE_CFG["n_experts"],
+               "DCT_BF16_COMPUTE": 1}
+    else:
+        cfg = {"DCT_MODEL": family, "DCT_SEQ_LEN": GRU_CFG["seq_len"],
+               "DCT_HIDDEN_DIM": GRU_CFG["hidden_dim"],
+               "DCT_N_LAYERS": GRU_CFG["n_layers"], "DCT_BF16_COMPUTE": 0}
+    return {k: str(v) for k, v in cfg.items()}
+
+
+def _family_launches(family: str, processed: str, epochs: int) -> dict:
+    """Forward launches per train step and eval batch and one dK/dV and
+    one dQ per train step, per layer, for the MoE; none for the GRU."""
+    from dct_tpu_torch.data.dataset import load_processed_dataset
+    from dct_tpu_torch.data.pipeline import BatchLoader, contiguous_split
+    from dct_tpu_torch.data.windows import make_windows
+
+    if family != "weather_moe":
+        return {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    seq = MOE_CFG["seq_len"]
+    windows = make_windows(load_processed_dataset(processed), seq)
+    train_idx, val_idx = contiguous_split(len(windows), val_fraction=0.2,
+                                          gap=seq)
+    n_train = BatchLoader(windows, train_idx, global_batch=FAMILY_BATCH,
+                          shuffle=True).num_batches
+    n_val = BatchLoader(windows, val_idx, global_batch=FAMILY_BATCH,
+                        shuffle=False).num_batches
+    n = MOE_CFG["n_layers"] * epochs
+    return {"flash_fwd": n * (n_train + n_val),
+            "flash_bwd_dkdv": n * n_train, "flash_bwd_dq": n * n_train}
+
+
+def family_train_job(family: str, root: str, processed: str) -> dict:
+    """(l2) ``python -m dct_tpu_torch.train_job`` for ``family`` on the
+    card over ``processed``: exit 0, a finite val_loss, a checkpoint, and
+    the flash launches of every step and eval batch."""
+    models = os.path.join(root, f"models-{family}")
+    env = _child_env(DCT_PROCESSED_DIR=processed, DCT_MODELS_DIR=models,
+                     DCT_TRACKING_DIR=os.path.join(root, "mlruns"),
+                     DCT_EPOCHS=str(FAMILY_EPOCHS),
+                     DCT_BATCH_SIZE=str(FAMILY_BATCH), **_family_env(family))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "dct_tpu_torch.train_job"],
+                       env=env, cwd=HERE, capture_output=True, text=True,
+                       timeout=900)
+    wall = time.perf_counter() - t0
+    done = [x for x in r.stdout.splitlines() if "done: val_loss=" in x]
+    if r.returncode != 0 or not done:
+        raise AssertionError(f"(l2) {family} train_job exit {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    fields = dict(kv.split("=", 1) for kv in done[-1].split("done: ")[1]
+                  .split() if "=" in kv)
+    want = _family_launches(family, processed, FAMILY_EPOCHS)
+    launches = _child_launches(r.stdout, [want], f"l2 {family}")
+    ckpt = os.path.join(models, "last.ckpt")
+    val_loss = float(fields["val_loss"])
+    if not (np.isfinite(val_loss) and os.path.exists(ckpt)):
+        raise AssertionError(f"(l2) {family}: val_loss {val_loss}, "
+                             f"checkpoint {os.path.exists(ckpt)}")
+    out = {"family": family, "wall_s": wall, "val_loss": val_loss,
+           "val_acc": float(fields["val_acc"]),
+           "samples_per_s": float(fields["samples/sec"]),
+           "launches": launches, "ckpt": ckpt}
+    print(f"[smoke] (l2) train_job {out}", flush=True)
+    return out
+
+
+def family_serve(fa, family: str, ckpt: str, root: str) -> dict:
+    """(l2) the port's package of ``ckpt`` through the HTTP server (torch
+    engine) on the card: 1, 3 and 8 windows against the numpy runtime
+    (1e-4); the MoE launches one forward per layer per request (a request
+    is its own segment), the GRU none."""
+    from dct_tpu_torch.config import ServingConfig
+    from dct_tpu_torch.serving.numpy_runtime import forward_numpy, softmax_numpy
+    from dct_tpu_torch.serving.score_gen import generate_score_package
+    from dct_tpu_torch.serving.package import load_package
+    from dct_tpu_torch.serving.server import make_server
+
+    pkg = os.path.join(root, f"pkg-{family}")
+    generate_score_package(ckpt, pkg)
+    weights, meta = load_package(pkg)
+    server = make_server(pkg, serving=ServingConfig(workers=1),
+                         device=None if DEVICE == "cuda" else DEVICE)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    rng = np.random.default_rng(3)
+    per_request = (MOE_CFG["n_layers"] if family == "weather_moe" else 0)
+    rows, launches = [], 0
+    try:
+        port = server.server_address[1]
+        for n in (1, 3, 8):
+            x = rng.standard_normal((n, int(meta["seq_len"]), 5)).astype(
+                np.float32)
+            fa.reset_launches()
+            probs, ms = post(port, x)
+            got = fa.launches
+            want = softmax_numpy(forward_numpy(weights, meta, x))
+            gap = np.abs(probs - want)
+            err = float(gap.max())
+            if got != per_request or not err <= AGREE_TOL:
+                raise AssertionError(f"(l2) {family} serve {n}: launches "
+                                     f"{got} (want {per_request}), numpy "
+                                     f"err {err}")
+            launches += got
+            rows.append({"windows": n, "ms": ms, "numpy_max_abs_err": err,
+                         "worst_window": int(gap.max(axis=-1).argmax())})
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+    out = {"family": family, "requests": rows, "launches": launches}
+    print(f"[smoke] (l2) serve {out}", flush=True)
+    return out
+
+
+def family_predict(family: str, ckpt: str, processed: str,
+                   root: str) -> dict:
+    """(l2) ``python -m dct_tpu_torch.predict_job`` on the card, chunks of
+    ``PREDICT_CHUNK``: windows/s, the flash launches (one a layer a chunk
+    for the MoE), and every full chunk within 1e-4 of the numpy engine on
+    that chunk (the MoE's partial last chunk is padded as the reference's
+    accelerator engine pads it, which the numpy engine does not)."""
+    from dct_tpu_torch import predict_job
+    from dct_tpu_torch.data.dataset import load_processed_dataset
+    from dct_tpu_torch.data.windows import make_windows
+    from dct_tpu_torch.etl.parquet import read_table
+    from dct_tpu_torch.serving.score_gen import weights_from_checkpoint
+
+    out_path = os.path.join(root, f"predictions-{family}.parquet")
+    env = _child_env(DCT_CKPT=ckpt, DCT_PROCESSED_DIR=processed,
+                     DCT_PREDICTIONS=out_path,
+                     DCT_PREDICT_CHUNK=str(PREDICT_CHUNK))
+    r = subprocess.run([sys.executable, "-m", "dct_tpu_torch.predict_job"],
+                       env=env, cwd=HERE, capture_output=True, text=True,
+                       timeout=600)
+    line = [x for x in r.stdout.splitlines()
+            if x.startswith("[predict_job] scored ")]
+    if r.returncode != 0 or not line:
+        raise AssertionError(f"(l2) {family} predict exit {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    m = re.match(r"\[predict_job\] scored (\d+) in ([0-9.]+) s .*launches "
+                 r"(\{.*\})", line[-1])
+    n, seconds = int(m.group(1)), float(m.group(2))
+    launches = json.loads(m.group(3).replace("'", '"'))
+    chunks = -(-n // PREDICT_CHUNK)
+    table = read_table(out_path)
+    probs = np.stack([table["prob_0"], table["prob_1"]], axis=1)
+    weights, meta = weights_from_checkpoint(ckpt)
+    windows = make_windows(load_processed_dataset(processed),
+                           int(meta["seq_len"])).features
+    full = (n // PREDICT_CHUNK) * PREDICT_CHUNK
+    err, worst_row = 0.0, -1
+    for start in range(0, full, PREDICT_CHUNK):
+        ref = predict_job.score(weights, meta,
+                                windows[start:start + PREDICT_CHUNK],
+                                PREDICT_CHUNK, engine="numpy")
+        gap = np.abs(probs[start:start + PREDICT_CHUNK] - ref).max(axis=-1)
+        if gap.max() > err:
+            err, worst_row = float(gap.max()), start + int(gap.argmax())
+    per_chunk = MOE_CFG["n_layers"] if family == "weather_moe" else 0
+    want = {"flash_fwd": per_chunk * chunks, "flash_bwd_dkdv": 0,
+            "flash_bwd_dq": 0}
+    if (launches != want or len(table["row"]) != n or not err <= AGREE_TOL
+            or not np.isfinite(probs).all()):
+        raise AssertionError(f"(l2) {family} predict launches {launches} "
+                             f"(want {want}), rows {len(table['row'])} of "
+                             f"{n}, numpy err {err}")
+    out = {"family": family, "windows": n, "chunk": PREDICT_CHUNK,
+           "chunks": chunks, "full_chunks_checked": full // PREDICT_CHUNK,
+           "score_s": seconds, "windows_per_s": n / seconds,
+           "launches": launches, "numpy_max_abs_err": err,
+           "worst_row": worst_row}
+    print(f"[smoke] (l2) predict job {out}", flush=True)
+    return out
+
+
+def families_phase(fa, root: str, processed: str, card: str) -> dict:
+    """(l1) and (l2); each sub-phase's launches and wall."""
+    from dct_tpu_torch.data.synthetic import generate_weather_csv
+    from dct_tpu_torch.etl.preprocess import preprocess_csv_to_parquet
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    phase_t0 = time.perf_counter()
+    walls = {}
+    t0 = time.perf_counter()
+    l1 = moe_train_phase(fa)
+    walls["l1"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    raw = os.path.join(root, "predict-raw.csv")
+    generate_weather_csv(raw, rows=MOE_PREDICT_ROWS, seed=2)
+    moe_rows = os.path.join(root, "predict-processed")
+    preprocess_csv_to_parquet(raw, moe_rows)
+    l2 = {}
+    for family in ("weather_moe", "weather_gru"):
+        t0 = time.perf_counter()
+        trained = family_train_job(family, root, processed)
+        served = family_serve(fa, family, trained["ckpt"], root)
+        predicted = family_predict(
+            family, trained["ckpt"],
+            moe_rows if family == "weather_moe" else processed, root)
+        l2[family] = {"train_job": trained, "serve": served,
+                      "predict": predicted}
+        walls[f"l2_{family}"] = time.perf_counter() - t0
+    moe = l2["weather_moe"]
+    launches = {k: (l1["launches"][k] + moe["train_job"]["launches"][k]
+                    + moe["predict"]["launches"][k])
+                for k in l1["launches"]}
+    launches["flash_fwd"] += moe["serve"]["launches"]
+    out = {"l1": l1, "l2": l2, "launches": launches, "walls_s": walls,
+           "phase_s": time.perf_counter() - phase_t0, "card": card}
+    print(f"[smoke] (l) families launches {launches}, walls {walls}, phase "
+          f"{out['phase_s']:.1f} s on {card}", flush=True)
+    return out
+
+
 def serving_probe(root: str) -> tuple[str, str]:
     """A random full-width checkpoint and a processed dir of LOOP_ROWS
     synthetic rows, for ``--phase k`` (the whole script uses (g)'s
@@ -3039,9 +3520,10 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("all", "k"), default="all",
+    ap.add_argument("--phase", choices=("all", "k", "l"), default="all",
                     help="k: build the kernels and run only (k), over a "
-                         "random full-width checkpoint and synthetic rows")
+                         "random full-width checkpoint and synthetic rows; "
+                         "l: only (l), over synthetic rows")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3075,12 +3557,18 @@ def main(argv=None) -> int:
     tc_counts = tensor_core_instructions(build)
     print(f"[smoke] tensor-core instructions: {tc_counts}", flush=True)
 
-    if args.phase == "k":
+    if args.phase in ("k", "l"):
         probe_root = os.path.join(HERE, "build", "chip_smoke_probe")
         shutil.rmtree(probe_root, ignore_errors=True)
         ckpt, processed = serving_probe(probe_root)
-        serving_phase(fa, os.path.join(HERE, "build", "chip_smoke_serving"),
-                      ckpt, processed, card)
+        if args.phase == "k":
+            serving_phase(fa, os.path.join(HERE, "build",
+                                           "chip_smoke_serving"),
+                          ckpt, processed, card)
+        else:
+            families_phase(fa, os.path.join(HERE, "build",
+                                            "chip_smoke_families"),
+                           processed, card)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3141,6 +3629,11 @@ def main(argv=None) -> int:
         os.path.join(fit_root, "models-tf", "last.ckpt"),
         os.path.join(loop_root, "episodic", "processed"), card)
     k_counts = served_k["launches"]
+    torch.cuda.empty_cache()
+    families = families_phase(
+        fa, os.path.join(HERE, "build", "chip_smoke_families"),
+        os.path.join(loop_root, "episodic", "processed"), card)
+    l_counts = families["launches"]
 
     def bf16_summary(rows):
         row = [r for r in rows
@@ -3165,7 +3658,8 @@ def main(argv=None) -> int:
                      + sup_counts["flash_fwd"]
                      + sched_counts["flash_fwd"]
                      + k_counts["serve_k"] + k_counts["predict"]
-                     + k_counts["knobs"]["flash_fwd"]),
+                     + k_counts["knobs"]["flash_fwd"]
+                     + l_counts["flash_fwd"]),
         "launches_by_path": {"serve": launches,
                              "train": train_counts["flash_fwd"],
                              "fit": fit_counts["flash_fwd"],
@@ -3175,7 +3669,8 @@ def main(argv=None) -> int:
                              "scheduler": sched_counts["flash_fwd"],
                              "serve_k": k_counts["serve_k"],
                              "predict": k_counts["predict"],
-                             "knobs": k_counts["knobs"]["flash_fwd"]},
+                             "knobs": k_counts["knobs"]["flash_fwd"],
+                             "families": l_counts["flash_fwd"]},
         "gate_launches_per_consult": loop_counts["gate"]["flash_fwd"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -3197,7 +3692,8 @@ def main(argv=None) -> int:
                         f"(_{name}_kernel; pallas_call at :{call})",
             "launches": (train_counts[name] + fit_counts[name]
                          + loop_counts["train"][name] + sup_counts[name]
-                         + sched_counts[name] + k_counts["knobs"][name]),
+                         + sched_counts[name] + k_counts["knobs"][name]
+                         + l_counts[name]),
             "launches_by_path": {"train": train_counts[name],
                                  "fit": fit_counts[name],
                                  "loop_train": loop_counts["train"][name],
@@ -3205,7 +3701,8 @@ def main(argv=None) -> int:
                                  "supervised": sup_counts[name],
                                  "scheduler": sched_counts[name],
                                  "serve_k": 0, "predict": 0,
-                                 "knobs": k_counts["knobs"][name]},
+                                 "knobs": k_counts["knobs"][name],
+                                 "families": l_counts[name]},
             "launches_per_step": train_counts[name] / train_steps,
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],

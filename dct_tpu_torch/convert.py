@@ -6,7 +6,11 @@ which is also the layout of a package's ``model.npz``. The port names its
 modules after the flax paths, so a key maps to a parameter by rule: ``/``
 becomes ``.``, a dense ``kernel`` ``[in, out]`` becomes ``weight``
 ``[out, in]`` (transposed), a LayerNorm ``scale`` becomes ``weight``.
-:func:`flax_weights` is the inverse (a model's parameters, or their
+A module that holds parameters of its own in flax's layout (the GRU's
+``h_kernel`` ``[H, 3H]`` and ``h_bias``, the MoE's ``experts_in_kernel``
+``[E, D, F]`` and the other expert tensors) lists them in a
+``flax_params`` attribute, ``{name: init}``; they keep their names and
+layout. :func:`flax_weights` is the inverse (a model's parameters, or their
 gradients, as a flat flax-path dict), and :func:`init_flax_weights` draws a
 model's initial weights from a numpy seed, the same on every device.
 """
@@ -20,14 +24,25 @@ from torch import nn
 
 def flax_names(model: nn.Module) -> dict[str, tuple[str, bool]]:
     """Torch parameter name -> (flax key, transposed) for every parameter
-    of ``model``. Only ``nn.Linear`` and ``nn.LayerNorm`` hold
-    parameters in the port's models; anything else raises."""
+    of ``model``: those of ``nn.Linear`` and ``nn.LayerNorm`` and those a
+    module lists in ``flax_params``; any other parameter raises."""
     out: dict[str, tuple[str, bool]] = {}
     for prefix, mod in model.named_modules():
         own = dict(mod.named_parameters(recurse=False))
         if not own:
             continue
         flax_prefix = prefix.replace(".", "/")
+        listed = getattr(mod, "flax_params", None)
+        if listed is not None:
+            if set(own) != set(listed):
+                raise TypeError(
+                    f"{prefix} ({type(mod).__name__}) lists flax params "
+                    f"{sorted(listed)} but holds {sorted(own)}"
+                )
+            for name in own:
+                out[f"{prefix}.{name}" if prefix else name] = (
+                    f"{flax_prefix}/{name}" if prefix else name, False)
+            continue
         if isinstance(mod, nn.Linear):
             out[f"{prefix}.weight"] = (f"{flax_prefix}/kernel", True)
         elif isinstance(mod, nn.LayerNorm):
@@ -99,16 +114,75 @@ def flax_weights(model: nn.Module, *, grads: bool = False) -> dict:
     return out
 
 
+def _listed_inits(model: nn.Module) -> dict[str, tuple]:
+    """Flax key -> init spec of every parameter a module lists in its
+    ``flax_params``."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        for name, spec in (getattr(mod, "flax_params", None) or {}).items():
+            key = f"{prefix.replace('.', '/')}/{name}" if prefix else name
+            out[key] = tuple(spec)
+    return out
+
+
+def _truncated_normal(rng, shape, std: float) -> np.ndarray:
+    """flax's ``truncated_normal``: N(0, 1) cut to [-2, 2] (redrawn
+    outside), times ``std``."""
+    out = rng.standard_normal(shape)
+    bad = np.abs(out) > 2.0
+    while bad.any():
+        out[bad] = rng.standard_normal(int(bad.sum()))
+        bad = np.abs(out) > 2.0
+    return (out * std).astype(np.float32)
+
+
+def _draw_listed(spec: tuple, shape, rng) -> np.ndarray:
+    """One listed parameter drawn from its spec: ``("uniform", fan_in)``
+    (the expert tensors: U(-1/sqrt(fan_in), 1/sqrt(fan_in))),
+    ``("lecun_normal", fan_in)`` (flax's ``lecun_normal``: truncated
+    normal of variance 1/fan_in) or ``("zeros",)``."""
+    kind, *args = spec
+    if kind == "zeros":
+        return np.zeros(shape, np.float32)
+    if kind == "uniform":
+        bound = 1.0 / np.sqrt(args[0])
+        return rng.uniform(-bound, bound, shape).astype(np.float32)
+    if kind == "lecun_normal":
+        # flax's variance_scaling divides by the std of N(0, 1) cut to
+        # [-2, 2] so that the cut draw has variance 1/fan_in.
+        std = np.sqrt(1.0 / args[0]) / 0.87962566103423978
+        return _truncated_normal(rng, shape, std)
+    raise ValueError(f"unknown init {kind!r}")
+
+
+def init_listed(module: nn.Module) -> None:
+    """Draw the parameters ``module`` lists in ``flax_params`` from their
+    specs (:func:`_draw_listed`), seeded from torch's generator: a
+    module's initial values at construction."""
+    rng = np.random.default_rng(int(torch.randint(1 << 62, ())))
+    with torch.no_grad():
+        for name, spec in module.flax_params.items():
+            param = getattr(module, name)
+            param.copy_(torch.from_numpy(
+                _draw_listed(tuple(spec), tuple(param.shape), rng)))
+
+
 def init_flax_weights(model: nn.Module, seed: int) -> dict:
     """Random flax-path-keyed f32 weights for ``model`` from
-    ``np.random.default_rng(seed)``: dense kernels and biases
-    U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (torch's default, as the reference's
-    ``torch_linear_init``), LayerNorm scale 1 and bias 0."""
+    ``np.random.default_rng(seed)`` with the reference's distributions:
+    dense kernels and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (torch's
+    default, as the reference's ``torch_linear_init``), LayerNorm scale 1
+    and bias 0, and for a listed parameter its own spec
+    (:func:`_draw_listed`)."""
     shapes = flax_shapes(model)
+    listed = _listed_inits(model)
     rng = np.random.default_rng(seed)
     out = {}
     for key in sorted(shapes):
         shape = shapes[key]
+        if key in listed:
+            out[key] = _draw_listed(listed[key], shape, rng)
+            continue
         prefix, leaf = key.rsplit("/", 1)
         if f"{prefix}/scale" in shapes:  # a LayerNorm
             fill = 1.0 if leaf == "scale" else 0.0

@@ -180,7 +180,9 @@ def _batched_probs_torch(
     loaded, and one ``no_grad`` forward per chunk of ``batch_size``
     examples. Quantized packages are dequantized to dense f32 on the host
     first. On the card, matmuls run in full f32 (TF32 off, process-wide,
-    as the port's serving scorer does)."""
+    as the port's serving scorer does). An MoE's partial last chunk is
+    padded as the reference's jax engine pads it
+    (:func:`dct_tpu_torch.predict_job.score_in_chunks`)."""
     import torch
 
     from dct_tpu_torch.convert import load_flax_weights
@@ -190,6 +192,7 @@ def _batched_probs_torch(
         get_model,
         is_causal_model,
     )
+    from dct_tpu_torch.predict_job import score_in_chunks
 
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -200,16 +203,17 @@ def _batched_probs_torch(
     load_flax_weights(model, flax_keyed(dense_weights(weights), family))
     model.eval()
     causal = is_causal_model(family)
-    parts = []
-    with torch.no_grad():
-        for start in range(0, len(x), batch_size):
-            piece = torch.from_numpy(np.ascontiguousarray(
-                x[start:start + batch_size], np.float32)).to(dev)
-            logits = model(piece)
-            if causal:
-                logits = logits[:, -1]
-            parts.append(torch.softmax(logits.float(), dim=-1).cpu().numpy())
-    return np.concatenate(parts, axis=0)
+
+    def probs(piece: np.ndarray) -> np.ndarray:
+        with torch.no_grad():
+            logits = model(torch.from_numpy(piece).to(dev))
+        if causal:
+            logits = logits[:, -1]
+        return torch.softmax(logits.float(), dim=-1).cpu().numpy()
+
+    return score_in_chunks(
+        probs, x, batch_size,
+        pad_last=getattr(model, "routing_depends_on_batch", False))
 
 
 def dense_weights(weights: dict) -> dict:

@@ -89,12 +89,15 @@ class Dropout(nn.Module):
 
 
 def set_data_block(model: nn.Module, num_blocks: int, block: int) -> None:
-    """Tell every :class:`Dropout` of ``model`` that its inputs are row
-    block ``block`` of ``num_blocks`` of the global batch."""
+    """Tell every :class:`Dropout` of ``model``, and every module that
+    routes over the global batch (``takes_data_block``: the MoE layers),
+    that its inputs are row block ``block`` of ``num_blocks`` of the
+    global batch."""
     if not 0 <= block < num_blocks:
         raise ValueError(f"block {block} outside 0..{num_blocks - 1}")
     for mod in model.modules():
-        if isinstance(mod, Dropout):
+        if isinstance(mod, Dropout) or getattr(mod, "takes_data_block",
+                                               False):
             mod.block = (int(num_blocks), int(block))
 
 

@@ -1,8 +1,8 @@
 """Model registry (counterpart of ``dct_tpu/models/registry.py``).
 
-The MLP and the two transformer families are ported. Any other
-registered name of the reference raises :class:`NotImplementedError`
-naming the ROADMAP item that ports it; nothing else runs in its place.
+The MLP, the two transformer families, the GRU and the MoE are ported.
+The pipeline family raises :class:`NotImplementedError` naming the
+ROADMAP item that ports it; nothing else runs in its place.
 Models come back in eval mode, the flax modules' ``train=False``; a
 trainer calls ``model.train()``.
 """
@@ -13,16 +13,17 @@ import torch
 from torch import nn
 
 from dct_tpu_torch.config import ModelConfig
+from dct_tpu_torch.models.gru import WeatherGRU
 from dct_tpu_torch.models.mlp import WeatherMLP
+from dct_tpu_torch.models.moe import WeatherMoE
 from dct_tpu_torch.models.transformer import WeatherTransformer
 
-SEQUENCE_MODELS = {"weather_transformer", "weather_transformer_causal"}
+SEQUENCE_MODELS = {"weather_transformer", "weather_transformer_causal",
+                   "weather_gru", "weather_moe"}
 CAUSAL_MODELS = {"weather_transformer_causal"}
 
 _NOT_PORTED = {
-    "weather_gru": "ROADMAP Queue A, slice 4 (GRU and MoE)",
-    "weather_moe": "ROADMAP Queue A, slice 4 (GRU and MoE)",
-    "weather_transformer_pp": "ROADMAP Queue A, slice 4 (pipeline and MPMD)",
+    "weather_transformer_pp": "ROADMAP Queue A item 17 (pipeline and MPMD)",
 }
 
 
@@ -40,9 +41,11 @@ def get_model(cfg: ModelConfig, *, input_dim: int | None = None,
               compute_dtype=None) -> nn.Module:
     """Build ``cfg.name`` on ``device`` with ``dtype`` parameters computing
     in ``compute_dtype`` (default ``dtype``), with ``cfg.dropout`` and
-    ``cfg.remat`` (``dct_tpu/models/registry.py:135-170, 207-231``). The
+    ``cfg.remat`` (``dct_tpu/models/registry.py:63-170, 207-231``). The
     causal family gets causal attention (with ``attn_window`` when > 0)
-    and the per-position head with ``horizon``. ``device=None`` is the
+    and the per-position head with ``horizon``; the MoE non-causal
+    attention and its routing knobs; the GRU ``hidden_dim`` and
+    ``n_layers``. ``device=None`` is the
     card (``cuda:0``; :class:`~dct_tpu_torch.device.DeviceError` without
     CUDA): a CPU model is built only when ``"cpu"`` is asked for."""
     from dct_tpu_torch.device import resolve_device
@@ -60,11 +63,29 @@ def get_model(cfg: ModelConfig, *, input_dim: int | None = None,
         raise ValueError("input_dim must be provided (inferred from data)")
     if device is None:
         device = resolve_device()
+    kw = dict(device=device, dtype=dtype, compute_dtype=compute_dtype)
     if cfg.name == "weather_mlp":
         return WeatherMLP(
             dim, hidden_dim=cfg.hidden_dim, num_classes=cfg.num_classes,
-            dropout=cfg.dropout, device=device, dtype=dtype,
-            compute_dtype=compute_dtype,
+            dropout=cfg.dropout, **kw,
+        ).eval()
+    if cfg.name == "weather_gru":
+        return WeatherGRU(
+            dim, cfg.seq_len, hidden_dim=cfg.hidden_dim,
+            n_layers=cfg.n_layers, num_classes=cfg.num_classes,
+            dropout=cfg.dropout, **kw,
+        ).eval()
+    if cfg.name == "weather_moe":
+        return WeatherMoE(
+            dim, cfg.seq_len, d_model=cfg.d_model, n_heads=cfg.n_heads,
+            n_layers=cfg.n_layers, d_ff=cfg.d_ff, n_experts=cfg.n_experts,
+            capacity_factor=cfg.capacity_factor,
+            router_aux_weight=cfg.router_aux_weight,
+            num_classes=cfg.num_classes, dropout=cfg.dropout,
+            attn_fn=make_attention_fn(), dispatch=cfg.moe_dispatch,
+            top_k=cfg.router_top_k, auto_threshold=cfg.moe_auto_threshold,
+            n_kv_heads=cfg.n_kv_heads if cfg.n_kv_heads > 0 else None,
+            pos_embed=cfg.pos_embed, **kw,
         ).eval()
     causal = cfg.name == "weather_transformer_causal"
     window = cfg.attn_window if causal and cfg.attn_window > 0 else None
@@ -74,8 +95,7 @@ def get_model(cfg: ModelConfig, *, input_dim: int | None = None,
         attn_fn=make_attention_fn(causal=causal, window=window),
         per_position=causal, horizon=cfg.horizon if causal else 1,
         n_kv_heads=cfg.n_kv_heads if cfg.n_kv_heads > 0 else None,
-        pos_embed=cfg.pos_embed, dropout=cfg.dropout, remat=cfg.remat,
-        device=device, dtype=dtype, compute_dtype=compute_dtype,
+        pos_embed=cfg.pos_embed, dropout=cfg.dropout, remat=cfg.remat, **kw,
     ).eval()
 
 

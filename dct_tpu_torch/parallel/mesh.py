@@ -56,3 +56,15 @@ def all_gather_ints(value: int) -> list[int]:
     out = [None] * process_count()
     dist.all_gather_object(out, int(value))
     return [int(v) for v in out]
+
+
+def all_gather_rows(tensor: torch.Tensor) -> torch.Tensor:
+    """``tensor`` of every process stacked in rank order, ``[W, ...]``
+    (on its own device: NCCL for CUDA tensors, gloo on the CPU); with one
+    process, ``tensor[None]``. Carries no gradient."""
+    tensor = tensor.detach()
+    if not data_parallel():
+        return tensor[None]
+    out = [torch.empty_like(tensor) for _ in range(process_count())]
+    dist.all_gather(out, tensor.contiguous())
+    return torch.stack(out)

@@ -66,26 +66,47 @@ def find_checkpoint(models_dir: str) -> str:
     )
 
 
+def score_in_chunks(fn, x: np.ndarray, chunk: int, *,
+                    pad_last: bool = False) -> np.ndarray:
+    """``fn`` (rows -> probabilities) over ``x`` in chunks of ``chunk``
+    rows, concatenated. With ``pad_last`` (a model whose routing depends on
+    the rows scored together: ``routing_depends_on_batch``, the MoE), an
+    input that spans more than one chunk has its partial last chunk padded
+    to ``chunk`` rows with repeats of its last row, as the reference's
+    accelerator engines do (``jobs/predict.py:118-128``,
+    ``dct_tpu/evaluation/harness.py:243-249``), and only its real rows'
+    answers kept."""
+    parts = []
+    for start in range(0, len(x), chunk):
+        piece = np.ascontiguousarray(x[start:start + chunk], np.float32)
+        real = len(piece)
+        if pad_last and len(x) > chunk and real < chunk:
+            piece = np.concatenate(
+                [piece, np.repeat(piece[-1:], chunk - real, axis=0)])
+        parts.append(fn(piece)[:real])
+    return np.concatenate(parts, axis=0)
+
+
 def score(weights: dict, meta: dict, x: np.ndarray, chunk: int,
           engine: str = "torch", device=None) -> np.ndarray:
     """Probabilities of ``x`` in chunks of ``chunk`` rows: ``[N, C]``, or
-    ``[N, H, C]`` for a multi-horizon causal model."""
+    ``[N, H, C]`` for a multi-horizon causal model. The torch engine pads
+    an MoE checkpoint's partial last chunk as the reference's jax engine
+    does (:func:`score_in_chunks`)."""
     if engine == "numpy":
         from dct_tpu_torch.serving.runtime import forward_numpy, softmax_numpy
 
-        fn = lambda piece: softmax_numpy(forward_numpy(weights, meta, piece))
-    elif engine == "torch":
+        return score_in_chunks(
+            lambda piece: softmax_numpy(forward_numpy(weights, meta, piece)),
+            x, chunk)
+    if engine == "torch":
         from dct_tpu_torch.device import resolve_device
         from dct_tpu_torch.serving.batching import TorchScorer
 
-        fn = TorchScorer(weights, meta, resolve_device(device))
-    else:
-        raise ValueError(
-            f"DCT_PREDICT_ENGINE={engine!r} not in ('torch', 'numpy')")
-    return np.concatenate([
-        fn(np.ascontiguousarray(x[start:start + chunk], np.float32))
-        for start in range(0, len(x), chunk)
-    ], axis=0)
+        scorer = TorchScorer(weights, meta, resolve_device(device))
+        return score_in_chunks(scorer, x, chunk, pad_last=scorer.true_shape)
+    raise ValueError(
+        f"DCT_PREDICT_ENGINE={engine!r} not in ('torch', 'numpy')")
 
 
 def prediction_columns(probs: np.ndarray, index: np.ndarray,

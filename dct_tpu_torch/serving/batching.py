@@ -15,13 +15,17 @@ Two engines (``DCT_SERVE_ENGINE``):
 - ``torch`` (the port's default): :class:`TorchScorer`, the port of the
   reference's jitted scorer (``_build_jax_scorer``): the registry model
   rebuilt from the package meta on one device, each flush padded to the
-  next power of two by repeating its last row, the causal family answered
+  next power of two by repeating its last row (an MoE request is scored
+  at its true shape: its routing capacity depends on its token count,
+  ``dct_tpu/serving/batching.py:217-223``), the causal family answered
   for the window's last position. A bf16 package runs at bf16 compute with
   its parameters resident in bf16 (its stored values are bf16-exact); an
   int8 package keeps its ``q8`` and per-channel scales resident as int8
   and f32 and dequantizes inside the forward (``q.float() * scale``, f32
-  compute), as the reference's scorer does. A request's answer may depend
-  on its batch-mates in the last bits (as the reference's jax engine's).
+  compute), as the reference's scorer does (a quantized kernel that is no
+  dense layer's, the GRU's ``h_kernel``, is loaded dequantized). A
+  request's answer may depend on its batch-mates in the last bits (as the
+  reference's jax engine's).
 - ``numpy``: :func:`score_rows_invariant`, the reference's default engine
   (the verbatim numpy runtime with the row-invariant matmul): a request's
   probabilities never depend on what it was batched with, and equal the
@@ -132,7 +136,7 @@ class TorchScorer:
         model = get_model(cfg, device="cpu", dtype=self.dtype)
         load_flax_weights(model, dense_weights(keyed))
         for key, value in keyed.items():
-            if isinstance(value, QuantTensor):
+            if isinstance(value, QuantTensor) and key.endswith("/kernel"):
                 path = key.rsplit("/", 1)[0].split("/")
                 parent = model
                 for name in path[:-1]:
@@ -142,6 +146,9 @@ class TorchScorer:
                         Int8Dense(value.q, value.scale, dense.bias))
         self.model = model.to(self.device).eval().requires_grad_(False)
         self.causal = is_causal_model(cfg.name)
+        # An MoE's capacity is a function of its token count: padding
+        # rows would change which tokens are dropped.
+        self.true_shape = getattr(model, "routing_depends_on_batch", False)
         self.forwards = 0
         # One forward at a time per scorer: concurrent flushes would only
         # interleave on the same card and multiply activation memory.
@@ -157,7 +164,7 @@ class TorchScorer:
         padded = 1
         while padded < n:
             padded *= 2
-        if padded != n:
+        if not self.true_shape and padded != n:
             x = np.concatenate([x, np.repeat(x[-1:], padded - n, axis=0)])
         with self._lock, torch.inference_mode():
             xb = torch.from_numpy(np.ascontiguousarray(x, np.float32))
@@ -380,7 +387,7 @@ class MicroBatcher:
         if self.engine == "numpy":
             return score_rows_invariant(weights, meta, arrays)
         fn = self.scorer_for(weights, meta)
-        if meta.get("model", "weather_mlp") == "weather_moe":
+        if fn.true_shape:
             return [fn(a) for a in arrays]
         stacked = np.concatenate(arrays, axis=0) if len(arrays) > 1 else arrays[0]
         probs = fn(stacked)

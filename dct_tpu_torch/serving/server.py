@@ -284,6 +284,21 @@ class _ReusePortHTTPServer(_BatchedHTTPServer):
     _reuse_port = True
 
 
+# Seconds a closing pool's child has to drain after its SIGTERM before it
+# is killed (the reference's close waits without bound).
+POOL_CLOSE_GRACE_S = 30.0
+
+
+def _reaped(pid: int) -> bool:
+    """Reap ``pid`` if it has exited; True once it is gone (reaped here
+    or by another waiter)."""
+    try:
+        done, _ = os.waitpid(pid, os.WNOHANG)
+    except ChildProcessError:
+        return True
+    return done == pid
+
+
 class ServerPool:
     """Multi-process serving: ``processes`` forked children each run a
     full server (``build_server(host, port, reuse_port=True)``) on the same
@@ -371,7 +386,17 @@ class ServerPool:
                 return -1
             index = self._spawned
             self._spawned += 1
-            pid = os.fork()
+            # The child starts with SIGTERM blocked and unblocks it once
+            # its drain handler is installed: a SIGTERM sent in between
+            # stays pending (Linux queues a blocked signal even where its
+            # disposition, inherited from this process, is SIG_IGN).
+            mask = signal.pthread_sigmask(signal.SIG_BLOCK, {signal.SIGTERM})
+            pid = None
+            try:
+                pid = os.fork()
+            finally:
+                if pid != 0:
+                    signal.pthread_sigmask(signal.SIG_SETMASK, mask)
             if pid != 0:
                 self.pids.append(pid)
                 self._index[pid] = index
@@ -401,6 +426,7 @@ class ServerPool:
                 _threading.Thread(target=server.shutdown, daemon=True).start()
 
             signal.signal(signal.SIGTERM, _drain)
+            signal.pthread_sigmask(signal.SIG_SETMASK, mask)
             server.serve_forever()
             server.server_close()
         except BaseException:  # noqa: BLE001 - a child never returns into
@@ -522,6 +548,8 @@ class ServerPool:
                              classification=classification)
 
     def close(self) -> None:
+        """Stop serving: SIGTERM every child and reap it; SIGKILL a child
+        still alive after ``POOL_CLOSE_GRACE_S`` (``serve.pool_kill``)."""
         import signal
 
         if self._server is not None:
@@ -539,8 +567,17 @@ class ServerPool:
                 os.kill(pid, signal.SIGTERM)
             except OSError:
                 pass
-        for pid in pids:
+        deadline = time.monotonic() + POOL_CLOSE_GRACE_S
+        live = [pid for pid in pids if not _reaped(pid)]
+        while live and time.monotonic() < deadline:
+            time.sleep(0.02)
+            live = [pid for pid in live if not _reaped(pid)]
+        if live:
+            self._emit_event("serve.pool_kill", pids=live,
+                             grace_s=POOL_CLOSE_GRACE_S)
+        for pid in live:
             try:
+                os.kill(pid, signal.SIGKILL)
                 os.waitpid(pid, 0)
             except OSError:
                 pass  # wait() reaped it first

@@ -9,7 +9,12 @@ update; eval returns the six sums (loss, accuracy, count, tp, fp, fn).
 
 Where the reference compiles a step with ``jit`` and an epoch with
 ``lax.scan``, the port runs eagerly and loops in Python over the stacked
-``[S, B, ...]`` batches: the same order and the same updates. Dropout
+``[S, B, ...]`` batches: the same order and the same updates. A model
+with an ``aux_loss()`` (the MoE family's load-balance terms, the
+reference's sown ``aux_loss`` collection, ``:60-83, 110-135``) adds the
+terms of its forward to the train objective, divided by the
+microbatch count under accumulation; eval leaves them out, so
+``val_loss`` stays pure cross entropy. Dropout
 masks are seeded by ``(state.rng, state.step)`` (and the microbatch under
 accumulation), the contract of ``fold_in(rng, step)`` (``:70``).
 Steps update the state in place (see :mod:`dct_tpu_torch.train.state`) and
@@ -61,6 +66,13 @@ def _apply(state: TrainState, x, dropout_key):
                                       {"dropout_key": dropout_key})
 
 
+def _aux_loss(model):
+    """The pre-weighted auxiliary terms of ``model``'s last forward (its
+    share of them under data parallelism), or None."""
+    fn = getattr(model, "aux_loss", None)
+    return fn() if fn is not None else None
+
+
 def loss_and_grads(state: TrainState, x, y, weight):
     """The train body's objective and its gradients, without the update:
     ``(loss, grads)`` with grads in ``state.params`` order."""
@@ -72,6 +84,9 @@ def loss_and_grads(state: TrainState, x, y, weight):
     )
     (total,) = all_reduce_sum([count])
     loss = loss_sum / torch.clamp(total, min=1.0)
+    aux = _aux_loss(state.model)
+    if aux is not None:
+        loss = loss + aux
     grads = torch.autograd.grad(loss, state.params)
     *grads, loss = all_reduce_sum([*grads, loss.detach()])
     return loss, grads
@@ -111,6 +126,9 @@ def _train_accum_body(state: TrainState, x, y, weight, accum_steps: int):
             logits, cy, _position_weight(logits, cy, cw)
         )
         chunk = loss_sum / total
+        aux = _aux_loss(state.model)
+        if aux is not None:
+            chunk = chunk + aux / accum_steps
         g = torch.autograd.grad(chunk, params)
         grads = g if grads is None else [a + c for a, c in zip(grads, g)]
         loss = loss + chunk.detach()

@@ -314,6 +314,75 @@ def test_train_step_on_card_matches_cpu(card, family):
         assert (a.cpu() - b).abs().max().item() <= 1e-3 * max(scale, 1e-30)
 
 
+@pytest.mark.parametrize("engine", ["einsum", "sorted"])
+def test_moe_forward_and_train_step_on_card_match_cpu(card, engine):
+    """The MoE at T=256 (flash path) on the card against the CPU path on
+    the same weights: logits within 1e-4, the train objective (aux
+    included) within 1e-5, each gradient within 1e-3 of its max (as the
+    transformer's), and 2 + 2 + 2 launches a train step."""
+    from dct_tpu_torch.config import ModelConfig
+    from dct_tpu_torch.models.registry import get_model
+    from dct_tpu_torch.train.state import create_train_state
+    from dct_tpu_torch.train.steps import loss_and_grads
+
+    cfg = ModelConfig(name="weather_moe", seq_len=T, d_model=64, n_heads=2,
+                      n_layers=2, d_ff=128, n_experts=4, capacity_factor=0.5,
+                      router_top_k=2, moe_dispatch=engine, dropout=0.0)
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((3, T, 5)).astype(np.float32)
+    y = rng.integers(0, 2, (3,)).astype(np.int32)
+    w = np.array([1.0, 1.0, 0.0], np.float32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    results = []
+    for device in ("cpu", card):
+        state = create_train_state(
+            get_model(cfg, input_dim=5, device=device), input_dim=5, lr=1e-3,
+            seed=5)
+        fa.reset_launches()
+        loss, grads = loss_and_grads(state, x, y, w)
+        counts = fa.launch_counts()
+        state.model.eval()
+        with torch.no_grad():
+            logits = state.model(torch.from_numpy(x).to(device)).cpu()
+        engines = [b.moe.last_engine for b in state.model.blocks()]
+        results.append((loss, grads, counts, logits, engines))
+    (loss_c, grads_c, counts_c, logits_c, eng_c), \
+        (loss_g, grads_g, counts_g, logits_g, eng_g) = results
+    assert counts_c == {"flash_fwd": 0, "flash_bwd_dkdv": 0,
+                        "flash_bwd_dq": 0}
+    assert counts_g == {"flash_fwd": 2, "flash_bwd_dkdv": 2,
+                        "flash_bwd_dq": 2}
+    assert eng_c == eng_g == [engine, engine]
+    assert (logits_g - logits_c).abs().max().item() <= 1e-4
+    assert abs(loss_g.item() - loss_c.item()) <= 1e-5 * abs(loss_c.item())
+    for a, b in zip(grads_g, grads_c):
+        scale = b.abs().max().item()
+        assert (a.cpu() - b).abs().max().item() <= 1e-3 * max(scale, 1e-30)
+
+
+def test_gru_forward_on_card_matches_cpu(card):
+    """The GRU (plain tensor ops, no kernel) on the card: f32 logits
+    within 1e-5 of the CPU's, no flash launch."""
+    from dct_tpu_torch.config import ModelConfig
+    from dct_tpu_torch.convert import init_flax_weights, load_flax_weights
+    from dct_tpu_torch.models.registry import get_model
+
+    cfg = ModelConfig(name="weather_gru", seq_len=32, hidden_dim=64,
+                      n_layers=2)
+    x = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (5, 32, 5)).astype(np.float32))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    for device in ("cpu", card):
+        model = get_model(cfg, input_dim=5, device=device)
+        load_flax_weights(model, init_flax_weights(model, 3))
+        fa.reset_launches()
+        with torch.no_grad():
+            out.append(model(x.to(device)).cpu())
+        assert fa.launches == 0
+    assert (out[1] - out[0]).abs().max().item() <= 1e-5
+
+
 # C1: head dims between the kernel instances run through the zero-padded
 # instance above them (8 -> 16, 48 -> 64), the scale of the true D kept.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -477,6 +477,33 @@ def test_pool_drill(drill, tmp_path):
     assert json.loads(r.stdout.strip().splitlines()[-1]) == _POOL_EXPECT[drill]
 
 
+def test_pool_close_drains_a_child_sigtermed_before_its_handler(tmp_path):
+    """A child forked with SIGTERM ignored (inherited from the pool's
+    process) and slow to install its drain handler gets ``close()``'s
+    SIGTERM before the handler is there: the child holds SIGTERM blocked
+    until then, so the signal waits and drains it, and the pool neither
+    hangs nor needs SIGKILL."""
+    drill = _POOL_PRELUDE + '''
+signal.signal(signal.SIGTERM, signal.SIG_IGN)
+os.register_at_fork(after_in_child=lambda: time.sleep(0.5))
+p = pool(2)
+rc, t = wait_in_thread(p)
+pids = p.scale_up(2)
+size = p.size()
+t0 = time.monotonic()
+p.close()
+took = time.monotonic() - t0
+t.join(10)
+print(json.dumps([len(pids), size, rc[0], "serve.pool_kill" in names(),
+                  took < 10]))
+'''
+    r = subprocess.run([sys.executable, "-c", drill], env=_env(),
+                       capture_output=True, text=True, timeout=90)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == \
+        [2, 4, 0, False, True]
+
+
 def _post(port, data, path="/score", timeout=60):
     req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
                                  data=json.dumps({"data": data}).encode())
