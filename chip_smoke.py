@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: kernels, serving,
 training, the continuous loop, the supervised training world, the
-multi-tenant scheduler, the completed serving tier and the GRU and MoE
-families.
+multi-tenant scheduler, the completed serving tier, the GRU and MoE
+families and, on two or more cards, the model axis.
 
     python3 chip_smoke.py
 
@@ -282,10 +282,45 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
        (h)'s): windows/s and every full chunk within 1e-4 of the numpy
        engine on that chunk (the worst row printed).
 
+(m) The model axis (``model_axis_phase``; ``--phase m`` runs only the
+   kernel build and (m)), on two or more cards, one ``train_job`` process
+   per card on NCCL, at the bench's width (d_model 512, 8 heads, 4 layers,
+   d_ff 2048, T=1024; 2,624 synthetic rows: 1,600 windows, 400 train and
+   176 val at val fraction 0.75; global batch 16; SGD lr 0.01 momentum
+   0.9; 2 epochs). First, on one card and on any count of cards, the
+   three kernels are held to their plain versions at the per-rank shapes
+   the worlds launch them at, ``[B/D, H/M, T, D]`` = ``[16, 4]``,
+   ``[8, 4]`` and ``[16, 2]`` (f32 and bf16; FWD_TOL, BWD_TOL). Each
+   world is compared with the W=1 run at the same global batch: every
+   rank ends on the same val_loss, within 1e-5 of W=1's (f32) or 2e-2
+   (bf16), and launched W=1's kernels (each rank runs every step and
+   eval batch), at ``H/M`` and ``G/M`` local heads.
+   (m1) ``weather_transformer`` tensor-parallel at ``model=2`` and, on
+       four cards, ``data=2, model=2``, f32 and bf16; the best
+       checkpoint's ``qkv_proj`` kernel is dense (512 x 1536);
+   (m2) ``weather_moe`` (4 experts, the sorted engine, capacity factor 8)
+       expert-parallel at ``model=2`` and ``model=4``;
+   (m3) on four cards, ZeRO-1 and FSDP at ``data=4`` against DP: the same
+       val_loss within 1e-5, less optimizer state (and, FSDP, fewer
+       parameter bytes) per rank; under the family tables only the leaves
+       outside the tensor-parallel units split (the reference's rule), so
+       each runs again with ``DCT_SHARD_RULES`` replicating the units,
+       where it must hold at most 0.3x DP's bytes;
+   (m4) on four cards, at ``data=2, model=2`` with ZeRO-1, one epoch and a
+       resumed one against two straight: the same val_loss and resume
+       state within 1e-6.
+   Prints each world's val_loss, step time, samples/s, per-rank peak
+   memory, parameter and optimizer bytes and launches, then all of them
+   on one ``[smoke] (m) summary`` line and in ``phase_m.json`` under the
+   phase's directory. On one card it prints one line,
+   ``{"phase": "m", "ran": false, "cards": 1}``, and the other phases run
+   as before.
+
 Prints the ``kernels`` JSON line (each kernel with its f32 numbers at the
 top level, as earlier slices did, a ``bf16`` summary beside them, and its
 ``tensor_core_instructions`` by dtype; ``launches_by_path`` gains
-``serve_k``, ``predict``, ``knobs`` and ``families``), then the card line,
+``serve_k``, ``predict``, ``knobs``, ``families`` and ``model_axis``),
+then the card line,
 then, last, ``{"ok": true, "device": {...}}``. Any failure raises.
 """
 
@@ -3516,14 +3551,317 @@ def serving_probe(root: str) -> tuple[str, str]:
     return ckpt, processed
 
 
+# (m) the model axis: one process per card, NCCL, through train_job.
+MESH_CFG = dict(SERVE_CFG)  # bench.py:216-227's width
+MESH_ROWS = 2624  # 1600 windows of 1024: 400 train, 176 val (fraction 0.75)
+MESH_VAL_FRACTION = 0.75
+MESH_BATCH = 16  # global batch: 25 train steps, 11 eval batches an epoch
+MESH_EPOCHS = 2
+MESH_LR = 0.01  # SGD with momentum 0.9: Adam's first update is about
+MESH_MOMENTUM = 0.9  # lr * sign(g), which parts two runs on rounding alone
+MESH_MOE_CAPACITY = 8.0  # ample, as the reference's drill
+MESH_TOL = {"0": 1e-5, "1": 2e-2}  # |val_loss - W=1's|, f32 and bf16
+MESH_REPLICATE_UNITS = "(qkv_proj|o_proj|ffn_in|ffn_out).*="
+
+
+def _mesh_env(root: str, name: str, processed: str, *, family: str,
+              bf16: bool, data: int, model: int, batch: int,
+              epochs: int = MESH_EPOCHS, **extra) -> dict:
+    env = _child_env(
+        DCT_PROCESSED_DIR=processed,
+        DCT_MODELS_DIR=os.path.join(root, f"models-{name}"),
+        DCT_TRACKING_DIR=os.path.join(root, "mlruns"),
+        DCT_MODEL=family, DCT_SEQ_LEN=str(MESH_CFG["seq_len"]),
+        DCT_D_MODEL=str(MESH_CFG["d_model"]),
+        DCT_N_HEADS=str(MESH_CFG["n_heads"]),
+        DCT_N_LAYERS=str(MESH_CFG["n_layers"]),
+        DCT_D_FF=str(MESH_CFG["d_ff"]), DCT_EPOCHS=str(epochs),
+        DCT_BATCH_SIZE=str(batch), DCT_BF16_COMPUTE="1" if bf16 else "0",
+        DCT_OPTIMIZER="sgd", DCT_LR=str(MESH_LR),
+        DCT_MOMENTUM=str(MESH_MOMENTUM),
+        DCT_VAL_FRACTION=str(MESH_VAL_FRACTION),
+        DCT_MESH_DATA=str(data), DCT_MESH_MODEL=str(model), **extra)
+    if family == "weather_moe":
+        env.update(DCT_MOE_DISPATCH="sorted",
+                   DCT_CAPACITY_FACTOR=str(MESH_MOE_CAPACITY))
+    return env
+
+
+def _mesh_world(root: str, name: str, processed: str, **kw) -> dict:
+    """One world of ``data x model`` train_job ranks (rank r on cuda:r,
+    NCCL); each rank's fit line, launches and stdout."""
+    world = kw["data"] * kw["model"]
+    port = _free_port()
+    procs = []
+    for r in range(world):
+        env = _mesh_env(root, name, processed, **kw)
+        if world > 1:
+            env.update(WORLD_SIZE=str(world), NODE_RANK=str(r),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "dct_tpu_torch.train_job"], env=env,
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    t0 = time.perf_counter()
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=600)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r, (rc, out, err) in enumerate(outs):
+        if rc != 0:
+            raise AssertionError(f"(m) {name} rank {r} exit {rc}: "
+                                 f"{err[-3000:]}")
+        fit = json.loads([x for x in out.splitlines()
+                          if x.startswith("[train_job] fit ")][-1][16:])
+        fit["launches"] = json.loads([x for x in out.splitlines() if
+                                      x.startswith("[train_job] launches ")]
+                                     [-1][21:])
+        ranks.append(fit)
+    return {"name": name, "world": world, "wall_s": wall, "ranks": ranks,
+            "models": os.path.join(root, f"models-{name}"),
+            "global_batch": kw["batch"] * kw["data"]}
+
+
+def _mesh_summary(run: dict, base: dict | None = None) -> dict:
+    r0 = run["ranks"][0]
+    out = {"val_loss": r0["val_loss"],
+           "samples_per_s": r0["samples_per_sec"],
+           "steady_samples_per_s": r0["steady_samples_per_sec"],
+           "step_ms": 1e3 * run["global_batch"] / r0["steady_samples_per_sec"],
+           "max_memory_allocated": [r.get("max_memory_allocated")
+                                    for r in run["ranks"]],
+           "param_bytes": [r["param_bytes"] for r in run["ranks"]],
+           "opt_bytes": [r["opt_bytes"] for r in run["ranks"]],
+           "launches": [r["launches"] for r in run["ranks"]],
+           "local_heads": r0.get("local_heads"), "wall_s": run["wall_s"]}
+    if base is not None:
+        out["val_loss_diff"] = abs(r0["val_loss"] - base["ranks"][0][
+            "val_loss"])
+    return out
+
+
+def _check_mesh_run(run: dict, base: dict, tol: float, *, heads=None,
+                    where: str) -> dict:
+    """Every rank ends on the same val_loss, within ``tol`` of the W=1 run
+    at the same global batch; every rank launched the W=1 run's kernels
+    (the same steps and eval batches, each layer once), at ``heads``."""
+    summary = _mesh_summary(run, base)
+    losses = {r["val_loss"] for r in run["ranks"]}
+    want = base["ranks"][0]["launches"]
+    if DEVICE == "cuda" and not all(want.values()):
+        raise AssertionError(f"(m) {where}: the W=1 run launched {want}")
+    bad = [r["launches"] for r in run["ranks"] if r["launches"] != want]
+    if len(losses) != 1 or summary["val_loss_diff"] > tol or bad:
+        raise AssertionError(f"(m) {where}: val_losses {losses} against "
+                             f"{base['ranks'][0]['val_loss']} (tol {tol}), "
+                             f"launches {bad} against {want}")
+    if heads is not None and any(r["local_heads"] != heads
+                                 for r in run["ranks"]):
+        raise AssertionError(f"(m) {where}: local heads "
+                             f"{[r['local_heads'] for r in run['ranks']]}"
+                             f" against {heads}")
+    print(f"[smoke] (m) {where}: {json.dumps(summary)}", flush=True)
+    return summary
+
+
+def check_rank_shapes(fa) -> list[dict]:
+    """The three kernels against their plain versions, on one card, at the
+    per-rank shapes ``[B/D, H/M, T, D]`` that (m)'s worlds launch them at
+    (every step and eval batch): ``[16, 4]`` at ``model=2``, ``[8, 4]`` at
+    ``data=2, model=2``, ``[16, 2]`` at the MoE's ``model=4``; f32 and
+    bf16, not causal, with FWD_TOL and BWD_TOL."""
+    h, t = MESH_CFG["n_heads"], MESH_CFG["seq_len"]
+    d = MESH_CFG["d_model"] // h
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = []
+    for b, hl in ((MESH_BATCH, h // 2), (MESH_BATCH // 2, h // 2),
+                  (MESH_BATCH, h // 4)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn(b, hl, t, d, generator=gen,
+                                       device="cuda").to(dtype)
+                           for _ in range(4))
+            o, lse = fa.flash_attention(q, k, v, causal=False,
+                                        return_lse=True)
+            args = (q, k, v, o, lse, do)
+            dk, dv = fa.flash_bwd_dkdv(*args, causal=False)
+            dq = fa.flash_bwd_dq(*args, causal=False)
+            torch.cuda.synchronize()
+            po, plse = fa.flash_attention_plain(q, k, v, causal=False)
+            pdq, pdk, pdv = fa.flash_attention_bwd_plain(*args, causal=False)
+            row = {"shape": [b, hl, t, d],
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "o_max_abs_err": abs_rel_err(o, po)[0],
+                   "lse_max_abs_err": (lse - plse).abs().max().item(),
+                   **{f"{n}_max_rel_err": abs_rel_err(got, ref)[1]
+                      for n, got, ref in (("dq", dq, pdq), ("dk", dk, pdk),
+                                          ("dv", dv, pdv))}}
+            bad = (row["o_max_abs_err"] > FWD_TOL[dtype]
+                   or row["lse_max_abs_err"] > 1e-4
+                   or any(row[f"{n}_max_rel_err"] > BWD_TOL[dtype]
+                          for n in ("dq", "dk", "dv")))
+            if bad:
+                raise AssertionError(
+                    f"(m) kernels at the per-rank shape: {row} (tol "
+                    f"{FWD_TOL[dtype]} on o, 1e-4 on lse, {BWD_TOL[dtype]} "
+                    "relative on dq, dk, dv)")
+            print(f"[smoke] (m) rank shape {json.dumps(row)}", flush=True)
+            rows.append(row)
+    return rows
+
+
+def model_axis_phase(root: str, card: str) -> dict:
+    """(m) The model axis on two or more cards (module docstring); one
+    line saying it did not run on fewer. The kernels' check at the
+    per-rank shapes needs one card and runs on any."""
+    from dct_tpu_torch.checkpoint.manager import load_checkpoint
+    from dct_tpu_torch.data.synthetic import generate_weather_csv
+    from dct_tpu_torch.etl.preprocess import preprocess_csv_to_parquet
+    from dct_tpu_torch.ops import flash_attention as fa
+
+    rank_shapes = check_rank_shapes(fa)
+    cards = torch.cuda.device_count()
+    zero = {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    if cards < 2:
+        print(json.dumps({"phase": "m", "ran": False, "cards": cards}),
+              flush=True)
+        return {"ran": False, "launches": zero, "rank_shapes": rank_shapes}
+    t_phase = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    raw = os.path.join(root, "raw", "weather.csv")
+    generate_weather_csv(raw, rows=MESH_ROWS, seed=12)
+    processed = os.path.join(root, "processed")
+    preprocess_csv_to_parquet(raw, processed)
+    h = MESH_CFG["n_heads"]
+    out = {"ran": True, "cards": cards, "card": card,
+           "rank_shapes": rank_shapes, "m1": {}, "m2": {}, "m3": {},
+           "m4": {}}
+    runs = []
+
+    def world(name, **kw):
+        run = _mesh_world(root, name, processed, **kw)
+        runs.append(run)
+        return run
+
+    tf = "weather_transformer"
+    # (m1) tensor parallelism, f32 and bf16, against W=1.
+    for bf16 in (False, True):
+        tag = "bf16" if bf16 else "f32"
+        base = world(f"m1-{tag}-w1", family=tf, bf16=bf16, data=1, model=1,
+                     batch=MESH_BATCH)
+        out["m1"][f"{tag}_w1"] = _mesh_summary(base)
+        meshes = [(1, 2)] + ([(2, 2)] if cards >= 4 else [])
+        for d, m in meshes:
+            run = world(f"m1-{tag}-d{d}m{m}", family=tf, bf16=bf16, data=d,
+                        model=m, batch=MESH_BATCH // d)
+            out["m1"][f"{tag}_d{d}m{m}"] = _check_mesh_run(
+                run, base, MESH_TOL["1" if bf16 else "0"],
+                heads=[h // m, h // m], where=f"m1 {tag} data={d} model={m}")
+            best = [n for n in os.listdir(run["models"])
+                    if n.startswith("weather-best-")]
+            params, _ = load_checkpoint(os.path.join(run["models"], best[0]))
+            qkv = params["params"]["block_0"]["attn"]["qkv_proj"]["kernel"]
+            want = (MESH_CFG["d_model"], 3 * MESH_CFG["d_model"])
+            if tuple(qkv.shape) != want:
+                raise AssertionError(f"(m1) best checkpoint's qkv kernel "
+                                     f"{qkv.shape}, not dense {want}")
+    # (m2) expert parallelism: the sorted engine, ample capacity.
+    base = world("m2-w1", family="weather_moe", bf16=False, data=1, model=1,
+                 batch=MESH_BATCH)
+    out["m2"]["w1"] = _mesh_summary(base)
+    for m in [2] + ([4] if cards >= 4 else []):
+        run = world(f"m2-model{m}", family="weather_moe", bf16=False,
+                    data=1, model=m, batch=MESH_BATCH)
+        out["m2"][f"model{m}"] = _check_mesh_run(
+            run, base, MESH_TOL["0"], heads=[h // m, h // m],
+            where=f"m2 moe model={m}")
+    if cards >= 4:
+        # (m3) ZeRO-1 and FSDP against DP at data=4.
+        dp = world("m3-dp", family=tf, bf16=False, data=4, model=1,
+                   batch=MESH_BATCH // 4)
+        out["m3"]["dp"] = _mesh_summary(dp)
+        # Under the family tables the transformer's projections keep their
+        # (here trivial) model placement and only the other leaves split
+        # over data, as the reference's rule has it; with the units
+        # replicated by rules every leaf whose leading dim divides splits.
+        for tag, knob, rules in (
+                ("zero1", "DCT_SHARD_OPT_STATE", None),
+                ("fsdp", "DCT_SHARD_PARAMS", None),
+                ("zero1_rules", "DCT_SHARD_OPT_STATE", MESH_REPLICATE_UNITS),
+                ("fsdp_rules", "DCT_SHARD_PARAMS", MESH_REPLICATE_UNITS)):
+            extra = {knob: "1"}
+            if rules:
+                extra["DCT_SHARD_RULES"] = rules
+            run = world(f"m3-{tag}", family=tf, bf16=False, data=4, model=1,
+                        batch=MESH_BATCH // 4, **extra)
+            s = _check_mesh_run(run, dp, 1e-5, where=f"m3 {tag} data=4")
+            dp_bytes = out["m3"]["dp"]
+            # With the units replicated, at most 0.3x of DP's bytes.
+            limit = 0.3 if rules else 1.0
+            smaller = (max(s["opt_bytes"]) < limit * min(dp_bytes["opt_bytes"])
+                       and (knob != "DCT_SHARD_PARAMS"
+                            or max(s["param_bytes"]) <
+                            limit * min(dp_bytes["param_bytes"])))
+            if not smaller:
+                raise AssertionError(f"(m3) {tag} holds no less per rank: "
+                                     f"{s} against {dp_bytes}")
+            out["m3"][tag] = s
+        # (m4) shard-saved resume at data=2, model=2 (with ZeRO-1): one
+        # epoch, then one resumed, against two straight.
+        kw = dict(family=tf, bf16=False, data=2, model=2,
+                  batch=MESH_BATCH // 2, DCT_SHARD_OPT_STATE="1")
+        straight = world("m4-straight", **kw)
+        world("m4-split", epochs=1, **kw)
+        resumed = world("m4-split", epochs=1, DCT_RESUME="1", **kw)
+        diffs = []
+        for r in range(4):
+            states = [np.load(os.path.join(run["models"], "train_state",
+                                           f"p{r}", "state", "state.npz"))
+                      for run in (straight, resumed)]
+            if sorted(states[0].files) != sorted(states[1].files):
+                raise AssertionError(f"(m4) rank {r}: keys differ")
+            diffs.append(max(float(np.abs(states[0][k].astype(np.float64)
+                                          - states[1][k]).max())
+                             for k in states[0].files))
+        a, b = (run["ranks"][0]["val_loss"] for run in (straight, resumed))
+        out["m4"] = {"val_loss_straight": a, "val_loss_resumed": b,
+                     "max_abs_state_diff": max(diffs),
+                     "shard_keys_rank0": sum("_s" in k for k in np.load(
+                         os.path.join(resumed["models"], "train_state", "p0",
+                                      "state", "state.npz")).files)}
+        if abs(a - b) > 1e-6 or max(diffs) > 1e-6:
+            raise AssertionError(f"(m4) resumed run parts from the straight "
+                                 f"one: {out['m4']}")
+        print(f"[smoke] (m4) {json.dumps(out['m4'])}", flush=True)
+    launches = {k: sum(r["launches"][k] for run in runs
+                       for r in run["ranks"]) for k in zero}
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[smoke] (m) model axis on {cards} cards, launches {launches}, "
+          f"phase {out['phase_s']:.1f} s on {card}", flush=True)
+    print(f"[smoke] (m) summary {json.dumps(out)}", flush=True)
+    with open(os.path.join(root, "phase_m.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("all", "k", "l"), default="all",
+    ap.add_argument("--phase", choices=("all", "k", "l", "m"),
+                    default="all",
                     help="k: build the kernels and run only (k), over a "
                          "random full-width checkpoint and synthetic rows; "
-                         "l: only (l), over synthetic rows")
+                         "l: only (l), over synthetic rows; m: only (m), "
+                         "the model axis, on two or more cards")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3557,6 +3895,15 @@ def main(argv=None) -> int:
     tc_counts = tensor_core_instructions(build)
     print(f"[smoke] tensor-core instructions: {tc_counts}", flush=True)
 
+    if args.phase == "m":
+        model_axis_phase(os.path.join(HERE, "build", "chip_smoke_mesh"),
+                         card)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
     if args.phase in ("k", "l"):
         probe_root = os.path.join(HERE, "build", "chip_smoke_probe")
         shutil.rmtree(probe_root, ignore_errors=True)
@@ -3634,6 +3981,10 @@ def main(argv=None) -> int:
         fa, os.path.join(HERE, "build", "chip_smoke_families"),
         os.path.join(loop_root, "episodic", "processed"), card)
     l_counts = families["launches"]
+    torch.cuda.empty_cache()
+    mesh = model_axis_phase(os.path.join(HERE, "build", "chip_smoke_mesh"),
+                            card)
+    m_counts = mesh["launches"]
 
     def bf16_summary(rows):
         row = [r for r in rows
@@ -3659,7 +4010,7 @@ def main(argv=None) -> int:
                      + sched_counts["flash_fwd"]
                      + k_counts["serve_k"] + k_counts["predict"]
                      + k_counts["knobs"]["flash_fwd"]
-                     + l_counts["flash_fwd"]),
+                     + l_counts["flash_fwd"] + m_counts["flash_fwd"]),
         "launches_by_path": {"serve": launches,
                              "train": train_counts["flash_fwd"],
                              "fit": fit_counts["flash_fwd"],
@@ -3670,7 +4021,8 @@ def main(argv=None) -> int:
                              "serve_k": k_counts["serve_k"],
                              "predict": k_counts["predict"],
                              "knobs": k_counts["knobs"]["flash_fwd"],
-                             "families": l_counts["flash_fwd"]},
+                             "families": l_counts["flash_fwd"],
+                             "model_axis": m_counts["flash_fwd"]},
         "gate_launches_per_consult": loop_counts["gate"]["flash_fwd"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -3693,7 +4045,7 @@ def main(argv=None) -> int:
             "launches": (train_counts[name] + fit_counts[name]
                          + loop_counts["train"][name] + sup_counts[name]
                          + sched_counts[name] + k_counts["knobs"][name]
-                         + l_counts[name]),
+                         + l_counts[name] + m_counts[name]),
             "launches_by_path": {"train": train_counts[name],
                                  "fit": fit_counts[name],
                                  "loop_train": loop_counts["train"][name],
@@ -3702,7 +4054,8 @@ def main(argv=None) -> int:
                                  "scheduler": sched_counts[name],
                                  "serve_k": 0, "predict": 0,
                                  "knobs": k_counts["knobs"][name],
-                                 "families": l_counts[name]},
+                                 "families": l_counts[name],
+                                 "model_axis": m_counts[name]},
             "launches_per_step": train_counts[name] / train_steps,
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],

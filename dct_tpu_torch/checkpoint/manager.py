@@ -18,8 +18,21 @@
    are in flax layout (dense kernels ``[in, out]``), so either side
    resumes the other's run.
 
-Cross-process sharded leaves (saved as local shards by the reference)
-wait for ROADMAP Queue A item 15: here every leaf is saved whole.
+   On a mesh, a leaf split across processes (a tensor-parallel slice, a
+   ZeRO-1 moment block, an FSDP parameter block) is saved as this
+   process's block under ``"<i>_s<off0>x<off1>..."``, keyed by its global
+   start offsets in flax layout, as the reference's ``_index_key`` keys
+   its local shards; every other leaf keeps ``"<i>"`` and is saved whole.
+   ``layout.json`` (version 1) records the process index and count, the
+   mesh, the dtype rules and, per leaf, its global ``shape``, declared
+   ``spec`` and ``"saved": "shards" | "whole"``. A restore reads this
+   process's own file on the same topology; where shards are involved and
+   the mesh or the process count changed, it raises (the reference re-maps
+   shards across topologies: ROADMAP Queue A item 15b).
+
+The deploy tier is dense whatever the placement: :func:`save_checkpoint`
+takes the gathered tree (:func:`dct_tpu_torch.parallel.sharding_rules.
+gather_tree`, which every process runs; only the coordinator writes).
 
 Both tiers consult the process fault plan inside their write window (the
 ``save`` point: a temp file written, its final name not yet renamed), so
@@ -172,24 +185,6 @@ def _to_flax(t: torch.Tensor, transposed: bool) -> np.ndarray:
     return np.array(a.T if transposed else a, order="C")
 
 
-def _opt_leaves(tx, st, per_param) -> list:
-    """The optax leaves of the port's optimizer state ``st``."""
-    if tx.kind == "chain":
-        return [leaf for t, s in zip(tx.parts, st)
-                for leaf in _opt_leaves(t, s, per_param)]
-    count = lambda c: np.asarray(c, np.int32)  # noqa: E731
-    if tx.kind == "adam":
-        return [count(st["count"]), *per_param(st["mu"]),
-                *per_param(st["nu"])]
-    if tx.kind == "lion":
-        return [count(st["count"]), *per_param(st["mu"])]
-    if tx.kind == "trace":
-        return per_param(st)
-    if tx.kind == "schedule":
-        return [count(st)]
-    return []
-
-
 def _opt_from_leaves(tx, st, it, per_param, step: int):
     """The port's optimizer state from the optax leaves of ``it``, shaped
     like the template ``st``."""
@@ -211,57 +206,140 @@ def _opt_from_leaves(tx, st, it, per_param, step: int):
 
 
 def state_leaves(state) -> list[np.ndarray]:
-    """The reference's ``jax.tree.leaves`` of the train state, as host
-    arrays, from the port's :class:`~dct_tpu_torch.train.state.TrainState`."""
-    order = _param_order(state.model)
-
-    def per_param(tensors):
-        return [_to_flax(tensors[i], tr) for i, _, tr in order]
-
-    params = state.params
-    rng = int(state.rng)
-    return [
-        *_opt_leaves(state.tx, state.opt_state, per_param),
-        *per_param(params),
-        np.asarray([rng >> 32, rng & 0xFFFFFFFF], np.uint32),
-        np.asarray(state.step, np.int32),
-    ]
+    """The reference's ``jax.tree.leaves`` of an unsplit train state, as
+    host arrays, from the port's
+    :class:`~dct_tpu_torch.train.state.TrainState`."""
+    entries, _ = state_entries(state)
+    return [entries[str(i)] for i in range(len(entries))]
 
 
 def restore_state_leaves(state, leaves: list[np.ndarray]):
     """Fill ``state`` (in place) from the reference's leaf list; raises
     ``KeyError`` when the count or a shape does not fit."""
-    template = state_leaves(state)
-    if len(leaves) != len(template):
+    return restore_entries(state, {str(i): a for i, a in enumerate(leaves)})
+
+
+def _leaf_values(state) -> list[tuple[str, int | None, Any]]:
+    """Every leaf of the reference's state tree in its order, as ``(kind,
+    parameter index or None, value)``: counts, the rng and the step as
+    host arrays; moments and parameters as the tensors this process
+    stores (torch layout)."""
+    from dct_tpu_torch.parallel.sharding_rules import opt_slots
+
+    order = _param_order(state.model)
+    out = []
+    for kind, _, value in opt_slots(state.tx, state.opt_state):
+        if kind == "count":
+            out.append(("count", None, np.asarray(value, np.int32)))
+        else:
+            out += [("moment", i, value[i]) for i, _, _ in order]
+    out += [("param", i, state.stored_param(i)) for i, _, _ in order]
+    rng = int(state.rng)
+    out.append(("rng", None, np.asarray([rng >> 32, rng & 0xFFFFFFFF],
+                                        np.uint32)))
+    out.append(("step", None, np.asarray(state.step, np.int32)))
+    return out
+
+
+def _leaf_axis(layout, kind: str, i):
+    """(the layout leaf, the axis that splits this state leaf or None,
+    its declared spec)."""
+    if layout is None or i is None:
+        return None, None, ()
+    lf = layout.leaves[i]
+    if kind == "moment":
+        return lf, lf.moment_axis, lf.moment_spec
+    return lf, lf.param_axis, lf.param_spec
+
+
+def state_entries(state) -> tuple[dict, list]:
+    """(the ``state.npz`` entries of this process, the ``layout.json``
+    leaf records): whole leaves under ``"<i>"``, split ones as this
+    process's block under ``"<i>_s<offsets>"`` (flax layout, global
+    start offsets)."""
+    from dct_tpu_torch.parallel.sharding_rules import spec_to_json
+
+    layout = getattr(state, "layout", None)
+    order = {i: tr for i, _, tr in _param_order(state.model)}
+    entries, records = {}, []
+    for n, (kind, i, value) in enumerate(_leaf_values(state)):
+        lf, axis, spec = _leaf_axis(layout, kind, i)
+        if i is None:
+            shape = [int(d) for d in value.shape]
+            entries[str(n)] = value
+        else:
+            a = _to_flax(value, order[i])
+            shape = ([int(d) for d in lf.shape] if lf is not None
+                     else [int(d) for d in a.shape])
+            if axis is None:
+                entries[str(n)] = a
+            else:
+                off = "x".join(str(o) for o in lf.offsets())
+                entries[f"{n}_s{off}"] = a
+        records.append({"leaf": n, "shape": shape,
+                        "spec": spec_to_json(spec),
+                        "saved": "shards" if axis else "whole"})
+    return entries, records
+
+
+def restore_entries(state, entries: dict):
+    """Fill ``state`` (in place) from ``state.npz`` entries saved on this
+    topology; raises ``KeyError`` when a leaf is missing or its count or
+    shape does not fit."""
+    layout = getattr(state, "layout", None)
+    values = _leaf_values(state)
+    groups = {k.split("_s")[0] for k in entries if k[:1].isdigit()}
+    if len(groups) != len(values):
         raise KeyError(
-            f"{len(leaves)} leaves saved, {len(template)} expected: "
+            f"{len(groups)} leaves saved, {len(values)} expected: "
             "typically DCT_OPTIMIZER (or another state-shaping knob) "
             "changed since the checkpoint was written"
         )
-    for i, (a, t) in enumerate(zip(leaves, template)):
-        if tuple(np.shape(a)) != tuple(t.shape):
-            raise KeyError(f"leaf {i} has shape {tuple(np.shape(a))} on "
-                           f"disk but {tuple(t.shape)} in the template")
-    order = _param_order(state.model)
+    rows = _param_order(state.model)
+    order = {i: tr for i, _, tr in rows}
     params = state.params
     dev = params[0].device
 
+    def tensor(i, a):
+        a = np.asarray(a, np.float32)
+        return torch.tensor(a.T if order[i] and a.ndim == 2 else a).to(
+            device=dev, dtype=params[i].dtype).contiguous()
+
+    prepared = []
+    for n, (kind, i, value) in enumerate(values):
+        lf, axis, _ = _leaf_axis(layout, kind, i)
+        key = str(n)
+        if axis is not None:
+            key = f"{n}_s" + "x".join(str(o) for o in lf.offsets())
+        if key not in entries:
+            raise KeyError(
+                f"leaf {n} ({kind}) has no entry {key!r}; saved "
+                f"{sorted(k for k in entries if k.split('_s')[0] == str(n))}")
+        a = entries[key]
+        want = (tuple(value.shape) if i is None
+                else tuple(_to_flax(value, order[i]).shape))
+        if tuple(np.shape(a)) != want:
+            raise KeyError(f"leaf {n} has shape {tuple(np.shape(a))} on "
+                           f"disk but {want} in the template")
+        prepared.append(a if i is None else tensor(i, a))
+
     def per_param(it):
-        out = [None] * len(order)
-        for i, _, tr in order:
-            a = np.asarray(next(it), np.float32)
-            out[i] = torch.tensor(a.T if tr else a).to(
-                device=dev, dtype=params[i].dtype).contiguous()
+        out = [None] * len(rows)
+        for i, _, _ in rows:
+            out[i] = next(it)
         return out
 
-    n_opt = len(leaves) - len(order) - 2
-    *_, key, step = leaves
+    n_opt = len(prepared) - len(rows) - 2
+    *_, key, step = prepared
     step = int(np.asarray(step))
     state.opt_state = _opt_from_leaves(
-        state.tx, state.opt_state, iter(leaves[:n_opt]), per_param, step)
+        state.tx, state.opt_state, iter(prepared[:n_opt]), per_param, step)
     with torch.no_grad():
-        for p, value in zip(params, per_param(iter(leaves[n_opt:-2]))):
-            p.copy_(value)
+        for (i, _, _), value in zip(rows, prepared[n_opt:-2]):
+            if i in state.shards:
+                state.shards[i] = value
+            else:
+                params[i].copy_(value)
     key = np.asarray(key).astype(np.uint64)
     state.rng = int(key[0]) << 32 | int(key[1])
     state.step = step
@@ -289,45 +367,45 @@ class TrainStateCheckpointer:
                 if os.path.exists(os.path.join(self._dir(n), "state.npz"))]
 
     @staticmethod
-    def _layout(state, leaves) -> dict:
-        """``layout.json``: each leaf's global shape, its PartitionSpec
-        (every leaf is replicated over the data axis: ``[]``) and how it
-        was saved, with the process topology and the dtype rules."""
+    def _layout(state, records) -> dict:
+        """``layout.json``: the process topology, the mesh, the dtype
+        rules and each leaf's global shape, declared spec and how it was
+        saved (:func:`state_entries`)."""
         from dct_tpu_torch.parallel.distributed import (
             process_count,
             process_index,
         )
+        from dct_tpu_torch.parallel.mesh import get_mesh
         from dct_tpu_torch.parallel.sharding_rules import dtype_rules_digest
 
+        layout = getattr(state, "layout", None)
+        mesh = layout.mesh if layout is not None else get_mesh()
         return {
             "version": 1,
             "process_index": process_index(),
             "process_count": process_count(),
-            "mesh": {"data": process_count(), "model": 1, "seq": 1,
-                     "pipe": 1},
+            "mesh": {k: int(v) for k, v in mesh.shape.items()},
             "dtype_rules": dtype_rules_digest(),
-            "leaves": [{"leaf": i, "shape": [int(s) for s in a.shape],
-                        "spec": [], "saved": "whole"}
-                       for i, a in enumerate(leaves)],
+            "leaves": records,
         }
 
     def save(self, state, meta: dict | None = None) -> str:
         """Persist the state now (joins any async write first)."""
         self.wait()
-        leaves = state_leaves(state)
-        return self._publish(leaves, meta, self._layout(state, leaves))
+        entries, records = state_entries(state)
+        return self._publish(entries, meta, self._layout(state, records))
 
     def save_async(self, state, meta: dict | None = None) -> None:
         """Snapshot the state to host arrays now and write it on a worker
         thread; at most one write is in flight. :meth:`wait` joins it and
         raises its failure."""
         self.wait()
-        leaves = state_leaves(state)
-        layout = self._layout(state, leaves)
+        entries, records = state_entries(state)
+        layout = self._layout(state, records)
 
         def work():
             try:
-                self._publish(leaves, meta, layout)
+                self._publish(entries, meta, layout)
             except BaseException as e:  # surfaced by the next wait()
                 self._error = e
 
@@ -344,28 +422,27 @@ class TrainStateCheckpointer:
                 f"async train-state checkpoint write failed: {err!r}"
             ) from err
 
-    def _publish(self, leaves, meta, layout) -> str:
+    def _publish(self, entries, meta, layout) -> str:
         # Spanned from whichever thread publishes (save_async's worker
         # included); a failed write is recorded too.
         span = _spans.get_default().start(
             "checkpoint.resume_save", component="checkpoint",
             epochs_completed=(meta or {}).get("epochs_completed"))
         try:
-            return self._publish_inner(leaves, meta, layout)
+            return self._publish_inner(entries, meta, layout)
         except BaseException as e:
             span.attrs["error"] = type(e).__name__
             raise
         finally:
             span.end()
 
-    def _publish_inner(self, leaves, meta, layout) -> str:
+    def _publish_inner(self, entries, meta, layout) -> str:
         next_dir = self._dir(self._NEXT)
         if os.path.isdir(next_dir):
             shutil.rmtree(next_dir)
         os.makedirs(next_dir)
         for name, write in (
-            ("state.npz", lambda f: np.savez(
-                f, **{str(i): a for i, a in enumerate(leaves)})),
+            ("state.npz", lambda f: np.savez(f, **entries)),
             ("meta.json", lambda f: f.write(json.dumps(meta).encode())),
             ("layout.json", lambda f: f.write(json.dumps(layout).encode())),
         ):
@@ -423,19 +500,39 @@ class TrainStateCheckpointer:
             raise FileNotFoundError(
                 f"No train-state checkpoint under {self.dirpath}")
         with np.load(os.path.join(candidates[0], "state.npz")) as npz:
-            keys = sorted((k for k in npz.files if k.isdigit()), key=int)
-            if keys != [str(i) for i in range(len(keys))] or len(keys) != len(
-                    npz.files):
-                raise KeyError(
-                    f"{candidates[0]}/state.npz holds {sorted(npz.files)}: "
-                    "shard-saved leaves (a sharded run) wait for ROADMAP "
-                    "Queue A item 15")
-            leaves = [npz[k] for k in keys]
+            entries = {k: npz[k] for k in npz.files}
+        self._check_topology(state, candidates[0], entries)
         try:
-            return restore_state_leaves(state, leaves)
+            return restore_entries(state, entries)
         except KeyError as e:
             raise KeyError(
                 f"Checkpoint {candidates[0]} does not match this run's "
                 f"TrainState: {e.args[0]}. Restore the original setting, "
                 f"or clear {self.dirpath} to restart the trajectory."
             ) from e
+
+    def _check_topology(self, state, where: str, entries: dict) -> None:
+        """Refuse a restore that would have to re-map shards: shard-saved
+        leaves, or a split template, under another mesh or process count
+        than the saving run's."""
+        layout = getattr(state, "layout", None)
+        split_now = layout is not None and layout.sharded
+        shards = any("_s" in k for k in entries)
+        if not (split_now or shards):
+            return
+        try:
+            with open(os.path.join(where, "layout.json")) as f:
+                saved = json.load(f)
+        except (OSError, ValueError):
+            saved = {}
+        now = self._layout(state, [])
+        was = {"mesh": saved.get("mesh"),
+               "process_count": saved.get("process_count")}
+        cur = {"mesh": now["mesh"], "process_count": now["process_count"]}
+        if was != cur:
+            raise RuntimeError(
+                f"Checkpoint {where} was saved on topology {was} and this "
+                f"run is {cur}: a shard-saved resume restores on the saving "
+                "topology only (re-mapping shards onto another mesh is "
+                "ROADMAP Queue A item 15b). Resume with the saving mesh, or "
+                f"clear {self.dirpath} to restart the trajectory.")

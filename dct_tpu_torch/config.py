@@ -6,7 +6,8 @@ the same architecture here. The other sections keep the fields the port's
 code reads, with the reference's defaults and ``DCT_*`` environment names
 (and its unprefixed ``WORLD_SIZE``/``NODE_RANK``/``MASTER_ADDR``/
 ``MASTER_PORT``/``MLFLOW_TRACKING_URI``): ``DataConfig`` (``:34-60``),
-``TrainConfig`` (``:164-282``), ``DistributedConfig`` (``:311-346``),
+``TrainConfig`` (``:164-282``), ``MeshConfig`` (``:286-308``),
+``DistributedConfig`` (``:311-346``),
 ``TrackingConfig`` (``:348-369``), ``ObservabilityConfig`` (the event
 log, spans, heartbeats and health policy of ``:413-470`` and the metrics
 plane's ``metrics_dir`` and ``metrics_publish_s``, ``:468-471``),
@@ -288,6 +289,10 @@ class TrainConfig:
     early_stop_patience: int = 0
     early_stop_min_delta: float = 0.0
     epoch_chunk: int = 1
+    # ZeRO-1 (the optimizer state) and FSDP (the parameters and their
+    # moments) over the data axis (parallel/sharding_rules.py).
+    shard_opt_state: bool = False
+    shard_params: bool = False
 
     @classmethod
     def from_env(cls) -> "TrainConfig":
@@ -317,6 +322,30 @@ class TrainConfig:
         c.early_stop_min_delta = _env("DCT_EARLY_STOP_MIN_DELTA",
                                       c.early_stop_min_delta, float)
         c.epoch_chunk = _env("DCT_EPOCH_CHUNK", c.epoch_chunk, int)
+        c.shard_opt_state = _env("DCT_SHARD_OPT_STATE", c.shard_opt_state,
+                                 bool)
+        c.shard_params = _env("DCT_SHARD_PARAMS", c.shard_params, bool)
+        return c
+
+
+@dataclass
+class MeshConfig:
+    """The process grid: ``data`` (the batch axis), ``model`` (tensor and
+    expert parallelism), ``seq`` and ``pipe``; one process per card. A size
+    of -1 absorbs every remaining process."""
+
+    data: int = -1
+    model: int = 1
+    seq: int = 1
+    pipe: int = 1
+
+    @classmethod
+    def from_env(cls) -> "MeshConfig":
+        c = cls()
+        c.data = _env("DCT_MESH_DATA", c.data, int)
+        c.model = _env("DCT_MESH_MODEL", c.model, int)
+        c.seq = _env("DCT_MESH_SEQ", c.seq, int)
+        c.pipe = _env("DCT_MESH_PIPE", c.pipe, int)
         return c
 
 
@@ -689,6 +718,7 @@ class RunConfig:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     dist: DistributedConfig = field(default_factory=DistributedConfig)
     tracking: TrackingConfig = field(default_factory=TrackingConfig)
     obs: ObservabilityConfig = field(default_factory=ObservabilityConfig)
@@ -701,6 +731,7 @@ class RunConfig:
     def from_env(cls) -> "RunConfig":
         return cls(data=DataConfig.from_env(), model=ModelConfig.from_env(),
                    train=TrainConfig.from_env(),
+                   mesh=MeshConfig.from_env(),
                    dist=DistributedConfig.from_env(),
                    tracking=TrackingConfig.from_env(),
                    obs=ObservabilityConfig.from_env(),

@@ -245,9 +245,10 @@ class AlwaysOnLoop:
         # The ranks rebuild RunConfig.from_env(): every path and knob THIS
         # loop was constructed with travels, or a programmatic RunConfig
         # would train into env-default dirs while the watcher and the
-        # evaluator look at the configured ones. (The reference forwards
-        # its mesh, sharding and stream keys too; the port's ranks refuse
-        # those: train_job.refuse_unported_env.)
+        # evaluator look at the configured ones; the mesh and sharding
+        # knobs too, so that every rank builds the same grid and layout.
+        # (The reference forwards its stream keys as well; the port's
+        # ranks refuse the stream ingest: train_job.refuse_unported_env.)
         env = {
             "DCT_EPOCHS": str(self.loop_cfg.epochs_per_round),
             "DCT_RESUME": "1",
@@ -258,11 +259,21 @@ class AlwaysOnLoop:
             "DCT_EVENTS_DIR": self.cfg.obs.events_dir,
             "DCT_HEARTBEAT_DIR": self.cfg.obs.heartbeat_dir,
             "DCT_FAULT_SPEC": self._fault_spec,
+            "DCT_MESH_DATA": str(self.cfg.mesh.data),
+            "DCT_MESH_MODEL": str(self.cfg.mesh.model),
+            "DCT_MESH_SEQ": str(self.cfg.mesh.seq),
+            "DCT_MESH_PIPE": str(self.cfg.mesh.pipe),
+            "DCT_SHARD_OPT_STATE": "1" if self.cfg.train.shard_opt_state
+            else "0",
+            "DCT_SHARD_PARAMS": "1" if self.cfg.train.shard_params else "0",
             "PYTHONPATH": os.pathsep.join(
                 p for p in (_PKG_ROOT, os.environ.get("PYTHONPATH")) if p),
         }
         if self.device.type == "cpu":
             env["DCT_DEVICE"] = "cpu"
+        # Env-only: an operator's rule overrides ride along when set.
+        if os.environ.get("DCT_SHARD_RULES"):
+            env["DCT_SHARD_RULES"] = os.environ["DCT_SHARD_RULES"]
         # Per-tenant overrides (scheduler mode) ride UNDER the loop's own
         # keys: the tenant env shaped this loop's cfg in the first place,
         # and the cfg is the round's contract.

@@ -33,17 +33,50 @@ from torch import nn
 
 
 class TorchStyleDense(nn.Linear):
-    """``nn.Linear(in_features, features)`` with torch's default init."""
+    """``nn.Linear(in_features, features)`` with torch's default init.
+
+    Split over the model axis (:meth:`split_output`, :meth:`split_input`)
+    it is a Megatron layer: column-parallel (this rank's block of the
+    output features; the input enters through
+    :func:`~dct_tpu_torch.parallel.mesh.copy_to_model`) or row-parallel
+    (this rank's block of the input features; the partial products are
+    summed over the model group, then the replicated bias is added once)."""
 
     def __init__(self, in_features: int, features: int, *, device=None,
                  dtype=None, compute_dtype: torch.dtype | None = None):
         super().__init__(in_features, features, device=device, dtype=dtype)
         self.compute_dtype = compute_dtype
+        self.tp: tuple | None = None  # ("column" | "row", ModelShard)
+
+    def split_output(self, shard) -> None:
+        """Keep this rank's contiguous block of the output features."""
+        n = self.out_features // shard.size
+        rows = slice(shard.index * n, (shard.index + 1) * n)
+        self.weight = nn.Parameter(self.weight.data[rows].clone())
+        self.bias = nn.Parameter(self.bias.data[rows].clone())
+        self.out_features, self.tp = n, ("column", shard)
+
+    def split_input(self, shard) -> None:
+        """Keep this rank's contiguous block of the input features."""
+        n = self.in_features // shard.size
+        cols = slice(shard.index * n, (shard.index + 1) * n)
+        self.weight = nn.Parameter(self.weight.data[:, cols].clone())
+        self.in_features, self.tp = n, ("row", shard)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.compute_dtype or x.dtype
-        return F.linear(x.to(dtype), self.weight.to(dtype),
-                        self.bias.to(dtype))
+        x, w, b = x.to(dtype), self.weight.to(dtype), self.bias.to(dtype)
+        if self.tp is None:
+            return F.linear(x, w, b)
+        from dct_tpu_torch.parallel.mesh import (
+            copy_to_model,
+            reduce_from_model,
+        )
+
+        kind, shard = self.tp
+        if kind == "column":
+            return F.linear(copy_to_model(x, shard), w, b)
+        return reduce_from_model(F.linear(x, w), shard) + b
 
 
 def mask_seed(key: tuple) -> int:

@@ -46,8 +46,30 @@ batch:
   probability sums: summed over the processes (the step's all-reduce), it
   is the reference's loss and gradient.
 
-Expert parallelism (the reference's ``all_to_all`` over the ``model`` axis)
-waits for that axis (ROADMAP Queue A item 15).
+On a model axis of ``M`` ranks (the reference's expert parallelism,
+``dct_tpu/models/moe.py:65-104, 308-360``) the expert stacks split their
+expert dim (``E/M`` experts per rank; ``E`` must divide by ``M``) and the
+model ranks of a data block, which hold the same tokens:
+
+- ``sorted`` routes by chunks, as the reference's ``_sorted_sharded``:
+  rank ``r`` takes the ``r``-th of ``M`` equal chunks of its block's
+  tokens with capacity ``max(1, int(cf * k * chunk / E))`` from the chunk
+  (so at tight capacity other tokens drop than in the one-shard engine),
+  scatters them into its ``[E, C, D]`` buffer, sends expert ``e``'s slots
+  to the rank owning ``e`` and gets its own experts' slots from every rank
+  (``all_to_all_single``), runs its experts, sends the results back the
+  same way, and the ranks all-gather the chunks' outputs (the gather's
+  backward keeps the rank's own rows; the tokens and gates enter through
+  :func:`~dct_tpu_torch.parallel.mesh.copy_to_model`, whose backward sums
+  the chunks' gradients). Where a block's tokens or the experts do not
+  split over ``M``, ``auto`` takes ``einsum`` and ``sorted`` raises, as the
+  reference does. With the experts replicated (a rule says so) each rank
+  routes its chunk alike and runs every expert itself;
+- ``einsum`` keeps the global routing; each rank computes its experts'
+  slice of the expert outputs and the combine sums over the model group;
+- the router, the gates and the load-balance loss are computed on every
+  model rank from the same tokens (the loss is not reduced over the model
+  group).
 """
 
 from __future__ import annotations
@@ -64,7 +86,14 @@ from dct_tpu_torch.models.transformer import (
     rope_tables,
     sincos_positions,
 )
-from dct_tpu_torch.parallel.mesh import all_gather_rows, process_count
+from dct_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    all_to_all_model,
+    copy_to_model,
+    gather_from_model,
+    get_mesh,
+    reduce_from_model,
+)
 
 ENGINES = ("auto", "sorted", "einsum")
 
@@ -77,10 +106,13 @@ def _expert_ffn(batch, w_in, b_in, w_out, b_out):
 
 
 def _sorted_moe(tokens, expert_idx, gate, w_in, b_in, w_out, b_out, *,
-                e_total: int, capacity: int):
+                e_total: int, capacity: int, ep_shard=None):
     """Sorted dispatch on one shard: tokens ``[N, D]``, ``expert_idx``
     ``[N]``, ``gate`` ``[N]`` -> ``[N, D]`` gated expert outputs (zero for
-    an entry past its expert's capacity)."""
+    an entry past its expert's capacity). With ``ep_shard`` the expert
+    weights are this rank's ``[E/M, ...]`` and the ``[E, C, D]`` buffer is
+    exchanged over the model group so that each rank runs its own
+    experts."""
     n, d = tokens.shape
     order = torch.argsort(expert_idx, stable=True)  # keeps arrival order
     sorted_e = expert_idx[order]
@@ -93,8 +125,21 @@ def _sorted_moe(tokens, expert_idx, gate, w_in, b_in, w_out, b_out, *,
     dst = torch.where(keep, sorted_e * capacity + pos, e_total * capacity)
     buf = tokens.new_zeros(e_total * capacity + 1, d).index_put(
         (dst,), tokens[order])
-    out_e = _expert_ffn(buf[:-1].reshape(e_total, capacity, d),
-                        w_in, b_in, w_out, b_out)
+    expert_in = buf[:-1].reshape(e_total, capacity, d)
+    if ep_shard is None:
+        out_e = _expert_ffn(expert_in, w_in, b_in, w_out, b_out)
+    else:
+        ep = ep_shard.size
+        e_local = e_total // ep
+        # [dst, E/M, C, D] -> [src, E/M, C, D]: every rank's slots of my
+        # experts, run as one batch per expert.
+        z = all_to_all_model(expert_in.reshape(ep, e_local, capacity, d),
+                             ep_shard)
+        z = z.transpose(0, 1).reshape(e_local, ep * capacity, d)
+        z = _expert_ffn(z, w_in, b_in, w_out, b_out)
+        z = z.reshape(e_local, ep, capacity, d).transpose(0, 1)
+        out_e = all_to_all_model(z.contiguous(), ep_shard).reshape(
+            e_total, capacity, d)
     out_flat = torch.cat([out_e.reshape(e_total * capacity, d),
                           out_e.new_zeros(1, d)])
     out_sorted = out_flat[dst] * keep[:, None].to(out_e.dtype)
@@ -106,7 +151,13 @@ def _sorted_moe(tokens, expert_idx, gate, w_in, b_in, w_out, b_out, *,
 class MoEFFN(nn.Module):
     """Routed mixture of ``n_experts`` FFNs over ``[B, S, D]`` tokens
     (module docstring). ``last_aux`` holds the pre-weighted load-balance
-    term of the last forward."""
+    term of the last forward. Its expert stacks are a tensor-parallel
+    unit."""
+
+    tp_leaves = {"experts_in_kernel": ("model", None, None),
+                 "experts_in_bias": ("model", None),
+                 "experts_out_kernel": ("model", None, None),
+                 "experts_out_bias": ("model", None)}
 
     def __init__(self, d_model: int, d_ff: int, n_experts: int, *,
                  capacity_factor: float = 1.25, aux_weight: float = 0.01,
@@ -150,6 +201,27 @@ class MoEFFN(nn.Module):
         self.takes_data_block = True
         self.last_aux: torch.Tensor | None = None
         self.last_engine: str | None = None
+        # The model axis (None: one rank) and whether the experts split
+        # over it.
+        self.ep = None
+        self.experts_split = False
+
+    def shard_model_axis(self, shard, *, split: bool) -> None:
+        """Route by the model axis ``shard`` and, with ``split``, keep
+        this rank's block of the experts."""
+        self.ep = shard
+        if not split:
+            return
+        if self.n_experts % shard.size:
+            raise ValueError(
+                f"expert parallelism over model={shard.size} needs "
+                f"n_experts ({self.n_experts}) to divide by it")
+        n = self.n_experts // shard.size
+        rows = slice(shard.index * n, (shard.index + 1) * n)
+        for name in self.flax_params:
+            setattr(self, name, nn.Parameter(
+                getattr(self, name).data[rows].clone()))
+        self.experts_split = True
 
     def capacity(self, n: int) -> int:
         """Slots per expert for ``n`` tokens (the reference's float
@@ -186,10 +258,10 @@ class MoEFFN(nn.Module):
                                 minlength=k * e).reshape(k, e)
         if self.block[0] == 1:
             return counts[None]
-        if process_count() != self.block[0]:
+        if get_mesh().data_size != self.block[0]:
             raise RuntimeError(
-                f"MoE routing over {self.block[0]} data blocks needs a "
-                f"process group of that size (have {process_count()})")
+                f"MoE routing over {self.block[0]} data blocks needs a data "
+                f"axis of that size (have {get_mesh().data_size})")
         return all_gather_rows(counts)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -212,11 +284,22 @@ class MoEFFN(nn.Module):
                          * torch.sum(frac * probs.sum(dim=0)) / n_global)
 
         engine = self.engine_for(n_global)
+        ep = self.ep.size if self.ep is not None else 1
+        if engine == "sorted" and ep > 1 and (e % ep or n % ep):
+            if self.dispatch == "sorted":
+                raise ValueError(
+                    f"sorted MoE dispatch cannot tile tokens [B={b * world}"
+                    f", S={s}] experts E={e} over mesh data={world}, seq=1, "
+                    f"model={ep}")
+            engine = "einsum"  # auto: fall back rather than fail
         self.last_engine = engine
         wi = self.experts_in_kernel.to(ct)
         bi = self.experts_in_bias.to(ct)
         wo = self.experts_out_kernel.to(ct)
         bo = self.experts_out_bias.to(ct)
+        if engine == "sorted" and ep > 1:
+            return self._sorted_sharded(tokens.to(ct), choice, gate.to(ct),
+                                        wi, bi, wo, bo).reshape(b, s, d)
         toks = tokens.to(ct)
         flat_tokens = toks.repeat(k, 1) if k > 1 else toks
         flat_idx = choice.reshape(k * n)
@@ -243,11 +326,46 @@ class MoEFFN(nn.Module):
             slot = F.one_hot(torch.clamp(slot_of, max=capacity - 1),
                              capacity).float()  # kept entries are < C
             disp = (keep[:, :, None] * slot[:, None, :]).to(ct)  # [kN, E, C]
+            if self.experts_split:
+                # My experts' slice; the combine sums over the model group.
+                e_local = wi.shape[0]
+                lo = self.ep.index * e_local
+                disp = disp[:, lo:lo + e_local]
+                flat_tokens = copy_to_model(flat_tokens, self.ep)
             expert_in = torch.einsum("nec,nd->ecd", disp, flat_tokens)
             out_e = _expert_ffn(expert_in, wi, bi, wo, bo)
-            out2 = torch.einsum("nec,ecd->nd", disp, out_e) * flat_gate[:, None]
+            out2 = torch.einsum("nec,ecd->nd", disp, out_e)
+            if self.experts_split:
+                out2 = reduce_from_model(out2, self.ep)
+            out2 = out2 * flat_gate[:, None]
         out = out2.reshape(k, n, d).sum(dim=0) if k > 1 else out2
         return out.reshape(b, s, d)
+
+    def _sorted_sharded(self, tokens, choice, gate, wi, bi, wo, bo):
+        """The reference's ``_sorted_sharded`` on this model rank: route
+        its chunk of the block's tokens (``[N, D]``; ``choice`` and
+        ``gate`` ``[k, N]``) with the chunk's capacity, then all-gather the
+        chunks' outputs -> ``[N, D]``."""
+        n, d = tokens.shape
+        e, k = self.n_experts, choice.shape[0]
+        shard = self.ep
+        chunk = n // shard.size
+        cap = max(1, int(self.capacity_factor * k * chunk / e))
+        mine = slice(shard.index * chunk, (shard.index + 1) * chunk)
+        tok_my = copy_to_model(tokens, shard)[mine]
+        gate_my = copy_to_model(gate, shard)[:, mine]
+        flat_tokens = tok_my.repeat(k, 1) if k > 1 else tok_my
+        if not self.experts_split:
+            # Replicated experts see this rank's chunk only: their
+            # gradients sum over the model group.
+            wi, bi, wo, bo = (copy_to_model(t, shard)
+                              for t in (wi, bi, wo, bo))
+        out2 = _sorted_moe(
+            flat_tokens, choice[:, mine].reshape(k * chunk),
+            gate_my.reshape(k * chunk), wi, bi, wo, bo, e_total=e,
+            capacity=cap, ep_shard=shard if self.experts_split else None)
+        out_my = out2.reshape(k, chunk, d).sum(dim=0) if k > 1 else out2
+        return gather_from_model(out_my, shard)
 
 
 class MoEBlock(nn.Module):

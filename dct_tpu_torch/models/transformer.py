@@ -35,6 +35,21 @@ Training behaviour (``transformer.py:145,151,362-366`` of the reference):
 - ``remat``: each block runs under ``torch.utils.checkpoint`` (non-
   reentrant), storing only block boundaries and recomputing the inside
   (attention forward included) in the backward.
+
+Tensor parallelism (``dct_tpu/models/transformer.py:70-153``, the
+reference's ``P(None, "model")`` and ``P("model", None)`` rules): on a
+model axis of ``M`` ranks (:func:`dct_tpu_torch.parallel.sharding_rules.
+shard_state_with_rules`), each attention keeps its rank's contiguous
+block of the group-major qkv output, which is whole KV groups (their q
+heads with their k and v head), runs the attention over its ``H/M`` local
+heads and ``G/M`` KV heads (the flash kernels at that head count), and
+sums its ``o_proj`` block's product over the model group before the
+replicated bias; each block's ``ffn_in`` is column-parallel and its
+``ffn_out`` row-parallel. ``G``, ``d_model`` and ``d_ff`` must divide by
+``M`` (the placement raises, naming them). Everything between the blocks
+(LayerNorms, residuals, dropout, the head) is replicated over the model
+group and computed on every rank; the dropout masks depend on the key and
+the data block alone, so the model ranks of a block draw the same ones.
 """
 
 from __future__ import annotations
@@ -95,7 +110,12 @@ class LayerNorm(nn.LayerNorm):
 
 class MultiHeadAttention(nn.Module):
     """Fused group-major qkv projection, injected attention, output
-    projection. ``n_kv_heads`` < ``n_heads`` is grouped-query attention."""
+    projection. ``n_kv_heads`` < ``n_heads`` is grouped-query attention.
+    A tensor-parallel unit (``tp_leaves``: its leaves' table specs)."""
+
+    tp_leaves = {"qkv_proj/kernel": (None, "model"),
+                 "qkv_proj/bias": ("model",),
+                 "o_proj/kernel": ("model", None), "o_proj/bias": ()}
 
     def __init__(self, d_model: int, n_heads: int, attn_fn, *,
                  n_kv_heads: int | None = None, device=None, dtype=None,
@@ -115,27 +135,52 @@ class MultiHeadAttention(nn.Module):
             d_model, (n_heads + 2 * g) * self.head_dim, **kw
         )
         self.o_proj = TorchStyleDense(d_model, d_model, **kw)
+        # Heads, KV heads and o's width on this rank (all of them unless
+        # split over the model axis).
+        self.local = (n_heads, g, d_model)
+
+    def shard_model_axis(self, shard, *, split: bool) -> None:
+        """Keep this rank's whole KV groups of the qkv projection and the
+        matching input block of ``o_proj`` (``split``; otherwise stay
+        replicated)."""
+        if not split:
+            return
+        m = shard.size
+        if self.n_kv % m:
+            raise ValueError(
+                f"tensor parallelism over model={m} needs whole KV groups "
+                f"on every rank: n_kv_heads={self.n_kv} (n_heads="
+                f"{self.n_heads}) does not divide by {m}; the reference's "
+                "GSPMD would reshard, the port does not")
+        self.qkv_proj.split_output(shard)
+        self.o_proj.split_input(shard)
+        self.local = (self.n_heads // m, self.n_kv // m, self.d_model // m)
 
     def forward(self, x: torch.Tensor, rope=None) -> torch.Tensor:
         b, t, _ = x.shape
-        g, hd = self.n_kv, self.head_dim
-        hg = self.n_heads // g
+        h, g, width = self.local
+        hd = self.head_dim
+        hg = self.n_heads // self.n_kv
         # [B, T, G, Hg+2, Dh]: per group, Hg q heads then one k and one v.
         qkv = self.qkv_proj(x).view(b, t, g, hg + 2, hd)
-        q = qkv[:, :, :, :hg].reshape(b, t, self.n_heads, hd).transpose(1, 2)
+        q = qkv[:, :, :, :hg].reshape(b, t, h, hd).transpose(1, 2)
         k = qkv[:, :, :, hg].transpose(1, 2)  # [B, G, T, Dh]
         v = qkv[:, :, :, hg + 1].transpose(1, 2)
         if rope is not None:
             q = apply_rope(q, *rope)
             k = apply_rope(k, *rope)
         o = self.attn_fn(q.contiguous(), k.contiguous(), v.contiguous())
-        o = o.transpose(1, 2).reshape(b, t, self.d_model)
+        o = o.transpose(1, 2).reshape(b, t, width)
         return self.o_proj(o)
 
 
 class TransformerBlock(nn.Module):
     """Pre-LN residual block: attention, then a GELU feed-forward, each
-    followed by dropout before its residual add."""
+    followed by dropout before its residual add. The feed-forward pair is
+    a tensor-parallel unit."""
+
+    tp_leaves = {"ffn_in/kernel": (None, "model"), "ffn_in/bias": ("model",),
+                 "ffn_out/kernel": ("model", None), "ffn_out/bias": ()}
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, attn_fn, *,
                  dropout: float = 0.0, n_kv_heads: int | None = None,
@@ -151,6 +196,19 @@ class TransformerBlock(nn.Module):
         self.ffn_in = TorchStyleDense(d_model, d_ff, **ckw)
         self.ffn_out = TorchStyleDense(d_ff, d_model, **ckw)
         self.drop = Dropout(dropout)
+
+    def shard_model_axis(self, shard, *, split: bool) -> None:
+        """Column-parallel ``ffn_in``, row-parallel ``ffn_out``
+        (``split``; otherwise stay replicated)."""
+        if not split:
+            return
+        d_ff = self.ffn_in.out_features
+        if d_ff % shard.size:
+            raise ValueError(
+                f"tensor parallelism over model={shard.size} needs d_ff "
+                f"({d_ff}) to divide by it")
+        self.ffn_in.split_output(shard)
+        self.ffn_out.split_input(shard)
 
     def forward(self, x: torch.Tensor, rope=None,
                 key: tuple | None = None) -> torch.Tensor:

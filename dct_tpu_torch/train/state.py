@@ -14,17 +14,41 @@ Unlike the reference's immutable pytree, :class:`TrainState` is updated in
 place: the step applies the update to the model's f32 master parameters
 and advances the step and the optimizer state, which saves a copy of every
 parameter per step.
+
+On a mesh (:func:`dct_tpu_torch.parallel.sharding_rules.
+shard_state_with_rules`) the state carries a layout, and the optimizer
+works on what each process owns, its **update space**: a tensor-parallel
+parameter's slice (the model holds only that), a replicated parameter
+whole, and, for a leaf split over ``data``, its block along the leading
+flax dim: under ZeRO-1 a view of the replicated parameter, whose updated
+blocks are all-gathered back after the step; under FSDP the stored block
+itself, the full parameter existing only inside :meth:`TrainState.
+full_params` (all-gathered for a forward, backward or eval pass, then
+released). :meth:`TrainState.reduce_gradients` brings the raw gradients
+into the update space (one flat all-reduce over the data group, one flat
+reduce-scatter for the data-split leaves), and :meth:`TrainState.
+grad_norm` is the norm over the logical arrays: each split leaf's squares
+summed over the group that splits it, each replicated leaf counted once.
+The numbers equal data parallelism's; what changes is the memory each
+process holds.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from contextlib import contextmanager
+from dataclasses import dataclass, field
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from dct_tpu_torch.parallel.sharding_rules import (
+    flax_layout,
+    shard_state_with_rules,
+)
 
 
 class GradientTransformation(NamedTuple):
@@ -43,10 +67,16 @@ def chain(*txs: GradientTransformation) -> GradientTransformation:
     def init(params):
         return [tx.init(params) for tx in txs]
 
-    def update(updates, state, params):
+    def update(updates, state, params, norm=None):
+        """``norm``: the global norm of ``updates``, for a clip that comes
+        first (it alone sees them as given)."""
         new_state = []
         for tx, s in zip(txs, state):
-            updates, s = tx.update(updates, s, params)
+            if norm is not None and tx.kind == "clip":
+                updates, s = tx.update(updates, s, params, norm)
+            else:
+                updates, s = tx.update(updates, s, params)
+            norm = None
             new_state.append(s)
         return updates, new_state
 
@@ -143,15 +173,18 @@ def global_norm(tensors) -> torch.Tensor:
 
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     """Scale every update by ``max_norm / norm`` when the global norm is at
-    least ``max_norm`` (no epsilon, as optax)."""
+    least ``max_norm`` (no epsilon, as optax). The update takes the norm
+    when it is known (a sharded state's :meth:`TrainState.grad_norm`),
+    else :func:`global_norm` of the updates."""
 
-    def update(updates, state, params):
-        norm = global_norm(updates)
+    def update(updates, state, params, norm=None):
+        if norm is None:
+            norm = global_norm(updates)
         clipped = norm >= max_norm
         return [torch.where(clipped, u / norm.to(u.dtype) * max_norm, u)
                 for u in updates], state
 
-    return GradientTransformation(lambda params: None, update)
+    return GradientTransformation(lambda params: None, update, "clip")
 
 
 def make_lr_schedule(lr: float, *, schedule: str = "constant",
@@ -193,7 +226,8 @@ def make_optimizer(rate, *, optimizer: str = "adam",
     """``adam`` (a positive ``weight_decay`` upgrades to AdamW), ``adamw``,
     ``sgd`` (momentum trace, then decoupled decay, then the rate), ``lion``
     (b1 0.9, b2 0.99, decoupled decay); ``grad_clip_norm`` > 0 clips by the
-    global norm first. ``adafactor`` is not ported yet and raises."""
+    global norm first. ``adafactor`` is not ported yet and
+    raises."""
     opt = optimizer.strip().lower()
     if momentum and opt not in ("sgd", "adafactor"):
         raise ValueError(
@@ -229,9 +263,11 @@ def make_optimizer(rate, *, optimizer: str = "adam",
 
 @dataclass
 class TrainState:
-    """The model (holding the f32 master parameters), the optimizer and
-    its state, the step, the seed and the dropout seed ``rng`` that, with
-    the step, seeds every dropout mask of a step."""
+    """The model (holding the f32 master parameters, or this process's
+    slices of them), the optimizer and its state, the step, the seed and
+    the dropout seed ``rng`` that, with the step, seeds every dropout mask
+    of a step. ``layout`` is the placement on a mesh (None: every process
+    holds everything); ``shards`` the FSDP parameters' stored blocks."""
 
     model: nn.Module
     tx: GradientTransformation
@@ -239,19 +275,168 @@ class TrainState:
     step: int
     seed: int
     rng: int
+    layout: Any = None
+    shards: dict = field(default_factory=dict)
+    _full_depth: int = 0
 
     @property
     def params(self) -> list[torch.Tensor]:
         return list(self.model.parameters())
 
-    def apply_gradients(self, grads) -> "TrainState":
-        """One optimizer update, in place; the step advances."""
+    def _data_split(self) -> list[int]:
+        layout = self.layout
+        if layout is None or layout.mesh.shape["data"] == 1:
+            return []
+        return layout.data_split()
+
+    def stored_param(self, i: int) -> torch.Tensor:
+        """What this process stores of parameter ``i``: its FSDP block,
+        else the parameter (a tensor-parallel slice, or whole)."""
+        return self.shards.get(i, self.params[i])
+
+    def update_params(self) -> list[torch.Tensor]:
+        """The tensors the optimizer updates (the module docstring's
+        update space)."""
         params = self.params
+        out = [p for p in params]
+        for i in self._data_split():
+            out[i] = self.shards.get(i)
+            if out[i] is None:
+                out[i] = self.layout.leaves[i].local(params[i].detach())
+        return out
+
+    def place_params(self) -> None:
+        """Keep each FSDP parameter as its data block, releasing the full
+        tensor (after the layout is set)."""
+        if self.layout is None:
+            return
+        params = self.params
+        for i in self.layout.fsdp():
+            if self.layout.mesh.shape["data"] == 1:
+                continue
+            lf = self.layout.leaves[i]
+            self.shards[i] = lf.local(params[i].data).clone(
+                memory_format=torch.contiguous_format)
+            params[i].data = params[i].data.new_empty(0)
+
+    def _gather_blocks(self, idx: list[int], blocks) -> list[torch.Tensor]:
+        """The full torch-layout tensors of the data-split leaves ``idx``
+        from this process's ``blocks``, in one all-gather over the data
+        group (each block contiguous rows of the leaf's flax layout)."""
+        layout = self.layout
+        d = layout.mesh.shape["data"]
+        flat = [flax_layout(b, layout.leaves[i].transposed).reshape(-1)
+                for i, b in zip(idx, blocks)]
+        buf = torch.cat(flat)
+        out = buf.new_empty(d * buf.numel())
+        dist.all_gather_into_tensor(out, buf, group=layout.mesh.data_group)
+        out = out.view(d, -1)
+        full, off = [], 0
+        for i, f in zip(idx, flat):
+            lf = layout.leaves[i]
+            n = f.numel()
+            a = out[:, off:off + n].reshape(lf.shape)
+            full.append(flax_layout(a, lf.transposed).contiguous())
+            off += n
+        return full
+
+    @contextmanager
+    def full_params(self):
+        """The FSDP parameters all-gathered into the model for the body of
+        the ``with`` (nested uses gather once), released after it; a no-op
+        without FSDP leaves."""
+        if not self.shards:
+            yield
+            return
+        params = self.params
+        idx = sorted(self.shards)
+        if self._full_depth == 0:
+            for i, full in zip(idx, self._gather_blocks(
+                    idx, [self.shards[i] for i in idx])):
+                params[i].data = full
+        self._full_depth += 1
+        try:
+            yield
+        finally:
+            self._full_depth -= 1
+            if self._full_depth == 0:
+                for i in idx:
+                    params[i].data = params[i].data.new_empty(0)
+
+    def reduce_gradients(self, grads, extras=()):
+        """Raw per-process gradients (in ``params`` order) and scalars
+        ``extras`` -> (update-space gradients summed over the data group,
+        the summed ``extras``): one flat all-reduce, and one flat
+        reduce-scatter for the data-split leaves."""
+        from dct_tpu_torch.parallel.mesh import all_reduce_sum
+
+        grads, extras = list(grads), list(extras)
+        split = self._data_split()
+        whole = [i for i in range(len(grads)) if i not in set(split)]
+        reduced = all_reduce_sum([*(grads[i] for i in whole), *extras])
+        out = [None] * len(grads)
+        for i, g in zip(whole, reduced):
+            out[i] = g
+        if split:
+            layout = self.layout
+            d = layout.mesh.shape["data"]
+            rows = [flax_layout(grads[i], layout.leaves[i].transposed)
+                    .reshape(d, -1).float() for i in split]
+            buf = torch.cat(rows, dim=1).contiguous()
+            mine = buf.new_empty(buf.shape[1])
+            dist.reduce_scatter_tensor(mine, buf.reshape(-1),
+                                       group=layout.mesh.data_group)
+            off = 0
+            for i, r in zip(split, rows):
+                lf = layout.leaves[i]
+                n = r.shape[1]
+                block = mine[off:off + n].reshape(lf.shape[0] // d,
+                                                  *lf.shape[1:])
+                out[i] = flax_layout(block, lf.transposed).to(
+                    grads[i].dtype)
+                off += n
+        return out, reduced[len(whole):]
+
+    def grad_norm(self, grads) -> torch.Tensor:
+        """The global norm of update-space ``grads`` over the logical
+        arrays (f32)."""
+        layout = self.layout
+        if layout is None or not layout.sharded:
+            return global_norm(grads)
+        parts = {None: [], "model": [], "data": []}
+        split = set(self._data_split())
+        for i, g in enumerate(grads):
+            lf = layout.leaves[i]
+            axis = ("data" if i in split else
+                    "model" if lf.moment_axis == "model" else None)
+            parts[axis].append((g.float() * g.float()).sum())
+        zero = grads[0].new_zeros((), dtype=torch.float32)
+        total = sum(parts[None], zero)
+        for axis, group in (("model", layout.mesh.model_group),
+                            ("data", layout.mesh.data_group)):
+            if parts[axis]:
+                s = sum(parts[axis], zero).reshape(1)
+                dist.all_reduce(s, group=group)
+                total = total + s[0]
+        return torch.sqrt(total)
+
+    def apply_gradients(self, grads, norm: torch.Tensor) -> "TrainState":
+        """One optimizer update of update-space ``grads``, whose global
+        norm (:meth:`grad_norm`) is ``norm``, in place; the step advances.
+        ZeRO-1 blocks are all-gathered back into their replicated
+        parameters."""
+        params = self.update_params()
         with torch.no_grad():
             updates, self.opt_state = self.tx.update(
-                list(grads), self.opt_state, params
+                list(grads), self.opt_state, params, norm
             )
             torch._foreach_add_(params, updates)
+            zero1 = [i for i in self._data_split() if i not in self.shards]
+            if zero1:
+                full = self.params
+                for i, t in zip(zero1, self._gather_blocks(
+                        zero1, [params[i] for i in zero1])):
+                    full[i].copy_(t)
         self.step += 1
         return self
 
@@ -260,13 +445,18 @@ def create_train_state(model: nn.Module, *, input_dim: int, lr: float,
                        seed: int, example_shape: tuple | None = None,
                        lr_schedule=None, weight_decay: float = 0.0,
                        grad_clip_norm: float = 0.0, optimizer: str = "adam",
-                       momentum: float = 0.0) -> TrainState:
+                       momentum: float = 0.0, mesh=None,
+                       shard_opt: bool = False, shard_params: bool = False,
+                       family: str | None = None) -> TrainState:
     """Initialize ``model``'s parameters from ``seed``
     (:func:`dct_tpu_torch.convert.init_flax_weights`, the same values on
     every device) and the optimizer. ``input_dim`` and ``example_shape``
     (``(1, seq_len, input_dim)`` for the sequence families) are checked
     against the model. ``lr_schedule`` (a float or a function of the
-    update count) overrides ``lr``."""
+    update count) overrides ``lr``. With a ``mesh`` the state is placed by
+    the partition rules of ``family`` (``shard_opt``: ZeRO-1,
+    ``shard_params``: FSDP; :func:`dct_tpu_torch.parallel.sharding_rules.
+    shard_state_with_rules`)."""
     from dct_tpu_torch.convert import init_flax_weights, load_flax_weights
     from dct_tpu_torch.models.mlp import mask_seed
 
@@ -285,6 +475,10 @@ def create_train_state(model: nn.Module, *, input_dim: int, lr: float,
         weight_decay=weight_decay, momentum=momentum,
         grad_clip_norm=grad_clip_norm,
     )
-    return TrainState(model=model, tx=tx,
-                      opt_state=tx.init(list(model.parameters())), step=0,
-                      seed=int(seed), rng=mask_seed((seed, 1)))
+    state = TrainState(model=model, tx=tx,
+                       opt_state=tx.init(list(model.parameters())), step=0,
+                       seed=int(seed), rng=mask_seed((seed, 1)))
+    if mesh is not None:
+        shard_state_with_rules(state, mesh, shard_opt=shard_opt,
+                               shard_params=shard_params, family=family)
+    return state

@@ -20,14 +20,21 @@ accumulation), the contract of ``fold_in(rng, step)`` (``:70``).
 Steps update the state in place (see :mod:`dct_tpu_torch.train.state`) and
 return it, with the losses and sums as tensors on the model's device.
 
-Under data parallelism (more than one process,
-:mod:`dct_tpu_torch.parallel.mesh`) each process holds a block of every
-global batch: the train bodies divide the block's weighted loss sum by the
-global row count (a scalar all-reduce, before the backward), differentiate
-it and sum the gradients and the loss over the processes in one
-all-reduce; the eval sums are reduced once per pass. Every process then
-holds the reference's global weighted means. With one process the
-reductions return their inputs.
+Under data parallelism (:mod:`dct_tpu_torch.parallel.mesh`) each data
+row of processes holds a block of every global batch: the train bodies
+divide the block's weighted loss sum by the global row count (a scalar
+all-reduce, before the backward), differentiate it and sum the gradients
+and the loss over the data group
+(:meth:`~dct_tpu_torch.train.state.TrainState.reduce_gradients`: one
+all-reduce, and a reduce-scatter for the leaves whose optimizer state is
+split over ``data``); the eval sums are reduced once per pass. Every
+process then holds the reference's global weighted means. The model ranks
+of a block hold the same loss and sums, so nothing is reduced over the
+model axis here: its collectives run inside the tensor-parallel modules.
+The grad norm is :meth:`~dct_tpu_torch.train.state.TrainState.grad_norm`,
+over the logical arrays. FSDP parameters are all-gathered for each body
+(:meth:`~dct_tpu_torch.train.state.TrainState.full_params`). With one
+process the reductions return their inputs.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ from dct_tpu_torch.ops.losses import (
 )
 from dct_tpu_torch.parallel.mesh import all_reduce_sum
 from dct_tpu_torch.parallel.sharding_rules import cast_params_by_rules
-from dct_tpu_torch.train.state import TrainState, global_norm
+from dct_tpu_torch.train.state import TrainState
 
 
 def _position_weight(logits, y, weight):
@@ -75,28 +82,30 @@ def _aux_loss(model):
 
 def loss_and_grads(state: TrainState, x, y, weight):
     """The train body's objective and its gradients, without the update:
-    ``(loss, grads)`` with grads in ``state.params`` order."""
+    ``(loss, grads)`` with grads in the update space (``state.params``
+    order; see :mod:`dct_tpu_torch.train.state`)."""
     x, y, weight = _device_tensors(state, x, y, weight)
     state.model.train()
-    logits = _apply(state, x, (state.rng, state.step))
-    loss_sum, count = masked_cross_entropy(
-        logits, y, _position_weight(logits, y, weight)
-    )
-    (total,) = all_reduce_sum([count])
-    loss = loss_sum / torch.clamp(total, min=1.0)
-    aux = _aux_loss(state.model)
-    if aux is not None:
-        loss = loss + aux
-    grads = torch.autograd.grad(loss, state.params)
-    *grads, loss = all_reduce_sum([*grads, loss.detach()])
+    with state.full_params():
+        logits = _apply(state, x, (state.rng, state.step))
+        loss_sum, count = masked_cross_entropy(
+            logits, y, _position_weight(logits, y, weight)
+        )
+        (total,) = all_reduce_sum([count])
+        loss = loss_sum / torch.clamp(total, min=1.0)
+        aux = _aux_loss(state.model)
+        if aux is not None:
+            loss = loss + aux
+        grads = torch.autograd.grad(loss, state.params)
+    grads, (loss,) = state.reduce_gradients(grads, [loss.detach()])
     return loss, grads
 
 
 def _train_body(state: TrainState, x, y, weight):
     """One optimization step -> (state, loss, grad global norm)."""
     loss, grads = loss_and_grads(state, x, y, weight)
-    gnorm = global_norm(grads)
-    return state.apply_gradients(grads), loss, gnorm
+    gnorm = state.grad_norm(grads)
+    return state.apply_gradients(grads, gnorm), loss, gnorm
 
 
 def _train_accum_body(state: TrainState, x, y, weight, accum_steps: int):
@@ -116,32 +125,33 @@ def _train_accum_body(state: TrainState, x, y, weight, accum_steps: int):
     (total,) = all_reduce_sum([weight.float().sum() * positions])
     total = torch.clamp(total, min=1.0)
     state.model.train()
-    params = state.params
     grads, loss = None, torch.zeros((), device=x.device)
-    for i in range(accum_steps):
-        rows = slice(i * n, (i + 1) * n)
-        cy, cw = y[rows], weight[rows]
-        logits = _apply(state, x[rows], (state.rng, state.step, i))
-        loss_sum, _ = masked_cross_entropy(
-            logits, cy, _position_weight(logits, cy, cw)
-        )
-        chunk = loss_sum / total
-        aux = _aux_loss(state.model)
-        if aux is not None:
-            chunk = chunk + aux / accum_steps
-        g = torch.autograd.grad(chunk, params)
-        grads = g if grads is None else [a + c for a, c in zip(grads, g)]
-        loss = loss + chunk.detach()
-    *grads, loss = all_reduce_sum([*grads, loss])
-    gnorm = global_norm(grads)
-    return state.apply_gradients(grads), loss, gnorm
+    with state.full_params():
+        params = state.params
+        for i in range(accum_steps):
+            rows = slice(i * n, (i + 1) * n)
+            cy, cw = y[rows], weight[rows]
+            logits = _apply(state, x[rows], (state.rng, state.step, i))
+            loss_sum, _ = masked_cross_entropy(
+                logits, cy, _position_weight(logits, cy, cw)
+            )
+            chunk = loss_sum / total
+            aux = _aux_loss(state.model)
+            if aux is not None:
+                chunk = chunk + aux / accum_steps
+            g = torch.autograd.grad(chunk, params)
+            grads = g if grads is None else [a + c for a, c in zip(grads, g)]
+            loss = loss + chunk.detach()
+    grads, (loss,) = state.reduce_gradients(grads, [loss])
+    gnorm = state.grad_norm(grads)
+    return state.apply_gradients(grads, gnorm), loss, gnorm
 
 
 def _eval_body(state: TrainState, x, y, weight):
     """One eval batch -> (loss_sum, acc_sum, count, tp, fp, fn)."""
     x, y, weight = _device_tensors(state, x, y, weight)
     state.model.eval()
-    with torch.no_grad():
+    with torch.no_grad(), state.full_params():
         logits = _apply(state, x, None)
         w = _position_weight(logits, y, weight)
         loss_sum, count = masked_cross_entropy(logits, y, w)
@@ -197,8 +207,10 @@ def _epoch_eval(state: TrainState, xs, ys, ws):
     processes' blocks)."""
     xs, ys, ws = _device_tensors(state, xs, ys, ws)
     sums = tuple(torch.zeros((), device=xs.device) for _ in range(6))
-    for x, y, w in zip(xs, ys, ws):
-        sums = tuple(a + b for a, b in zip(sums, _eval_body(state, x, y, w)))
+    with state.full_params():
+        for x, y, w in zip(xs, ys, ws):
+            sums = tuple(a + b for a, b in
+                         zip(sums, _eval_body(state, x, y, w)))
     return tuple(all_reduce_sum(sums))
 
 

@@ -52,6 +52,17 @@ norms), so no step gains a host sync:
 
 The per-batch path (``use_scan=False``) reads each step's loss anyway, so
 there the hooks run per step, as the reference's eager path does.
+
+The process grid comes from ``cfg.mesh`` (:func:`dct_tpu_torch.parallel.
+mesh.make_mesh`; ``data=-1`` absorbs every process, the reference's
+default): the model ranks of a data row load the same block of every
+batch, the state is placed by the family's partition rules with
+``shard_opt_state`` (ZeRO-1) and ``shard_params`` (FSDP)
+(:func:`dct_tpu_torch.parallel.sharding_rules.shard_state_with_rules`),
+checked against the declared layout, and the deploy checkpoints are
+gathered dense on every process before the coordinator writes them. The
+``trainer.layout`` event gives each process's parameter and optimizer
+bytes.
 """
 
 from __future__ import annotations
@@ -71,7 +82,6 @@ import torch
 from dct_tpu_torch.checkpoint.manager import (
     BestLastCheckpointer,
     TrainStateCheckpointer,
-    param_tree,
 )
 from dct_tpu_torch.config import RunConfig
 from dct_tpu_torch.data.dataset import WeatherArrays, load_processed_dataset
@@ -113,7 +123,14 @@ from dct_tpu_torch.resilience.preempt import PreemptedError, PreemptionGuard
 from dct_tpu_torch.parallel.mesh import (
     all_gather_ints,
     all_reduce_sum,
+    make_mesh,
     process_data_block,
+    set_mesh,
+)
+from dct_tpu_torch.parallel.sharding_rules import (
+    gather_tree,
+    layout_mismatches,
+    state_shardings,
 )
 from dct_tpu_torch.tracking.client import get_tracker
 from dct_tpu_torch.train import steps
@@ -164,6 +181,38 @@ class TrainResult:
     epoch_seconds: list = field(default_factory=list)
     run_id: str | None = None
     state: object | None = None
+    # This process's parameter and optimizer-state bytes, and the mesh.
+    layout: dict = field(default_factory=dict)
+
+
+def _state_bytes(state) -> dict:
+    """The bytes this process stores of the parameters and of the
+    optimizer state."""
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    param = sum(nbytes(state.stored_param(i))
+                for i in range(len(state.params)))
+    opt = 0
+    stack = [state.opt_state]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, torch.Tensor):
+            opt += nbytes(node)
+        elif isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+    return {"param_bytes": int(param), "opt_bytes": int(opt)}
+
+
+def _local_heads(model) -> list | None:
+    """(q heads, KV heads) of this process's attention (``H/M``,
+    ``G/M`` under tensor parallelism); None for a family without one."""
+    blocks = model.blocks() if hasattr(model, "blocks") else []
+    attn = getattr(blocks[0], "attn", None) if blocks else None
+    return list(attn.local[:2]) if attn is not None else None
 
 
 def _epoch_metrics(sums) -> tuple[float, float, tuple]:
@@ -360,7 +409,10 @@ class Trainer:
             train_idx, val_idx = train_val_split(
                 len(data), val_fraction=cfg.data.val_fraction,
                 seed=cfg.train.seed)
-        # batch_size is per process; each process takes its block.
+        # batch_size is per data row; the model ranks of a row share
+        # its block.
+        mesh = make_mesh(cfg.mesh)
+        set_mesh(mesh)
         n_blocks, block_id = process_data_block()
         global_batch = cfg.train.batch_size * n_blocks
         train_loader = BatchLoader(
@@ -404,14 +456,27 @@ class Trainer:
                 cfg.train.lr, schedule=cfg.train.lr_schedule,
                 warmup_steps=cfg.train.warmup_steps, decay_steps=decay,
                 end_lr_fraction=cfg.train.end_lr_fraction)
+        shard_kw = dict(shard_opt=cfg.train.shard_opt_state,
+                        shard_params=cfg.train.shard_params,
+                        family=cfg.model.name)
         state = create_train_state(
             model, input_dim=data.input_dim, lr=cfg.train.lr,
             seed=cfg.train.seed, example_shape=example_shape,
             lr_schedule=lr_schedule, weight_decay=cfg.train.weight_decay,
             grad_clip_norm=cfg.train.grad_clip_norm,
-            optimizer=cfg.train.optimizer, momentum=cfg.train.momentum)
-        # Parameters and optimizer state are replicated on every process;
-        # sharding them (ZeRO-1, FSDP) is ROADMAP Queue A item 15.
+            optimizer=cfg.train.optimizer, momentum=cfg.train.momentum,
+            mesh=mesh, **shard_kw)
+        # The placement must be the declared one (the reference reconciles
+        # its step's output drift here; the port's placement is explicit).
+        drift = layout_mismatches(state, state_shardings(state, mesh,
+                                                         **shard_kw))
+        if drift:
+            events.emit("trainer", "shard.layout_mismatch",
+                        leaves=len(drift), reconciled=False)
+            raise RuntimeError(f"state placed off its declared layout: "
+                               f"{drift[:4]}")
+        events.emit("trainer", "layout", mesh=dict(mesh.shape),
+                    **_state_bytes(state))
 
         # Continuous training: no checkpoint trains [0, epochs); an
         # interrupted run finishes to its saved target; a completed run
@@ -545,13 +610,17 @@ class Trainer:
             planes.ckpt_span = tracer.open(
                 "trainer.checkpoint", component="trainer", epoch=done - 1,
                 parent_id=planes.epoch_span.span_id)
+            # Dense on every process (a collective when the state is
+            # split); only the coordinator writes.
+            dense = (gather_tree(state) if self.coordinator
+                     or state.layout.sharded else None)
             if self.coordinator:
                 ckpt_metrics = {"val_loss": last_rec["val_loss"],
                                 "val_acc": last_rec["val_acc"]}
                 if "val_f1" in last_rec:
                     ckpt_metrics["val_f1"] = last_rec["val_f1"]
                 ckptr.update(epoch=done - 1, metrics=ckpt_metrics,
-                             params=param_tree(state.model), meta=meta)
+                             params=dense, meta=meta)
             # Every process keeps its own resume state; an early stop marks
             # the run complete at the stop point.
             state_ckptr.save_async(state, meta={
@@ -734,6 +803,8 @@ class Trainer:
             steady_samples_per_sec=(sum(n / s for n, s in steady)
                                     / max(len(steady), 1)),
             epoch_seconds=epoch_seconds, run_id=run_id, state=state,
+            layout={"mesh": dict(mesh.shape), **_state_bytes(state),
+                    "local_heads": _local_heads(state.model)},
         )
 
     # ------------------------------------------------------------------

@@ -16,14 +16,24 @@ dct_tpu_torch.train_job``). Environment:
       ``r`` has no card of its own (two ranks never share one)
   DCT_RUN_ID  the run-correlation ID (the launcher mints it; an unlaunched
       run mints its own), logged first
+  DCT_MESH_DATA / DCT_MESH_MODEL  the process grid (``data=-1`` absorbs
+      every process; WORLD_SIZE must equal data x model): the model axis
+      runs the transformers tensor-parallel and the MoE expert-parallel
+  DCT_SHARD_OPT_STATE / DCT_SHARD_PARAMS / DCT_SHARD_RULES  ZeRO-1, FSDP
+      and the partition-rule overrides
+      (:mod:`dct_tpu_torch.parallel.sharding_rules`)
   DCT_* training, model, data, tracking, observability and resilience
-      settings (:class:`dct_tpu_torch.config.RunConfig`); the model,
-      sequence and pipeline axes, sharded state and the stream ingest are
-      refused with the ROADMAP item that ports them
+      settings (:class:`dct_tpu_torch.config.RunConfig`); the sequence and
+      pipeline axes and the stream ingest are refused with the ROADMAP
+      item that ports them
 
 Prints ``[train_job] launches {...}``, this process's flash-kernel launch
 counts, when training ends (done, preempted or halted), so a supervisor's
-caller can count launches across the process boundary.
+caller can count launches across the process boundary, and at the end of
+a completed fit ``[train_job] fit {...}``: the val_loss, samples/s (all
+epochs, and the epochs after the first), the epoch seconds, the mesh, this
+process's parameter and optimizer-state bytes, its attention's local
+heads and, on a card, its peak allocated bytes.
 
 Exit 0 only when training completed and, on the coordinator (rank 0), its
 best checkpoint exists (the other ranks write no ``*.ckpt``); 75
@@ -39,37 +49,25 @@ import json
 import os
 import sys
 
-#: (environment variable, what asks for more than the data axis, the
-#: ROADMAP Queue A item that ports it).
+#: (environment variable, what the port does not have yet, the ROADMAP
+#: Queue A item that ports it).
 _UNPORTED = (
-    ("DCT_MESH_MODEL", "a model (tensor-parallel) axis", 15),
     ("DCT_MESH_SEQ", "a sequence-parallel axis", 16),
     ("DCT_MESH_PIPE", "a pipeline axis", 17),
-)
-_UNPORTED_FLAGS = (
-    ("DCT_SHARD_OPT_STATE", "sharded optimizer state (ZeRO-1)", 15),
-    ("DCT_SHARD_PARAMS", "sharded parameters (FSDP)", 15),
-    ("DCT_SHARD_RULES", "partition rules", 15),
 )
 
 
 def refuse_unported_env(env=None) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item when the
-    environment asks for a mesh axis beyond data, sharded state or the
-    stream ingest, none of which the port has."""
+    environment asks for a sequence or pipeline axis or the stream
+    ingest, none of which the port has."""
     env = os.environ if env is None else env
     for var, what, item in _UNPORTED:
         raw = (env.get(var) or "").strip()
         if raw and int(raw) > 1:
             raise NotImplementedError(
-                f"{var}={raw} asks for {what}; the port trains on the data "
-                f"axis only: ROADMAP Queue A item {item}")
-    for var, what, item in _UNPORTED_FLAGS:
-        raw = (env.get(var) or "").strip().lower()
-        if raw and raw not in ("0", "false", "no", "off"):
-            raise NotImplementedError(
-                f"{var}={raw} asks for {what}, which the port does not "
-                f"have: ROADMAP Queue A item {item}")
+                f"{var}={raw} asks for {what}; the port has the data and "
+                f"model axes only: ROADMAP Queue A item {item}")
     mode = (env.get("DCT_INGEST_MODE") or "poll").strip().lower()
     if mode != "poll":
         raise NotImplementedError(
@@ -148,6 +146,15 @@ def _train(cfg, device) -> int:
     finally:
         print(f"[train_job] launches "
               f"{json.dumps(flash_attention.launch_counts())}", flush=True)
+    fit = {"val_loss": result.val_loss,
+           "samples_per_sec": result.samples_per_sec,
+           "steady_samples_per_sec": result.steady_samples_per_sec,
+           "epoch_seconds": result.epoch_seconds, **result.layout}
+    if device.type == "cuda":
+        import torch
+
+        fit["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+    print(f"[train_job] fit {json.dumps(fit)}", flush=True)
     print(f"[train_job] done: val_loss={result.val_loss:.4f} "
           f"val_acc={result.val_acc:.4f} "
           f"samples/sec={result.samples_per_sec:.1f} "
