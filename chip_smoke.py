@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: kernels, serving,
 training, the continuous loop, the supervised training world, the
 multi-tenant scheduler, the completed serving tier, the GRU and MoE
-families and, on two or more cards, the model axis.
+families and, on two or more cards, the model axis and the seq axis.
 
     python3 chip_smoke.py
 
@@ -316,10 +316,48 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
    ``{"phase": "m", "ran": false, "cards": 1}``, and the other phases run
    as before.
 
+(n) The seq axis (``sequence_phase``; ``--phase n`` runs only the kernel
+   build and (n)):
+   (n0) on any count of cards, the ring's variants of the three kernels
+       against their plain versions at B=16, H=8, D=64, f32 and bf16
+       (FWD_TOL on o, 1e-4 on lse, BWD_TOL of max|plain| on dq, dk, dv;
+       every value finite), each backward with a nonzero lse cotangent:
+       square, causal, ``q_offset`` 256 and 512 under window 256 at
+       T=256 and 512 (the windowed ring's partial-band steps; some rows,
+       or all, reach no key), and non-causal Tq/Tk = 512/256, 256/512,
+       256/128, 128/256 (the striped ring's half-chunk blocks at T/S =
+       512 and 256). Each kernel's time (``time_ms``), its bound (this
+       variant's unmasked pairs: 4, 8 and 6 x D flops a pair; each input
+       read once and each output written once, the lse and its
+       cotangent included), the plain versions' times and SDPA's forward
+       and backward (the band as a boolean mask; SDPA gives o, not the
+       lse);
+   (n1), (n2) on two or more cards, ``train_job`` worlds on NCCL on
+       (m)'s rows and schedule (the bench's width, T=1024, 400 train and
+       176 val windows, global batch 16, SGD lr 0.01 momentum 0.9, 2
+       epochs), each against a W=1 run of its configuration (the W=1
+       runs side by side, one a card): (n1) ``weather_transformer`` f32,
+       the ring at ``seq=2`` and, on four cards, a2a at ``seq=4`` and the
+       ring at ``data=2, seq=2``; (n2) ``weather_transformer_causal`` f32,
+       on four cards the striped ring at ``seq=4``, the contiguous one
+       (``DCT_RING_STRIPED=off``) at ``seq=4``, the windowed one
+       (``DCT_ATTN_WINDOW=256``) at ``seq=4`` and ``seq=2``, the striped
+       one at ``model=2, seq=2``, and bf16 striped at ``seq=4`` (on two
+       cards striped and windowed at ``seq=2``). Every rank ends on one
+       val_loss, within 1e-4 of W=1's in f32 (2e-2 bf16), and launched
+       W=1's kernels times the engine's forward calls per layer on its
+       seq index ``my`` (``sp_forward_calls``: the ring S, contiguous
+       causal 1 + my, striped 3 + (S - 1), windowed 1 + min(my, steps -
+       1), a2a 1); the step ms, samples/s and per-rank peak memory of
+       each world are printed, then all of them on ``[smoke] (n)
+       summary`` and in ``phase_n.json``. On one card it prints
+       ``{"phase": "n", "ran": false, "cards": 1}`` after (n0).
+
 Prints the ``kernels`` JSON line (each kernel with its f32 numbers at the
-top level, as earlier slices did, a ``bf16`` summary beside them, and its
-``tensor_core_instructions`` by dtype; ``launches_by_path`` gains
-``serve_k``, ``predict``, ``knobs``, ``families`` and ``model_axis``),
+top level, as earlier slices did, a ``bf16`` summary beside them, its
+``tensor_core_instructions`` by dtype and (n0)'s ``sp_variants``;
+``launches_by_path`` gains ``serve_k``, ``predict``, ``knobs``,
+``families``, ``model_axis`` and ``sequence_parallel``),
 then the card line,
 then, last, ``{"ok": true, "device": {...}}``. Any failure raises.
 """
@@ -402,29 +440,34 @@ def ptxas_report(log: str) -> dict[str, dict]:
 
 def tensor_core_instructions(build) -> dict[str, dict]:
     """Per kernel and dtype: HGMMA and HMMA counts of each tensor-core
-    instance (by head dim) in ``cuobjdump -sass`` of the built library."""
+    instance (by head dim) in ``cuobjdump -sass`` of the built library.
+    Where a kernel has a second instance per head dim for the seq axis's
+    variants (template flag ``VARIANT``, mangled ``Lb1E``), that one must
+    hold HGMMA too, and the counts reported are the other one's."""
     sass = {lib: build.sass(lib) for lib in ("flash_fwd", "flash_bwd")}
     counts = {}
     for (name, dtype), (lib, tag) in TENSOR_CORE_SASS.items():
-        by_dim, cur = {}, None
+        found, cur = {}, None
         for line in sass[lib].splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
                 cur = None
                 if tag in m.group(1):
-                    cur = int(re.search(r"Li(\d+)EE", m.group(1)).group(1))
-                    by_dim[cur] = {"HGMMA": 0, "HMMA": 0}
+                    i = re.search(r"Li(\d+)E(Lb1E)?", m.group(1))
+                    cur = (int(i.group(1)), bool(i.group(2)))
+                    found[cur] = {"HGMMA": 0, "HMMA": 0}
             elif cur is not None:
                 for op in ("HGMMA", "HMMA"):
                     if re.search(rf"\b{op}\.", line):
-                        by_dim[cur][op] += 1
+                        found[cur][op] += 1
+        by_dim = {d: c for (d, var), c in found.items() if not var}
         if sorted(by_dim) != [16, 32, 64, 128]:
             raise AssertionError(f"{name} {dtype}: instances "
-                                 f"{sorted(by_dim)} in the SASS, want head "
+                                 f"{sorted(found)} in the SASS, want head "
                                  "dims 16-128")
-        if not all(c["HGMMA"] > 0 for c in by_dim.values()):
+        if not all(c["HGMMA"] > 0 for c in found.values()):
             raise AssertionError(f"{name} {dtype}: an instance without "
-                                 f"HGMMA: {by_dim}")
+                                 f"HGMMA: {found}")
         counts.setdefault(name, {})[dtype] = {
             "kernel": tag, "HGMMA": by_dim[64]["HGMMA"],
             "HMMA": by_dim[64]["HMMA"], "head_dim": 64, "by_head_dim": by_dim}
@@ -799,6 +842,8 @@ def _kernel_kind(name: str) -> str:
         return "gemm"
     if "multi_tensor_apply" in low:
         return "optimizer_foreach"
+    if "nccl" in low:
+        return "collective"
     if "memcpy" in low or "memset" in low:
         return "memcpy_memset"
     return "other"
@@ -3587,10 +3632,11 @@ def _mesh_env(root: str, name: str, processed: str, *, family: str,
     return env
 
 
-def _mesh_world(root: str, name: str, processed: str, **kw) -> dict:
-    """One world of ``data x model`` train_job ranks (rank r on cuda:r,
-    NCCL); each rank's fit line, launches and stdout."""
-    world = kw["data"] * kw["model"]
+def _start_world(root: str, name: str, processed: str, *,
+                 world: int | None = None, **kw) -> dict:
+    """Start one world of train_job ranks (rank r on cuda:r, NCCL; the
+    ranks' world is ``data x model`` unless ``world`` says otherwise)."""
+    world = world or kw["data"] * kw["model"]
     port = _free_port()
     procs = []
     for r in range(world):
@@ -3602,7 +3648,16 @@ def _mesh_world(root: str, name: str, processed: str, **kw) -> dict:
             [sys.executable, "-m", "dct_tpu_torch.train_job"], env=env,
             cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True))
-    t0 = time.perf_counter()
+    return {"name": name, "world": world, "procs": procs,
+            "t0": time.perf_counter(),
+            "models": os.path.join(root, f"models-{name}"),
+            "global_batch": kw["batch"] * kw["data"]}
+
+
+def _finish_world(started: dict) -> dict:
+    """Wait for a started world; each rank's fit line, launches and
+    stdout."""
+    procs, name = started.pop("procs"), started["name"]
     outs = []
     try:
         for p in procs:
@@ -3613,11 +3668,11 @@ def _mesh_world(root: str, name: str, processed: str, **kw) -> dict:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - started.pop("t0")
     ranks = []
     for r, (rc, out, err) in enumerate(outs):
         if rc != 0:
-            raise AssertionError(f"(m) {name} rank {r} exit {rc}: "
+            raise AssertionError(f"{name} rank {r} exit {rc}: "
                                  f"{err[-3000:]}")
         fit = json.loads([x for x in out.splitlines()
                           if x.startswith("[train_job] fit ")][-1][16:])
@@ -3625,9 +3680,22 @@ def _mesh_world(root: str, name: str, processed: str, **kw) -> dict:
                                       x.startswith("[train_job] launches ")]
                                      [-1][21:])
         ranks.append(fit)
-    return {"name": name, "world": world, "wall_s": wall, "ranks": ranks,
-            "models": os.path.join(root, f"models-{name}"),
-            "global_batch": kw["batch"] * kw["data"]}
+    return dict(started, wall_s=wall, ranks=ranks)
+
+
+def _mesh_world(root: str, name: str, processed: str, **kw) -> dict:
+    """One world of train_job ranks, run to its end."""
+    return _finish_world(_start_world(root, name, processed, **kw))
+
+
+def _parallel_worlds(root: str, processed: str, specs: list) -> list:
+    """One-card worlds side by side, spec ``j`` = ``(name, kw)`` alone on
+    card ``j`` (``CUDA_VISIBLE_DEVICES``), at the global batch."""
+    started = [_start_world(root, name, processed, data=1, model=1,
+                            batch=MESH_BATCH, CUDA_VISIBLE_DEVICES=str(j),
+                            **kw)
+               for j, (name, kw) in enumerate(specs)]
+    return [_finish_world(w) for w in started]
 
 
 def _mesh_summary(run: dict, base: dict | None = None) -> dict:
@@ -3852,16 +3920,307 @@ def model_axis_phase(root: str, card: str) -> dict:
     return out
 
 
+# (n) the seq axis: the flash variants of the ring (n0), then train_job
+# worlds of the two transformer families on NCCL against one card.
+SP_SHAPE = dict(b=16, h=8, d=64)
+# (tq, tk, q_offset, window): the windowed ring's partial-band steps
+# (square, causal, shifted by one or two shards) and the striped ring's
+# half-chunk blocks (rectangular, not causal) at T/S = 512 and 256.
+SP_VARIANTS = [(256, 256, 256, 256), (256, 256, 512, 256),
+               (512, 512, 256, 256), (512, 512, 512, 256),
+               (512, 256, 0, None), (256, 512, 0, None),
+               (256, 128, 0, None), (128, 256, 0, None)]
+SP_TOL = {"0": 1e-4, "1": 2e-2}  # |val_loss - W=1's|, f32 and bf16
+
+
+def _sp_reach(tq, tk, q_offset, window):
+    """(pairs, rows, keys) of one head: the unmasked (q, k) pairs, the q
+    rows that reach a key and the keys some row reaches. Without causal
+    every pair; else q position ``pos = q_offset + r`` reaches the keys
+    ``(pos - window, pos]`` that exist, so the band reaches only keys
+    ``[max(0, q_offset - window + 1), min(tk, q_offset + tq))``."""
+    if window is None and not q_offset:
+        return tq * tk, tq, tk
+    pos = q_offset + np.arange(tq)
+    lo = np.maximum(0, pos - (window or tk + q_offset) + 1)
+    hi = np.minimum(pos, tk - 1)
+    n = np.maximum(0, hi - lo + 1)
+    hit = n > 0
+    keys = int(hi[hit].max() - lo[hit].min() + 1) if hit.any() else 0
+    return int(n.sum()), int(hit.sum()), keys
+
+
+def check_sp_variants(fa) -> list[dict]:
+    """(n0) flash_fwd, flash_bwd_dkdv and flash_bwd_dq at each of
+    ``SP_VARIANTS`` (B=16, H=8, D=64), f32 and bf16, against their plain
+    versions (FWD_TOL on o, 1e-4 on lse, BWD_TOL of max|plain| on dq, dk,
+    dv), each backward with a nonzero lse cotangent; each kernel's time,
+    its bound (this variant's unmasked pairs; the q-side inputs of the
+    rows that reach a key and the K/V of the keys some row reaches, each
+    read once, and every output written whole), the plain version's and
+    SDPA's (the forward's and the backward's; a band as a boolean mask,
+    so SDPA computes the same o, without the lse)."""
+    b, h, d = SP_SHAPE["b"], SP_SHAPE["h"], SP_SHAPE["d"]
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    rows = []
+    for tq, tk, q_offset, window in SP_VARIANTS:
+        causal = window is not None
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        mask = None
+        if causal:
+            pos = q_offset + torch.arange(tq, device=DEVICE)[:, None]
+            key = torch.arange(tk, device=DEVICE)[None, :]
+            mask = (pos >= key) & (pos - key < window)
+        pairs, n_rows, n_keys = (b * h * n for n in
+                             _sp_reach(tq, tk, q_offset, window))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, do = (torch.randn(b, h, tq, d, generator=gen,
+                                 device=DEVICE).to(dtype) for _ in range(2))
+            k, v = (torch.randn(b, h, tk, d, generator=gen,
+                                device=DEVICE).to(dtype) for _ in range(2))
+            g_lse = torch.randn(b, h, tq, generator=gen, device=DEVICE)
+            o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+            args = (q, k, v, o, lse, do)
+            dk, dv = fa.flash_bwd_dkdv(*args, g_lse=g_lse, **kw)
+            dq = fa.flash_bwd_dq(*args, g_lse=g_lse, **kw)
+            torch.cuda.synchronize()
+            po, plse = fa.flash_attention_plain(q, k, v, **kw)
+            pdq, pdk, pdv = fa.flash_attention_bwd_plain(*args, g_lse=g_lse,
+                                                         **kw)
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in (o, lse, dq, dk, dv))
+            itemsize = torch.tensor([], dtype=dtype).element_size()
+            row = {"tq": tq, "tk": tk, "q_offset": q_offset,
+                   "window": window, "causal": causal,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "shape": [b, h, d], "pairs": pairs,
+                   "rows_reached": n_rows, "keys_reached": n_keys,
+                   "o_max_abs_err": abs_rel_err(o, po)[0],
+                   "lse_max_abs_err": (lse - plse).abs().max().item(),
+                   "masked_rows": int((plse < -1e29).sum().item()),
+                   "finite": finite}
+            for n, got, ref in (("dq", dq, pdq), ("dk", dk, pdk),
+                                ("dv", dv, pdv)):
+                row[f"{n}_max_abs_err"], row[f"{n}_max_rel_err"] = (
+                    abs_rel_err(got, ref))
+            bad = (not finite or row["o_max_abs_err"] > FWD_TOL[dtype]
+                   or row["lse_max_abs_err"] > 1e-4
+                   or any(row[f"{n}_max_rel_err"] > BWD_TOL[dtype]
+                          for n in ("dq", "dk", "dv")))
+            if bad:
+                raise AssertionError(
+                    f"(n0) flash variant {row} (tol {FWD_TOL[dtype]} on o, "
+                    f"1e-4 on lse, {BWD_TOL[dtype]} relative on dq, dk, dv)")
+            # row_b: one row of d. The reached q rows (q, o, dO) and keys (k,
+            # v) read, o or dq over tq and dk, dv over tk written; f32 lse
+            # and g_lse read at the reached rows, lse written over tq.
+            row_b, lse_b = d * itemsize, 4
+            reads = 2 * n_keys * row_b
+            bounds = {
+                "flash_fwd": _bound(
+                    4.0 * d * pairs, n_rows * row_b + reads
+                    + b * h * tq * (row_b + lse_b), dtype),
+                "flash_bwd_dkdv": _bound(
+                    8.0 * d * pairs, n_rows * (3 * row_b + 2 * lse_b) + reads
+                    + 2 * b * h * tk * row_b, dtype),
+                "flash_bwd_dq": _bound(
+                    6.0 * d * pairs, n_rows * (3 * row_b + 2 * lse_b) + reads
+                    + b * h * tq * row_b, dtype),
+            }
+            timed = {
+                "flash_fwd": lambda: fa.flash_attention(
+                    q, k, v, return_lse=True, **kw),
+                "flash_bwd_dkdv": lambda: fa.flash_bwd_dkdv(
+                    *args, g_lse=g_lse, **kw),
+                "flash_bwd_dq": lambda: fa.flash_bwd_dq(
+                    *args, g_lse=g_lse, **kw),
+            }
+            for name, fn in timed.items():
+                ms, (bound_ms, by, basis) = time_ms(fn), bounds[name]
+                row[name] = {"ms": ms, "bound_ms": bound_ms, "bound_by": by,
+                             "bound_basis": basis}
+            row["plain_fwd_ms"] = time_ms(lambda: fa.flash_attention_plain(
+                q, k, v, **kw), runs=3, per_run=2, warmup=1)
+            row["plain_bwd_ms"] = time_ms(
+                lambda: fa.flash_attention_bwd_plain(*args, g_lse=g_lse,
+                                                     **kw),
+                runs=3, per_run=2, warmup=1)
+            row["library_fwd_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=mask))
+            qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+            o_sdpa = F.scaled_dot_product_attention(qg, kg, vg,
+                                                    attn_mask=mask)
+            row["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                o_sdpa, (qg, kg, vg), do, retain_graph=True))
+            del o_sdpa, qg, kg, vg
+            print(f"[smoke] (n0) variant {json.dumps(row)}", flush=True)
+            rows.append(row)
+    return rows
+
+
+def _sp_world(root: str, name: str, processed: str, *, family: str,
+              bf16: bool, data: int = 1, model: int = 1, seq: int = 1,
+              **extra) -> dict:
+    """One world of ``data x model x seq`` train_job ranks on (m)'s rows
+    and schedule (global batch MESH_BATCH)."""
+    run = _mesh_world(root, name, processed, family=family, bf16=bf16,
+                      data=data, model=model, world=data * model * seq,
+                      batch=MESH_BATCH // data, DCT_MESH_SEQ=str(seq),
+                      **extra)
+    run["seq"] = seq
+    return run
+
+
+def sp_forward_calls(layout: str, my: int, s: int, n_steps: int) -> int:
+    """Forward kernel calls per layer on seq rank ``my`` of ``s`` (the
+    engines' step structure): the non-causal ring ``s``; the contiguous
+    causal ring ``1 + my``; the striped ring ``3 + (s - 1)``; the windowed
+    contiguous ring ``1 + min(my, n_steps - 1)``; the all-to-all engine
+    1."""
+    return {"ring": s, "contiguous": 1 + my, "striped": 3 + (s - 1),
+            "windowed": 1 + min(my, n_steps - 1), "a2a": 1}[layout]
+
+
+def _check_sp_run(run: dict, base: dict, tol: float, *, layout: str,
+                  n_steps: int = 1, where: str) -> dict:
+    """Every rank ends on the same val_loss, within ``tol`` of W=1's; each
+    rank launched W=1's kernels times its forward calls per layer
+    (:func:`sp_forward_calls`; rank r sits at seq index r % S)."""
+    summary = _mesh_summary(run, base)
+    losses = {r["val_loss"] for r in run["ranks"]}
+    want1 = base["ranks"][0]["launches"]
+    if DEVICE == "cuda" and not all(want1.values()):
+        raise AssertionError(f"(n) {where}: the W=1 run launched {want1}")
+    s, bad, per_rank = run["seq"], [], []
+    for r, rank in enumerate(run["ranks"]):
+        calls = sp_forward_calls(layout, r % s, s, n_steps)
+        want = {k: v * calls for k, v in want1.items()}
+        per_rank.append(calls)
+        if rank["launches"] != want:
+            bad.append((r, rank["launches"], want))
+    summary["forward_calls_per_layer"] = per_rank
+    if len(losses) != 1 or summary["val_loss_diff"] > tol or bad:
+        raise AssertionError(f"(n) {where}: val_losses {losses} against "
+                             f"{base['ranks'][0]['val_loss']} (tol {tol}), "
+                             f"launches (rank, got, want) {bad}")
+    print(f"[smoke] (n) {where}: {json.dumps(summary)}", flush=True)
+    return summary
+
+
+def sequence_phase(root: str, card: str) -> dict:
+    """(n) The seq axis: (n0) on any count of cards, the worlds on two or
+    more (module docstring); one line saying they did not run on fewer."""
+    from dct_tpu_torch.data.synthetic import generate_weather_csv
+    from dct_tpu_torch.etl.preprocess import preprocess_csv_to_parquet
+    from dct_tpu_torch.ops import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    variants = check_sp_variants(fa)
+    cards = torch.cuda.device_count()
+    zero = {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    if cards < 2:
+        print(json.dumps({"phase": "n", "ran": False, "cards": cards}),
+              flush=True)
+        return {"ran": False, "launches": zero, "variants": variants,
+                "phase_s": time.perf_counter() - t_phase}
+    shutil.rmtree(root, ignore_errors=True)
+    raw = os.path.join(root, "raw", "weather.csv")
+    generate_weather_csv(raw, rows=MESH_ROWS, seed=12)
+    processed = os.path.join(root, "processed")
+    preprocess_csv_to_parquet(raw, processed)
+    t_local = MESH_CFG["seq_len"]
+    out = {"ran": True, "cards": cards, "card": card, "variants": variants,
+           "n1": {}, "n2": {}}
+    runs = []
+
+    def world(name, **kw):
+        run = _sp_world(root, name, processed, **kw)
+        runs.append(run)
+        return run
+
+    tf, causal = "weather_transformer", "weather_transformer_causal"
+    # The W=1 runs each world is held to, one a card at once.
+    bases = {"tf": dict(family=tf, bf16=False),
+             "causal": dict(family=causal, bf16=False),
+             "window": dict(family=causal, bf16=False, DCT_ATTN_WINDOW="256"),
+             "causal_bf16": dict(family=causal, bf16=True)}
+    names = list(bases)
+    base = {}
+    for i in range(0, len(names), cards):
+        batch = names[i:i + cards]
+        done = _parallel_worlds(root, processed, [
+            (f"n-w1-{n}", bases[n]) for n in batch])
+        for n, run in zip(batch, done):
+            run["seq"] = 1
+            base[n] = run
+            runs.append(run)
+            out.setdefault("w1", {})[n] = _mesh_summary(run)
+    # (n1) weather_transformer, f32: the ring (not causal).
+    n1 = [("ring seq=2", dict(seq=2), "ring", None)]
+    if cards >= 4:
+        n1 += [("a2a seq=4", dict(seq=4, DCT_SP_ENGINE="a2a"), "a2a", None),
+               ("ring data=2 seq=2", dict(data=2, seq=2), "ring", None)]
+    for where, kw, layout, _ in n1:
+        run = world("n1-" + where.replace(" ", "-").replace("=", ""),
+                    family=tf, bf16=False, **kw)
+        out["n1"][where] = _check_sp_run(run, base["tf"], SP_TOL["0"],
+                                         layout=layout, where=f"n1 {where}")
+    # (n2) weather_transformer_causal: striped, contiguous, windowed rings.
+    if cards >= 4:
+        n2 = [("striped seq=4", dict(seq=4), "striped", "causal"),
+              ("contiguous seq=4", dict(seq=4, DCT_RING_STRIPED="off"),
+               "contiguous", "causal"),
+              ("windowed seq=4", dict(seq=4, DCT_ATTN_WINDOW="256"),
+               "windowed", "window"),
+              ("windowed seq=2", dict(seq=2, DCT_ATTN_WINDOW="256"),
+               "windowed", "window"),
+              ("striped model=2 seq=2", dict(model=2, seq=2), "striped",
+               "causal"),
+              ("striped bf16 seq=4", dict(seq=4, bf16=True), "striped",
+               "causal_bf16")]
+    else:
+        n2 = [("striped seq=2", dict(seq=2), "striped", "causal"),
+              ("windowed seq=2", dict(seq=2, DCT_ATTN_WINDOW="256"),
+               "windowed", "window")]
+    for where, kw, layout, key in n2:
+        kw = dict(kw)
+        bf16 = kw.pop("bf16", False)
+        s = kw["seq"]
+        steps = 1
+        if layout == "windowed":
+            from dct_tpu_torch.ops.attention import _ring_window_steps
+
+            steps = _ring_window_steps(256, t_local // s, s)
+        run = world("n2-" + where.replace(" ", "-").replace("=", ""),
+                    family=causal, bf16=bf16, **kw)
+        out["n2"][where] = _check_sp_run(
+            run, base[key], SP_TOL["1" if bf16 else "0"], layout=layout,
+            n_steps=steps, where=f"n2 {where}")
+    launches = {k: sum(r["launches"][k] for run in runs
+                       for r in run["ranks"]) for k in zero}
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[smoke] (n) seq axis on {cards} cards, launches {launches}, "
+          f"phase {out['phase_s']:.1f} s on {card}", flush=True)
+    print(f"[smoke] (n) summary {json.dumps(out)}", flush=True)
+    with open(os.path.join(root, "phase_n.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("all", "k", "l", "m"),
+    ap.add_argument("--phase", choices=("all", "k", "l", "m", "n"),
                     default="all",
                     help="k: build the kernels and run only (k), over a "
                          "random full-width checkpoint and synthetic rows; "
                          "l: only (l), over synthetic rows; m: only (m), "
-                         "the model axis, on two or more cards")
+                         "the model axis, on two or more cards; n: only "
+                         "(n), the seq axis (its worlds on two or more "
+                         "cards)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3895,9 +4254,13 @@ def main(argv=None) -> int:
     tc_counts = tensor_core_instructions(build)
     print(f"[smoke] tensor-core instructions: {tc_counts}", flush=True)
 
-    if args.phase == "m":
-        model_axis_phase(os.path.join(HERE, "build", "chip_smoke_mesh"),
-                         card)
+    if args.phase in ("m", "n"):
+        if args.phase == "m":
+            model_axis_phase(os.path.join(HERE, "build", "chip_smoke_mesh"),
+                             card)
+        else:
+            sequence_phase(os.path.join(HERE, "build", "chip_smoke_seq"),
+                           card)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3985,6 +4348,9 @@ def main(argv=None) -> int:
     mesh = model_axis_phase(os.path.join(HERE, "build", "chip_smoke_mesh"),
                             card)
     m_counts = mesh["launches"]
+    torch.cuda.empty_cache()
+    seq = sequence_phase(os.path.join(HERE, "build", "chip_smoke_seq"), card)
+    n_counts = seq["launches"]
 
     def bf16_summary(rows):
         row = [r for r in rows
@@ -4010,7 +4376,8 @@ def main(argv=None) -> int:
                      + sched_counts["flash_fwd"]
                      + k_counts["serve_k"] + k_counts["predict"]
                      + k_counts["knobs"]["flash_fwd"]
-                     + l_counts["flash_fwd"] + m_counts["flash_fwd"]),
+                     + l_counts["flash_fwd"] + m_counts["flash_fwd"]
+                     + n_counts["flash_fwd"]),
         "launches_by_path": {"serve": launches,
                              "train": train_counts["flash_fwd"],
                              "fit": fit_counts["flash_fwd"],
@@ -4022,7 +4389,8 @@ def main(argv=None) -> int:
                              "predict": k_counts["predict"],
                              "knobs": k_counts["knobs"]["flash_fwd"],
                              "families": l_counts["flash_fwd"],
-                             "model_axis": m_counts["flash_fwd"]},
+                             "model_axis": m_counts["flash_fwd"],
+                             "sequence_parallel": n_counts["flash_fwd"]},
         "gate_launches_per_consult": loop_counts["gate"]["flash_fwd"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -4045,7 +4413,8 @@ def main(argv=None) -> int:
             "launches": (train_counts[name] + fit_counts[name]
                          + loop_counts["train"][name] + sup_counts[name]
                          + sched_counts[name] + k_counts["knobs"][name]
-                         + l_counts[name] + m_counts[name]),
+                         + l_counts[name] + m_counts[name]
+                         + n_counts[name]),
             "launches_by_path": {"train": train_counts[name],
                                  "fit": fit_counts[name],
                                  "loop_train": loop_counts["train"][name],
@@ -4055,7 +4424,8 @@ def main(argv=None) -> int:
                                  "serve_k": 0, "predict": 0,
                                  "knobs": k_counts["knobs"][name],
                                  "families": l_counts[name],
-                                 "model_axis": m_counts[name]},
+                                 "model_axis": m_counts[name],
+                                 "sequence_parallel": n_counts[name]},
             "launches_per_step": train_counts[name] / train_steps,
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -4070,6 +4440,16 @@ def main(argv=None) -> int:
     for k in kernels:
         k["grid_beyond_65535_ms"] = {dt: row["ms"][k["name"]]
                                      for dt, row in repairs["c2"].items()}
+        # (n0): the ring's variants (q_offset, Tq != Tk, the lse
+        # cotangent in the backward), each with its time and bound.
+        k["sp_variants"] = [
+            {"tq": r["tq"], "tk": r["tk"], "q_offset": r["q_offset"],
+             "window": r["window"], "dtype": r["dtype"], **r[k["name"]],
+             "plain_ms": r["plain_fwd_ms" if k["name"] == "flash_fwd"
+                           else "plain_bwd_ms"],
+             "library_ms": r["library_fwd_ms" if k["name"] == "flash_fwd"
+                             else "library_bwd_ms"]}
+            for r in seq["variants"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

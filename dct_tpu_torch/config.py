@@ -350,6 +350,34 @@ class MeshConfig:
 
 
 @dataclass
+class SeqParallelConfig:
+    """The sequence-parallel engines' knobs, the reference's
+    (``dct_tpu/config.py:1258-1259``), read where the engines are picked
+    (:mod:`dct_tpu_torch.ops.attention`): ``DCT_SP_ENGINE`` ``ring``
+    (default: the KV shards rotate round the seq ranks) or ``a2a`` (two
+    all-to-all exchanges around a full-length call), and
+    ``DCT_RING_STRIPED`` ``auto`` (default: the causal ring stripes where
+    its flash path takes the half shard), ``on`` or ``off`` (also ``1``,
+    ``true``, ``yes`` / ``0``, ``false``, ``no``)."""
+
+    engine: str = "ring"
+    ring_striped: str = "auto"
+
+    @classmethod
+    def from_env(cls) -> "SeqParallelConfig":
+        c = cls()
+        c.engine = _env("DCT_SP_ENGINE", c.engine).strip().lower()
+        if c.engine not in ("ring", "a2a"):
+            raise ValueError(
+                f"DCT_SP_ENGINE={c.engine!r} must be 'ring' or 'a2a'")
+        mode = _env("DCT_RING_STRIPED", c.ring_striped).strip().lower()
+        c.ring_striped = ("off" if mode in ("0", "off", "false", "no")
+                          else "on" if mode in ("1", "on", "true", "yes")
+                          else "auto")
+        return c
+
+
+@dataclass
 class DistributedConfig:
     """The rendezvous: ``DCT_NUM_PROCESSES``/``WORLD_SIZE``,
     ``DCT_PROCESS_ID``/``NODE_RANK`` and ``DCT_COORDINATOR_ADDRESS`` or

@@ -20,7 +20,9 @@ global generator. Under data parallelism a process holds a contiguous
 block of each global batch; :func:`set_data_block` tells every dropout
 layer of a model which, and the layer draws the mask of the whole global
 batch and keeps its block's rows, so a W-process run draws the masks of
-the 1-process run.
+the 1-process run. Under sequence parallelism the caller passes its
+positions too (``seq``), and the layer keeps those columns of the whole
+sequence's mask.
 """
 
 from __future__ import annotations
@@ -92,7 +94,8 @@ class Dropout(nn.Module):
     divided by ``1 - rate``; the identity in eval mode or at rate 0. The
     mask comes from ``key`` (see :func:`mask_seed`). ``block = (W, p)``:
     the input is block ``p`` of ``W`` equal row blocks of the global batch
-    (see :func:`set_data_block`)."""
+    (see :func:`set_data_block`); ``seq = (positions, T)`` in a forward:
+    its dim 1 holds those positions of a sequence of ``T``."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -100,7 +103,8 @@ class Dropout(nn.Module):
         self.block = (1, 0)
         self._gen: torch.Generator | None = None
 
-    def forward(self, x: torch.Tensor, key: tuple | None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key: tuple | None,
+                seq: tuple | None = None) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         if self.rate >= 1.0:
@@ -115,9 +119,12 @@ class Dropout(nn.Module):
         self._gen.manual_seed(mask_seed(key))
         n, p = self.block
         b = x.shape[0]
-        draw = torch.rand((b * n, *x.shape[1:]), generator=self._gen,
-                          device=x.device)
-        keep = draw[p * b:(p + 1) * b] < (1.0 - self.rate)
+        shape = x.shape[1:] if seq is None else (seq[1], *x.shape[2:])
+        draw = torch.rand((b * n, *shape), generator=self._gen,
+                          device=x.device)[p * b:(p + 1) * b]
+        if seq is not None:
+            draw = draw.index_select(1, seq[0])
+        keep = draw < (1.0 - self.rate)
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 

@@ -2,7 +2,10 @@
 
 The MLP, the two transformer families, the GRU and the MoE are ported.
 The pipeline family raises :class:`NotImplementedError` naming the
-ROADMAP item that ports it; nothing else runs in its place.
+ROADMAP item that ports it; nothing else runs in its place. On a grid
+whose ``seq`` axis has more than one process (``mesh``) the two
+transformer families run sequence-parallel; the others raise, naming
+ROADMAP Queue A item 16b.
 Models come back in eval mode, the flax modules' ``train=False``; a
 trainer calls ``model.train()``.
 """
@@ -21,6 +24,7 @@ from dct_tpu_torch.models.transformer import WeatherTransformer
 SEQUENCE_MODELS = {"weather_transformer", "weather_transformer_causal",
                    "weather_gru", "weather_moe"}
 CAUSAL_MODELS = {"weather_transformer_causal"}
+SEQ_PARALLEL_MODELS = {"weather_transformer", "weather_transformer_causal"}
 
 _NOT_PORTED = {
     "weather_transformer_pp": "ROADMAP Queue A item 17 (pipeline and MPMD)",
@@ -38,7 +42,7 @@ def is_causal_model(name: str) -> bool:
 
 def get_model(cfg: ModelConfig, *, input_dim: int | None = None,
               device=None, dtype=torch.float32,
-              compute_dtype=None) -> nn.Module:
+              compute_dtype=None, mesh=None) -> nn.Module:
     """Build ``cfg.name`` on ``device`` with ``dtype`` parameters computing
     in ``compute_dtype`` (default ``dtype``), with ``cfg.dropout`` and
     ``cfg.remat`` (``dct_tpu/models/registry.py:63-170, 207-231``). The
@@ -47,7 +51,10 @@ def get_model(cfg: ModelConfig, *, input_dim: int | None = None,
     attention and its routing knobs; the GRU ``hidden_dim`` and
     ``n_layers``. ``device=None`` is the
     card (``cuda:0``; :class:`~dct_tpu_torch.device.DeviceError` without
-    CUDA): a CPU model is built only when ``"cpu"`` is asked for."""
+    CUDA): a CPU model is built only when ``"cpu"`` is asked for. With a
+    ``mesh`` whose seq axis has more than one process, a transformer's
+    attention is that axis's engine
+    (:func:`~dct_tpu_torch.ops.attention.make_attention_fn`)."""
     from dct_tpu_torch.device import resolve_device
     from dct_tpu_torch.ops.attention import make_attention_fn
 
@@ -58,6 +65,13 @@ def get_model(cfg: ModelConfig, *, input_dim: int | None = None,
         )
     if cfg.name != "weather_mlp" and cfg.name not in SEQUENCE_MODELS:
         raise KeyError(f"Unknown model {cfg.name!r}")
+    seq = mesh.shape.get("seq", 1) if mesh is not None else 1
+    if seq > 1 and cfg.name not in SEQ_PARALLEL_MODELS:
+        raise NotImplementedError(
+            f"model {cfg.name!r} on a seq axis of {seq}: the port runs the "
+            f"seq axis for {sorted(SEQ_PARALLEL_MODELS)} only (the MoE's "
+            "routing over data x seq, the GRU and ZeRO-1/FSDP under seq): "
+            "ROADMAP Queue A item 16b")
     dim = cfg.input_dim if input_dim is None else input_dim
     if dim is None:
         raise ValueError("input_dim must be provided (inferred from data)")
@@ -92,7 +106,7 @@ def get_model(cfg: ModelConfig, *, input_dim: int | None = None,
     return WeatherTransformer(
         dim, cfg.seq_len, d_model=cfg.d_model, n_heads=cfg.n_heads,
         n_layers=cfg.n_layers, d_ff=cfg.d_ff, num_classes=cfg.num_classes,
-        attn_fn=make_attention_fn(causal=causal, window=window),
+        attn_fn=make_attention_fn(mesh, causal=causal, window=window),
         per_position=causal, horizon=cfg.horizon if causal else 1,
         n_kv_heads=cfg.n_kv_heads if cfg.n_kv_heads > 0 else None,
         pos_embed=cfg.pos_embed, dropout=cfg.dropout, remat=cfg.remat, **kw,

@@ -50,6 +50,21 @@ replicated bias; each block's ``ffn_in`` is column-parallel and its
 (LayerNorms, residuals, dropout, the head) is replicated over the model
 group and computed on every rank; the dropout masks depend on the key and
 the data block alone, so the model ranks of a block draw the same ones.
+
+Sequence parallelism (``dct_tpu/models/transformer.py:48-58`` with the
+reference's ``ring_attention`` / ``a2a_attention``): when ``attn_fn`` is a
+:class:`~dct_tpu_torch.ops.attention.SequenceParallelAttention`, each of
+the ``S`` seq ranks of a block takes the ``T/S`` positions the engine
+lays out for it (:meth:`~dct_tpu_torch.ops.attention.
+SequenceParallelAttention.positions`: contiguous, or the striped ring's
+chunks) once, at the input, and keeps them to the end: the sinusoidal
+table and the rope angles are those of its global positions, each
+dropout mask is the whole sequence's at those positions, every block but
+attention acts per position. The mean pool sums the ranks' positions
+over the seq group and divides by ``T``; the per-position logits are
+gathered over the seq group and put back in sequence order. So the head
+and the logits are the same on every seq rank, and the loss counts them
+on seq index 0 (:func:`~dct_tpu_torch.parallel.mesh.seq_owned`).
 """
 
 from __future__ import annotations
@@ -61,6 +76,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from dct_tpu_torch.models.mlp import Dropout, TorchStyleDense
+from dct_tpu_torch.parallel.mesh import gather_from_seq, reduce_from_seq
 
 
 def sincos_positions(seq_len: int, d_model: int) -> torch.Tensor:
@@ -211,14 +227,15 @@ class TransformerBlock(nn.Module):
         self.ffn_out.split_input(shard)
 
     def forward(self, x: torch.Tensor, rope=None,
-                key: tuple | None = None) -> torch.Tensor:
+                key: tuple | None = None, seq=None) -> torch.Tensor:
         """``key``: the dropout key of this block (the model's key plus
-        the layer index); each site appends its own index."""
+        the layer index); each site appends its own index. ``seq``:
+        ``(positions, T)`` of a seq rank's slice of the sequence."""
         h = self.attn(self.ln_attn(x), rope)
-        x = x + self.drop(h, None if key is None else key + (0,))
+        x = x + self.drop(h, None if key is None else key + (0,), seq)
         h = F.gelu(self.ffn_in(self.ln_ffn(x)), approximate="tanh")
         h = self.ffn_out(h)
-        return x + self.drop(h, None if key is None else key + (1,))
+        return x + self.drop(h, None if key is None else key + (1,), seq)
 
 
 class WeatherTransformer(nn.Module):
@@ -251,6 +268,8 @@ class WeatherTransformer(nn.Module):
 
             attn_fn = make_attention_fn()
         self.compute_dtype = compute_dtype or dtype
+        # The sequence-parallel engine, whose layout the forward takes.
+        self.seq_parallel = attn_fn if hasattr(attn_fn, "positions") else None
         kw = {"device": device, "dtype": dtype}
         ckw = dict(kw, compute_dtype=self.compute_dtype)
         self.seq_len, self.n_layers = seq_len, n_layers
@@ -286,26 +305,40 @@ class WeatherTransformer(nn.Module):
         seed and step, for instance) that seeds every dropout mask of
         this forward; needed only in training mode with dropout > 0."""
         dtype = self.compute_dtype
+        sp, t = self.seq_parallel, x.shape[1]
+        seq = None
+        if sp is not None:  # this seq rank's positions, from here on
+            pos = sp.positions(t, x.device)
+            x = x.index_select(1, pos)
+            seq = (pos, t)
         h = self.in_proj(x.to(dtype))
         rope = None
         if self.pos_embed == "rope":
-            t = h.shape[1]
             rope = (self.rope_cos[:t], self.rope_sin[:t])
+            if seq is not None:
+                rope = tuple(r.index_select(0, pos) for r in rope)
         else:
-            h = h + self.pos_table.to(dtype)
+            table = self.pos_table.to(dtype)
+            h = h + (table if seq is None else table.index_select(0, pos))
         for i, block in enumerate(self.blocks()):
             key = None if dropout_key is None else tuple(dropout_key) + (i,)
             if self.remat and torch.is_grad_enabled():
-                h = checkpoint(block, h, rope, key, use_reentrant=False,
+                h = checkpoint(block, h, rope, key, seq, use_reentrant=False,
                                preserve_rng_state=False)
             else:
-                h = block(h, rope, key)
+                h = block(h, rope, key, seq)
         h = self.ln_out(h)
         if self.per_position:
             logits = self.head(h)
+            if sp is not None:
+                logits = gather_from_seq(logits, sp.shard).index_select(
+                    1, sp.inverse(t, x.device))
             if self.horizon > 1:
-                logits = logits.reshape(*h.shape[:-1], self.horizon,
+                logits = logits.reshape(*logits.shape[:2], self.horizon,
                                         self.num_classes)
+        elif sp is not None:
+            pooled = reduce_from_seq(h.float().sum(dim=1), sp.shard) / t
+            logits = self.head(pooled.to(h.dtype))
         else:
             logits = self.head(h.mean(dim=1))
         return logits.float()

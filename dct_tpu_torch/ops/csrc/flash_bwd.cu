@@ -11,7 +11,14 @@
 // per (q, k) pair of a tile:
 //   P  = exp(scale * q.k - lse)          (0 where the causal/window mask drops)
 //   dP = dO.v
-//   dS = P * (dP - delta) * scale,  delta = rowsum(dO * O)
+//   dS = P * (dP - delta) * scale,  delta = rowsum(dO * O) - g_lse
+// g_lse is the cotangent of the forward's lse output (d lse / d s = P), the
+// ring engine's merge weights' gradient (`_vjp_lse_bwd`, :630-667), null
+// for none.  As in the forward, Tq may differ from Tk (not causal) and the
+// q rows may sit at q_offset + r under the causal mask and window; the
+// reference rematerializes those cases blockwise (`_vjp_bwd` :571-585,
+// `_vjp_lse_bwd`), here they are the kernels' arguments, and a row that no
+// key reaches (lse = -1e30) gets P = 0.
 // then dV += P^T dO and dK += dS^T Q (kernel 2), dQ += dS K (kernel 3), all
 // accumulated in f32.  delta is computed inside each kernel in f32, as the
 // TPU kernels do (:333, :392): no pre-pass and no [B*H, T] side buffer.
@@ -124,14 +131,44 @@ namespace {
 constexpr int BQ = 64;  // q rows per warpgroup
 constexpr int BK = 64;  // keys per warpgroup (kernel 2), per bf16 KV tile
 
-__device__ __forceinline__ bool keep_pair(int qp, int kp, int seq, int causal,
+// Whether q row qr (of tq, at position q_offset + qr) and key kp (of tk)
+// survive the ragged edges, the causal mask and the window.
+__device__ __forceinline__ bool keep_pair(int qr, int kp, int tq, int tk,
+                                          int q_offset, int causal,
                                           int window) {
-  bool kk = qp < seq && kp < seq;
+  bool kk = qr < tq && kp < tk;
   if (causal) {
+    const int qp = q_offset + qr;
     kk = kk && qp >= kp;
     if (window > 0) kk = kk && qp - kp < window;
   }
   return kk;
+}
+
+// The q tiles of `bq` rows (of tq, row r at position q_offset + r) that
+// reach the keys k0..k0+keys-1: i_lo and the count, 0 when none does.
+// Causal starts at the diagonal; a window ends where the band of the last
+// key runs out (the TPU kernel's clamped index map, :473-480).
+__device__ __forceinline__ int q_tiles(int k0, int keys, int bq, int tq,
+                                       int q_offset, int causal, int window,
+                                       int& i_lo) {
+  int i_hi = (tq + bq - 1) / bq - 1;
+  i_lo = 0;
+  if (causal) {
+    i_lo = max(0, k0 - q_offset) / bq;
+    if (window > 0) {
+      const int last = window + k0 + keys - 2 - q_offset;  // last q row
+      i_hi = last < 0 ? -1 : min(i_hi, last / bq);
+    }
+  }
+  return max(0, i_hi - i_lo + 1);
+}
+
+// The lse cotangent of q row qr of the head at flat row offset `head`, 0
+// without one (g_lse null) or past tq: delta' = delta - g_lse.
+__device__ __forceinline__ float g_lse_at(const float* g_lse, size_t head,
+                                          int qr, int tq) {
+  return g_lse != nullptr && qr < tq ? g_lse[head + qr] : 0.f;
 }
 
 // ---- bf16 dK/dV: tensor cores (wgmma) -------------------------------------
@@ -148,7 +185,7 @@ struct DkdvWgSmem {
   static constexpr size_t bytes = 1024 + VEC + 2 * 2 * BQ * sizeof(float);
 };
 
-template <int D>
+template <int D, bool VARIANT>
 __global__ void __launch_bounds__(WG)
     flash_bwd_dkdv_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
                                 const __nv_bfloat16* __restrict__ k,
@@ -156,11 +193,21 @@ __global__ void __launch_bounds__(WG)
                                 const __nv_bfloat16* __restrict__ o,
                                 const __nv_bfloat16* __restrict__ dout,
                                 const float* __restrict__ lse,
+                                const float* __restrict__ g_lse,
                                 __nv_bfloat16* __restrict__ dk,
                                 __nv_bfloat16* __restrict__ dv, int H, int G,
-                                int seq, float scale, int causal,
-                                int window) {
+                                int tq, int tk, int q_offset, float scale,
+                                int causal, int window) {
   static_assert(BQ == 64 && BK == 64, "one m64n64 score tile per q tile");
+  // VARIANT false is the square, unshifted call without an lse cotangent
+  // (every call outside the seq axis): fixing its arguments here keeps
+  // them out of its code, where as runtime values they cost 4-9% (bf16,
+  // B=32, H=8, T=1024, D=64).
+  if constexpr (!VARIANT) {
+    tk = tq;
+    q_offset = 0;
+    g_lse = nullptr;
+  }
   using Tl = sm90::Tile<D, BQ>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = sm90::smem_addr(smem_raw);
@@ -179,37 +226,35 @@ __global__ void __launch_bounds__(WG)
   const int group = H / G;
   const int k0 = jt * BK;
 
-  // The q tiles that reach this KV tile: causal starts at the diagonal, a
-  // window ends where the band of the tile's last key runs out.
-  const int n_q = (seq + BQ - 1) / BQ;
-  int i_lo = 0, i_hi = n_q - 1;
-  if (causal) {
-    i_lo = k0 / BQ;
-    if (window > 0) i_hi = min(i_hi, (window + k0 + BK - 2) / BQ);
-  }
-  const int n_qt = i_hi - i_lo + 1;
+  // The q tiles that reach this KV tile (none: dK = dV = 0).
+  int i_lo;
+  const int n_qt =
+      q_tiles(k0, BK, BQ, tq, q_offset, causal, window, i_lo);
   const int n_iter = group * n_qt;  // the group's q heads x their q tiles
 
   // Iteration it: q head m = it / n_qt of the group, q tile i_lo + it % n_qt.
+  auto head_of = [&](int it) {
+    return (size_t)(b * H + g * group + it / n_qt) * tq;
+  };
   auto load_q = [&](int it) {
     const int st = it & 1;
-    const size_t head = (size_t)(b * H + g * group + it / n_qt) * seq;
+    const size_t head = head_of(it);
     const int q0 = (i_lo + it % n_qt) * BQ;
     const uint32_t dst = sStages + st * 3 * Tl::BYTES;
-    sm90::load_tile<D, BQ, WG>(dst, q + head * D, q0, seq, tid);
-    sm90::load_tile<D, BQ, WG>(dst + Tl::BYTES, dout + head * D, q0, seq,
+    sm90::load_tile<D, BQ, WG>(dst, q + head * D, q0, tq, tid);
+    sm90::load_tile<D, BQ, WG>(dst + Tl::BYTES, dout + head * D, q0, tq,
                                tid);
-    sm90::load_tile<D, BQ, WG>(dst + 2 * Tl::BYTES, o + head * D, q0, seq,
+    sm90::load_tile<D, BQ, WG>(dst + 2 * Tl::BYTES, o + head * D, q0, tq,
                                tid);
     if (tid < BQ) {
-      const bool ok = q0 + tid < seq;
+      const bool ok = q0 + tid < tq;
       sm90::cp_async4(sm90::smem_addr(vec + st * 2 * BQ + tid),
                       lse + head + (ok ? q0 + tid : 0), ok);
     }
   };
-  sm90::load_tile<D, BK, WG>(sK, k + (size_t)bg * seq * D, k0, seq, tid);
-  sm90::load_tile<D, BK, WG>(sV, v + (size_t)bg * seq * D, k0, seq, tid);
-  load_q(0);
+  sm90::load_tile<D, BK, WG>(sK, k + (size_t)bg * tk * D, k0, tk, tid);
+  sm90::load_tile<D, BK, WG>(sV, v + (size_t)bg * tk * D, k0, tk, tid);
+  if (n_iter > 0) load_q(0);
   sm90::cp_async_commit();
 
   // This thread's accumulator rows (keys) r0 and r0 + 8 and columns
@@ -245,8 +290,11 @@ __global__ void __launch_bounds__(WG)
       sm90::wgmma_ss_n64(dp, Tl::kmajor(sV, kk), Tl::kmajor(sdO, kk), kk);
     sm90::wgmma_commit();
 
-    // delta = rowsum(dO * O) in f32 while the products run: two threads
-    // per q row, each over half the row, read from the swizzled tiles.
+    const int q0 = (i_lo + it % n_qt) * BQ;
+    const int qp0 = q_offset + q0;  // the q tile's first position
+    // delta = rowsum(dO * O) - g_lse in f32 while the products run: two
+    // threads per q row, each over half the row, read from the swizzled
+    // tiles.
     {
       const int row = tid >> 1, half = tid & 1;
       float part = 0.f;
@@ -268,7 +316,8 @@ __global__ void __launch_bounds__(WG)
         }
       }
       part += __shfl_xor_sync(0xffffffffu, part, 1);
-      if (half == 0) delta_s[row] = part;
+      if (half == 0)
+        delta_s[row] = part - g_lse_at(g_lse, head_of(it), q0 + row, tq);
     }
     __syncthreads();  // delta is in
     sm90::wgmma_wait<0>();
@@ -277,11 +326,10 @@ __global__ void __launch_bounds__(WG)
 
     // P^T = exp(scale S^T - lse) (0 where masked) and
     // dS^T = P^T (dP^T - delta) scale, per column (= q row) statistics.
-    const int q0 = (i_lo + it % n_qt) * BQ;
     const bool edge =
-        q0 + BQ > seq || k0 + BK > seq ||
-        (causal && (k0 + BK - 1 > q0 ||
-                    (window > 0 && q0 + BQ - 1 - k0 >= window)));
+        q0 + BQ > tq || k0 + BK > tk ||
+        (causal && (k0 + BK - 1 > qp0 ||
+                    (window > 0 && qp0 + BQ - 1 - k0 >= window)));
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float2 lse2 =
@@ -296,9 +344,8 @@ __global__ void __launch_bounds__(WG)
         for (int i = 0; i < 2; ++i) {
           const int idx = 4 * j + 2 * i + c;
           float p = sm90::exp2_approx(fmaf(s[idx], sl2, -lse_c));
-          if (edge &&
-              !keep_pair(q0 + 8 * j + c0 + c, k0 + r0 + 8 * i, seq, causal,
-                         window))
+          if (edge && !keep_pair(q0 + 8 * j + c0 + c, k0 + r0 + 8 * i, tq,
+                                 tk, q_offset, causal, window))
             p = 0.f;
           s[idx] = p;
           dp[idx] = p * (dp[idx] - del_c) * scale;
@@ -330,8 +377,8 @@ __global__ void __launch_bounds__(WG)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int kp = k0 + r0 + 8 * i;
-    if (kp >= seq) continue;
-    const size_t row = ((size_t)bg * seq + kp) * D;
+    if (kp >= tk) continue;
+    const size_t row = ((size_t)bg * tk + kp) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int idx = 4 * j + 2 * i;
@@ -358,7 +405,7 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int D>
+template <int D, bool VARIANT>
 __global__ void __launch_bounds__(WG)
     flash_bwd_dq_kernel_wgmma(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
@@ -366,9 +413,20 @@ __global__ void __launch_bounds__(WG)
                               const __nv_bfloat16* __restrict__ o,
                               const __nv_bfloat16* __restrict__ dout,
                               const float* __restrict__ lse,
+                              const float* __restrict__ g_lse,
                               __nv_bfloat16* __restrict__ dq, int H, int G,
-                              int seq, float scale, int causal, int window) {
+                              int tq, int tk, int q_offset, float scale,
+                              int causal, int window) {
   static_assert(BQ == 64 && BK == 64, "one m64n64 score tile per KV tile");
+  // VARIANT false is the square, unshifted call without an lse cotangent
+  // (every call outside the seq axis): fixing its arguments here keeps
+  // them out of its code, where as runtime values they cost 4-9% (bf16,
+  // B=32, H=8, T=1024, D=64).
+  if constexpr (!VARIANT) {
+    tk = tq;
+    q_offset = 0;
+    g_lse = nullptr;
+  }
   using Tl = sm90::Tile<D, BQ>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (sm90::smem_addr(smem_raw) + 1023) & ~1023u;
@@ -383,23 +441,25 @@ __global__ void __launch_bounds__(WG)
   const int b = bh / H;
   const int kvh = b * G + (bh % H) / (H / G);
   const int q0 = qt * BQ;
-  const size_t head = (size_t)bh * seq;
-  const __nv_bfloat16* kb = k + (size_t)kvh * seq * D;
-  const __nv_bfloat16* vb = v + (size_t)kvh * seq * D;
+  const int qp0 = q_offset + q0;  // the tile's first q position
+  const size_t head = (size_t)bh * tq;
+  const __nv_bfloat16* kb = k + (size_t)kvh * tk * D;
+  const __nv_bfloat16* vb = v + (size_t)kvh * tk * D;
 
   // The forward's KV range for this q tile.
   int j_lo;
-  const int n_kv = sm90::kv_tiles(q0, BQ, BK, seq, causal, window, j_lo);
+  const int n_kv =
+      sm90::kv_tiles(q0, BQ, BK, tq, tk, q_offset, causal, window, j_lo);
 
   auto load_kv = [&](int t) {
     const uint32_t dst = sKV + (t & 1) * 2 * Tl::BYTES;
     const int k0 = (j_lo + t) * BK;
-    sm90::load_tile<D, BK, WG>(dst, kb, k0, seq, tid);
-    sm90::load_tile<D, BK, WG>(dst + Tl::BYTES, vb, k0, seq, tid);
+    sm90::load_tile<D, BK, WG>(dst, kb, k0, tk, tid);
+    sm90::load_tile<D, BK, WG>(dst + Tl::BYTES, vb, k0, tk, tid);
   };
   // Q, dO and KV tile 0 in one commit group; tile t is group t.
-  sm90::load_tile<D, BQ, WG>(sQ, q + head * D, q0, seq, tid);
-  sm90::load_tile<D, BQ, WG>(sdO, dout + head * D, q0, seq, tid);
+  sm90::load_tile<D, BQ, WG>(sQ, q + head * D, q0, tq, tid);
+  sm90::load_tile<D, BQ, WG>(sdO, dout + head * D, q0, tq, tid);
   load_kv(0);
   sm90::cp_async_commit();
 
@@ -414,7 +474,7 @@ __global__ void __launch_bounds__(WG)
   for (int i = 0; i < 2; ++i) {
     const int qp = q0 + r0 + 8 * i;
     float part = 0.f;
-    if (qp < seq) {
+    if (qp < tq) {
       const size_t off = (head + qp) * D + (tid & 3) * (D / 4);
       const __nv_bfloat162* g2 =
           reinterpret_cast<const __nv_bfloat162*>(dout + off);
@@ -428,8 +488,8 @@ __global__ void __launch_bounds__(WG)
         part = fmaf(gf.y, of.y, part);
       }
     }
-    delta[i] = quad_sum(part);
-    lse2[i] = qp < seq ? lse[head + qp] * LOG2E : 0.f;
+    delta[i] = quad_sum(part) - g_lse_at(g_lse, head, qp, tq);
+    lse2[i] = qp < tq ? lse[head + qp] * LOG2E : 0.f;
   }
 
   const float sl2 = scale * LOG2E;
@@ -466,9 +526,9 @@ __global__ void __launch_bounds__(WG)
     // window-edge and ragged tiles) and dS = P (dP - delta) scale.
     const int k0 = (j_lo + t) * BK;
     const bool edge =
-        q0 + BQ > seq || k0 + BK > seq ||
-        (causal && (k0 + BK - 1 > q0 ||
-                    (window > 0 && q0 + BQ - 1 - k0 >= window)));
+        q0 + BQ > tq || k0 + BK > tk ||
+        (causal && (k0 + BK - 1 > qp0 ||
+                    (window > 0 && qp0 + BQ - 1 - k0 >= window)));
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -477,8 +537,8 @@ __global__ void __launch_bounds__(WG)
         for (int c = 0; c < 2; ++c) {
           const int idx = 4 * j + 2 * i + c;
           float p = sm90::exp2_approx(fmaf(s[idx], sl2, -lse2[i]));
-          if (edge && !keep_pair(q0 + r0 + 8 * i, k0 + 8 * j + c0 + c, seq,
-                                 causal, window))
+          if (edge && !keep_pair(q0 + r0 + 8 * i, k0 + 8 * j + c0 + c, tq,
+                                 tk, q_offset, causal, window))
             p = 0.f;
           s[idx] = p * (dp[idx] - delta[i]) * scale;
         }
@@ -500,7 +560,7 @@ __global__ void __launch_bounds__(WG)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qp = q0 + r0 + 8 * i;
-    if (qp >= seq) continue;
+    if (qp >= tq) continue;
     __nv_bfloat16* row = dq + (head + qp) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -517,12 +577,12 @@ __global__ void __launch_bounds__(WG)
 // B is a K-major [D][8*KS] tile BT (hi at bh, lo at bl) whose k index is
 // stored in tf32_key order.  The products go small first (Xhi.Blo,
 // Xlo.Bhi, Xhi.Bhi) into a fresh accumulator of NC output columns at a
-// time (rows NC*h.. of B), which is then added to acc in f32.
-template <int D, int KS, typename BT>
+// time (rows NC*h.. of B), which is then added to acc in f32; a narrower
+// NC holds fewer registers while the products run.
+template <int D, int KS, typename BT, int NC = (D < 64 ? D : 64)>
 __device__ __forceinline__ void add_product_tf32(float (&acc)[D / 2],
                                                  const float (&x)[4 * KS],
                                                  uint32_t bh, uint32_t bl) {
-  constexpr int NC = D < 64 ? D : 64;
   uint32_t xh[4 * KS], xl[4 * KS];
 #pragma unroll
   for (int j = 0; j < KS; ++j)
@@ -628,8 +688,10 @@ __global__ void __launch_bounds__(DqTf32Cfg<D>::NT)
                              const float* __restrict__ o,
                              const float* __restrict__ dout,
                              const float* __restrict__ lse,
-                             float* __restrict__ dq, int H, int G, int seq,
-                             float scale, int causal, int window) {
+                             const float* __restrict__ g_lse,
+                             float* __restrict__ dq, int H, int G, int tq,
+                             int tk, int q_offset, float scale, int causal,
+                             int window) {
   using C = DqTf32Cfg<D>;
   using QT = typename C::QT;
   using KT = typename C::KT;
@@ -655,19 +717,21 @@ __global__ void __launch_bounds__(DqTf32Cfg<D>::NT)
   const int kvh = b * G + (bh % H) / (H / G);
   const int q0 = qt * BQB;       // the block's first q row
   const int q0w = q0 + BQ * wg;  // this warpgroup's
-  const size_t head = (size_t)bh * seq;
-  const float* kb = k + (size_t)kvh * seq * D;
-  const float* vb = v + (size_t)kvh * seq * D;
+  const int qp0w = q_offset + q0w;  // its first q position
+  const size_t head = (size_t)bh * tq;
+  const float* kb = k + (size_t)kvh * tk * D;
+  const float* vb = v + (size_t)kvh * tk * D;
 
   // The forward's KV range for the block's q rows.
   int j_lo;
-  const int n_kv = sm90::kv_tiles(q0, BQB, BKT, seq, causal, window, j_lo);
+  const int n_kv =
+      sm90::kv_tiles(q0, BQB, BKT, tq, tk, q_offset, causal, window, j_lo);
 
-  // Raw K and V tile t, row-major, rows past seq zeroed.
+  // Raw K and V tile t, row-major, rows past tk zeroed.
   auto load_kv = [&](int t) {
     const int k0 = (j_lo + t) * BKT;
-    sm90::load_rows_f32<D, BKT, NT>(sRaw, kb, k0, seq, tid);
-    sm90::load_rows_f32<D, BKT, NT>(sRaw + C::RAW, vb, k0, seq, tid);
+    sm90::load_rows_f32<D, BKT, NT>(sRaw, kb, k0, tk, tid);
+    sm90::load_rows_f32<D, BKT, NT>(sRaw + C::RAW, vb, k0, tk, tid);
   };
   load_kv(0);
   sm90::cp_async_commit();
@@ -675,9 +739,9 @@ __global__ void __launch_bounds__(DqTf32Cfg<D>::NT)
   // Q and dO, read once from device memory, split into each warpgroup's hi
   // and lo tiles while KV tile 0 lands.
   sm90::split_rows<D, BQB, NT>(gbase, base, sQ, 4 * QT::BYTES, q + head * D,
-                               q0, seq, tid);
+                               q0, tq, tid);
   sm90::split_rows<D, BQB, NT>(gbase, base, sQ + 2 * QT::BYTES,
-                               4 * QT::BYTES, dout + head * D, q0, seq, tid);
+                               4 * QT::BYTES, dout + head * D, q0, tq, tid);
 
   // This thread's accumulator rows r0 and r0 + 8 (of its warpgroup's 64),
   // columns 8j + c0 (+1); their lse (log2 units) and delta = rowsum(dO * O)
@@ -690,7 +754,7 @@ __global__ void __launch_bounds__(DqTf32Cfg<D>::NT)
   for (int i = 0; i < 2; ++i) {
     const int qp = q0w + r0 + 8 * i;
     float part = 0.f;
-    if (qp < seq) {
+    if (qp < tq) {
       const size_t off = (head + qp) * D + (wt & 3) * (D / 4);
       const float4* g4 = reinterpret_cast<const float4*>(dout + off);
       const float4* o4 = reinterpret_cast<const float4*>(o + off);
@@ -703,8 +767,8 @@ __global__ void __launch_bounds__(DqTf32Cfg<D>::NT)
         part = fmaf(gv.w, ov.w, part);
       }
     }
-    delta[i] = quad_sum(part);
-    lse2[i] = qp < seq ? lse[head + qp] * LOG2E : 0.f;
+    delta[i] = quad_sum(part) - g_lse_at(g_lse, head, qp, tq);
+    lse2[i] = qp < tq ? lse[head + qp] * LOG2E : 0.f;
   }
 
   const float sl2 = scale * LOG2E;
@@ -750,9 +814,9 @@ __global__ void __launch_bounds__(DqTf32Cfg<D>::NT)
     // diagonal or past its window; ragged: no q row left).
     const int k0 = (j_lo + t) * BKT;
     const bool live =
-        q0w < seq &&
-        !(causal && (k0 > q0w + BQ - 1 ||
-                     (window > 0 && q0w - (k0 + BKT - 1) >= window)));
+        q0w < tq &&
+        !(causal && (k0 > qp0w + BQ - 1 ||
+                     (window > 0 && qp0w - (k0 + BKT - 1) >= window)));
     if (!live) continue;
 
     // S = Q.K^T and dP = dO.V^T, each as hi.lo + lo.hi + hi.hi (small
@@ -790,9 +854,9 @@ __global__ void __launch_bounds__(DqTf32Cfg<D>::NT)
     // P = exp(scale S - lse) (0 where masked; the mask only on diagonal,
     // window-edge and ragged tiles) and dS = P (dP - delta) scale, in f32.
     const bool edge =
-        q0w + BQ > seq || k0 + BKT > seq ||
-        (causal && (k0 + BKT - 1 > q0w ||
-                    (window > 0 && q0w + BQ - 1 - k0 >= window)));
+        q0w + BQ > tq || k0 + BKT > tk ||
+        (causal && (k0 + BKT - 1 > qp0w ||
+                    (window > 0 && qp0w + BQ - 1 - k0 >= window)));
 #pragma unroll
     for (int j = 0; j < BKT / 8; ++j)
 #pragma unroll
@@ -801,8 +865,8 @@ __global__ void __launch_bounds__(DqTf32Cfg<D>::NT)
         for (int c = 0; c < 2; ++c) {
           const int idx = 4 * j + 2 * i + c;
           float p = sm90::exp2_approx(fmaf(s[idx], sl2, -lse2[i]));
-          if (edge && !keep_pair(q0w + r0 + 8 * i, k0 + 8 * j + c0 + c, seq,
-                                 causal, window))
+          if (edge && !keep_pair(q0w + r0 + 8 * i, k0 + 8 * j + c0 + c, tq,
+                                 tk, q_offset, causal, window))
             p = 0.f;
           s[idx] = p * (dp[idx] - delta[i]) * scale;
         }
@@ -814,7 +878,7 @@ __global__ void __launch_bounds__(DqTf32Cfg<D>::NT)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qp = q0w + r0 + 8 * i;
-    if (qp >= seq) continue;
+    if (qp >= tq) continue;
     float* row = dq + (head + qp) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -826,8 +890,9 @@ __global__ void __launch_bounds__(DqTf32Cfg<D>::NT)
 // f32 dK/dV by head dim: NWG warpgroups of 64 keys share each q tile of BQT
 // rows.  Shared memory: K and V hi/lo per warpgroup (resident), Q and dO
 // hi/lo ([q][D]), Q^T and dO^T hi/lo ([D][q]), the raw Q, dO and O tiles
-// the next copy lands in, and three vectors of BQT floats (the raw lse, and
-// the split pass's lse in log2 units and delta): 217 KiB at D = 64 (two
+// the next copy lands in, and four vectors of BQT floats (the raw lse and
+// lse cotangent, and the split pass's lse in log2 units and delta): 217
+// KiB at D = 64 (two
 // warpgroups, 32-row q tiles; 64 rows would need 265 KiB) and at D = 128
 // (one warpgroup, 16-row q tiles).
 template <int D>
@@ -842,7 +907,7 @@ struct DkdvTf32Cfg {
   static constexpr int RAW = BQT * D * 4;  // a raw Q, dO or O tile
   static constexpr int VEC = 4 * NWG * KT::BYTES + 4 * QT::BYTES +
                              4 * QTT::BYTES + 3 * RAW;
-  static constexpr size_t bytes = 1024 + VEC + 3 * BQT * sizeof(float);
+  static constexpr size_t bytes = 1024 + VEC + 4 * BQT * sizeof(float);
   static_assert(bytes <= 232448, "a block holds at most 227 KiB");
 };
 
@@ -854,9 +919,10 @@ __global__ void __launch_bounds__(DkdvTf32Cfg<D>::NT)
                                const float* __restrict__ o,
                                const float* __restrict__ dout,
                                const float* __restrict__ lse,
+                               const float* __restrict__ g_lse,
                                float* __restrict__ dk, float* __restrict__ dv,
-                               int H, int G, int seq, float scale, int causal,
-                               int window) {
+                               int H, int G, int tq, int tk, int q_offset,
+                               float scale, int causal, int window) {
   using C = DkdvTf32Cfg<D>;
   using KT = typename C::KT;
   using QT = typename C::QT;
@@ -871,7 +937,8 @@ __global__ void __launch_bounds__(DkdvTf32Cfg<D>::NT)
   const uint32_t sQt = sQ + 4 * QT::BYTES;     // Q^T hi, lo, dO^T hi, lo
   const uint32_t sRaw = sQt + 4 * QTT::BYTES;  // raw Q, dO, O
   float* lse_raw = reinterpret_cast<float*>(gbase + C::VEC);
-  float* lse_s = lse_raw + BQT;  // log2 units, for the products
+  float* glse_raw = lse_raw + BQT;  // the lse cotangent, 0 without one
+  float* lse_s = glse_raw + BQT;    // log2 units, for the products
   float* delta_s = lse_s + BQT;
 
   const int tid = threadIdx.x;
@@ -885,42 +952,42 @@ __global__ void __launch_bounds__(DkdvTf32Cfg<D>::NT)
   const int kw0 = k0 + BK * wg;        // this warpgroup's
 
   // The q tiles that reach the block's keys (as the bf16 kernel, with BQT
-  // rows and BKB keys).
-  const int n_q = (seq + BQT - 1) / BQT;
-  int i_lo = 0, i_hi = n_q - 1;
-  if (causal) {
-    i_lo = k0 / BQT;
-    if (window > 0) i_hi = min(i_hi, (window + k0 + C::BKB - 2) / BQT);
-  }
-  const int n_qt = i_hi - i_lo + 1;
+  // rows and BKB keys; none: dK = dV = 0).
+  int i_lo;
+  const int n_qt =
+      q_tiles(k0, C::BKB, BQT, tq, q_offset, causal, window, i_lo);
   const int n_iter = group * n_qt;  // the group's q heads x their q tiles
 
-  // Raw Q, dO, O and lse of iteration it: q head m = it / n_qt of the
-  // group, q tile i_lo + it % n_qt; rows past seq zeroed.
+  // Raw Q, dO, O, lse and lse cotangent of iteration it: q head m = it /
+  // n_qt of the group, q tile i_lo + it % n_qt; rows past tq zeroed.
   auto load_q = [&](int it) {
-    const size_t head = (size_t)(b * H + g * group + it / n_qt) * seq;
+    const size_t head = (size_t)(b * H + g * group + it / n_qt) * tq;
     const int q0 = (i_lo + it % n_qt) * BQT;
-    sm90::load_rows_f32<D, BQT, NT>(sRaw, q + head * D, q0, seq, tid);
-    sm90::load_rows_f32<D, BQT, NT>(sRaw + C::RAW, dout + head * D, q0, seq,
+    sm90::load_rows_f32<D, BQT, NT>(sRaw, q + head * D, q0, tq, tid);
+    sm90::load_rows_f32<D, BQT, NT>(sRaw + C::RAW, dout + head * D, q0, tq,
                                     tid);
-    sm90::load_rows_f32<D, BQT, NT>(sRaw + 2 * C::RAW, o + head * D, q0, seq,
+    sm90::load_rows_f32<D, BQT, NT>(sRaw + 2 * C::RAW, o + head * D, q0, tq,
                                     tid);
     if (tid < BQT) {
-      const bool ok = q0 + tid < seq;
-      sm90::cp_async4(sm90::smem_addr(lse_raw + tid),
-                      lse + head + (ok ? q0 + tid : 0), ok);
+      const bool ok = q0 + tid < tq;
+      const size_t at = head + (ok ? q0 + tid : 0);
+      sm90::cp_async4(sm90::smem_addr(lse_raw + tid), lse + at, ok);
+      // Without a cotangent the copy zero-fills from a mapped address.
+      sm90::cp_async4(sm90::smem_addr(glse_raw + tid),
+                      (g_lse != nullptr ? g_lse : lse) + at,
+                      ok && g_lse != nullptr);
     }
   };
-  load_q(0);
+  if (n_iter > 0) load_q(0);
   sm90::cp_async_commit();
 
   // K and V, read once from device memory, split into each warpgroup's hi
   // and lo tiles while the first q tile lands.
   sm90::split_rows<D, C::BKB, NT>(gbase, base, sK, 4 * KT::BYTES,
-                                 k + (size_t)bg * seq * D, k0, seq, tid);
+                                 k + (size_t)bg * tk * D, k0, tk, tid);
   sm90::split_rows<D, C::BKB, NT>(gbase, base, sK + 2 * KT::BYTES,
-                                  4 * KT::BYTES, v + (size_t)bg * seq * D, k0,
-                                  seq, tid);
+                                  4 * KT::BYTES, v + (size_t)bg * tk * D, k0,
+                                  tk, tid);
 
   // This thread's accumulator rows (keys) r0 and r0 + 8 and columns 8j + c0
   // (+1): q rows of S^T and dP^T, head-dim columns of dK and dV.
@@ -947,7 +1014,7 @@ __global__ void __launch_bounds__(DkdvTf32Cfg<D>::NT)
     const uint32_t sGth = sQtl + QTT::BYTES, sGtl = sGth + QTT::BYTES;
     // The split pass: Q and dO as stored and transposed (q rows in
     // tf32_key order); then, TPR threads a q row, its lse in log2 units and
-    // delta = rowsum(dO * O) in f32.
+    // delta = rowsum(dO * O) - g_lse in f32.
     {
       const float* rq = reinterpret_cast<const float*>(gbase + (sRaw - base));
       const float* rg = rq + C::RAW / 4;
@@ -973,7 +1040,7 @@ __global__ void __launch_bounds__(DkdvTf32Cfg<D>::NT)
       for (int off = TPR / 2; off > 0; off >>= 1)
         part += __shfl_xor_sync(0xffffffffu, part, off);
       if (tid % TPR == 0) {
-        delta_s[row] = part;
+        delta_s[row] = part - glse_raw[row];
         lse_s[row] = lse_raw[row] * LOG2E;
       }
     }
@@ -985,10 +1052,11 @@ __global__ void __launch_bounds__(DkdvTf32Cfg<D>::NT)
     // Skip a q tile none of this warpgroup's keys sees (causal: below its
     // diagonal or past its window; ragged: no key left).
     const int q0 = (i_lo + it % n_qt) * BQT;
+    const int qp0 = q_offset + q0;  // the q tile's first position
     const bool live =
-        kw0 < seq &&
-        !(causal && (q0 + BQT - 1 < kw0 ||
-                     (window > 0 && q0 - (kw0 + BK - 1) >= window)));
+        kw0 < tk &&
+        !(causal && (qp0 + BQT - 1 < kw0 ||
+                     (window > 0 && qp0 - (kw0 + BK - 1) >= window)));
     if (!live) continue;
 
     // S^T = K.Q^T and dP^T = V.dO^T (keys x q rows), each as hi.lo + lo.hi
@@ -1026,9 +1094,9 @@ __global__ void __launch_bounds__(DkdvTf32Cfg<D>::NT)
     // P^T = exp(scale S^T - lse) (0 where masked) and dS^T = P^T (dP^T -
     // delta) scale, per column (= q row) statistics, in f32.
     const bool edge =
-        q0 + BQT > seq || kw0 + BK > seq ||
-        (causal && (kw0 + BK - 1 > q0 ||
-                    (window > 0 && q0 + BQT - 1 - kw0 >= window)));
+        q0 + BQT > tq || kw0 + BK > tk ||
+        (causal && (kw0 + BK - 1 > qp0 ||
+                    (window > 0 && qp0 + BQT - 1 - kw0 >= window)));
 #pragma unroll
     for (int j = 0; j < BQT / 8; ++j) {
       const float2 lse2 =
@@ -1043,9 +1111,8 @@ __global__ void __launch_bounds__(DkdvTf32Cfg<D>::NT)
         for (int i = 0; i < 2; ++i) {
           const int idx = 4 * j + 2 * i + c;
           float p = sm90::exp2_approx(fmaf(s[idx], sl2, -lse_c));
-          if (edge &&
-              !keep_pair(q0 + 8 * j + c0 + c, kw0 + r0 + 8 * i, seq, causal,
-                         window))
+          if (edge && !keep_pair(q0 + 8 * j + c0 + c, kw0 + r0 + 8 * i, tq,
+                                 tk, q_offset, causal, window))
             p = 0.f;
           s[idx] = p;
           dp[idx] = p * (dp[idx] - del_c) * scale;
@@ -1054,16 +1121,19 @@ __global__ void __launch_bounds__(DkdvTf32Cfg<D>::NT)
     }
 
     // dV += P^T.dO and dK += dS^T.Q: P^T and dS^T the register A operands,
-    // dO^T and Q^T the K-major B operands.
-    add_product_tf32<D, BQT / 8, QTT>(acc_v, s, sGth, sGtl);
-    add_product_tf32<D, BQT / 8, QTT>(acc_k, dp, sQth, sQtl);
+    // dO^T and Q^T the K-major B operands.  At D = 128 the two f32
+    // accumulators hold 128 registers and 64-column products spill, so
+    // that instance runs them 32 output columns at a time.
+    constexpr int NC = D == 128 ? 32 : (D < 64 ? D : 64);
+    add_product_tf32<D, BQT / 8, QTT, NC>(acc_v, s, sGth, sGtl);
+    add_product_tf32<D, BQT / 8, QTT, NC>(acc_k, dp, sQth, sQtl);
   }
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int kp = kw0 + r0 + 8 * i;
-    if (kp >= seq) continue;
-    const size_t row = ((size_t)bg * seq + kp) * D;
+    if (kp >= tk) continue;
+    const size_t row = ((size_t)bg * tk + kp) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int idx = 4 * j + 2 * i;
@@ -1076,46 +1146,56 @@ __global__ void __launch_bounds__(DkdvTf32Cfg<D>::NT)
 }
 
 struct Args {
-  const void *q, *k, *v, *o, *dout, *lse;
+  const void *q, *k, *v, *o, *dout, *lse, *g_lse;
   void *dq, *dk, *dv;
-  int B, H, G, seq;
+  int B, H, G, tq, tk, q_offset;
   float scale;
   int causal, window;
   cudaStream_t stream;
 };
 
+// Whether a call needs the bf16 kernels' VARIANT instance: Tq != Tk, a
+// q_offset or an lse cotangent.
+bool variant(const Args& a) {
+  return a.tq != a.tk || a.q_offset != 0 || a.g_lse != nullptr;
+}
+
 template <int D>
 cudaError_t launch_dkdv_wgmma(const Args& a) {
   using bf16 = __nv_bfloat16;
-  auto kern = flash_bwd_dkdv_kernel_wgmma<D>;
+  auto kern = variant(a) ? flash_bwd_dkdv_kernel_wgmma<D, true>
+                         : flash_bwd_dkdv_kernel_wgmma<D, false>;
   const size_t smem = DkdvWgSmem<D>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(a.B * a.G, (a.seq + BK - 1) / BK);
+  const dim3 grid(a.B * a.G, (a.tk + BK - 1) / BK);
   kern<<<grid, WG, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
       static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.H, a.G, a.seq,
-      a.scale, a.causal, a.window);
+      static_cast<const float*>(a.g_lse), static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.H, a.G, a.tq, a.tk, a.q_offset, a.scale,
+      a.causal, a.window);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dq_wgmma(const Args& a) {
   using bf16 = __nv_bfloat16;
-  auto kern = flash_bwd_dq_kernel_wgmma<D>;
+  auto kern = variant(a) ? flash_bwd_dq_kernel_wgmma<D, true>
+                         : flash_bwd_dq_kernel_wgmma<D, false>;
   const size_t smem = DqWgSmem<D>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(a.B * a.H, (a.seq + BQ - 1) / BQ);
+  const dim3 grid(a.B * a.H, (a.tq + BQ - 1) / BQ);
   kern<<<grid, WG, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
       static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<bf16*>(a.dq), a.H, a.G, a.seq, a.scale, a.causal, a.window);
+      static_cast<const float*>(a.g_lse), static_cast<bf16*>(a.dq), a.H,
+      a.G, a.tq, a.tk, a.q_offset, a.scale, a.causal, a.window);
   return cudaGetLastError();
 }
 
@@ -1127,13 +1207,14 @@ cudaError_t launch_dkdv_tf32(const Args& a) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(a.B * a.G, (a.seq + C::BKB - 1) / C::BKB);
+  const dim3 grid(a.B * a.G, (a.tk + C::BKB - 1) / C::BKB);
   kern<<<grid, C::NT, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.o),
       static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.H, a.G, a.seq,
-      a.scale, a.causal, a.window);
+      static_cast<const float*>(a.g_lse), static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.H, a.G, a.tq, a.tk, a.q_offset, a.scale,
+      a.causal, a.window);
   return cudaGetLastError();
 }
 
@@ -1145,13 +1226,13 @@ cudaError_t launch_dq_tf32(const Args& a) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(a.B * a.H, (a.seq + BQ * C::NWG - 1) / (BQ * C::NWG));
+  const dim3 grid(a.B * a.H, (a.tq + BQ * C::NWG - 1) / (BQ * C::NWG));
   kern<<<grid, C::NT, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.o),
       static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<float*>(a.dq), a.H, a.G, a.seq, a.scale, a.causal,
-      a.window);
+      static_cast<const float*>(a.g_lse), static_cast<float*>(a.dq), a.H,
+      a.G, a.tq, a.tk, a.q_offset, a.scale, a.causal, a.window);
   return cudaGetLastError();
 }
 
@@ -1178,7 +1259,8 @@ cudaError_t dispatch_dim(const Args& a, int D) {
 
 template <bool DKDV>
 int run(const Args& a, int D, int dtype) {
-  if (a.B <= 0 || a.H <= 0 || a.G <= 0 || a.seq <= 0 || a.H % a.G != 0)
+  if (a.B <= 0 || a.H <= 0 || a.G <= 0 || a.tq <= 0 || a.tk <= 0 ||
+      a.q_offset < 0 || a.H % a.G != 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)dispatch_dim<DKDV, false>(a, D);
   if (dtype == 1) return (int)dispatch_dim<DKDV, true>(a, D);
@@ -1187,29 +1269,32 @@ int run(const Args& a, int D, int dtype) {
 
 }  // namespace
 
-// q, o, dout [B,H,T,D]; k, v [B,G,T,D]; all contiguous, of one dtype
-// (0 = f32, 1 = bf16); lse [B,H,T] f32 from the forward.  window <= 0 means
-// none.  Kernel 2 writes dk, dv [B,G,T,D]; kernel 3 writes dq [B,H,T,D].
+// q, o, dout [B,H,tq,D]; k, v [B,G,tk,D]; all contiguous, of one dtype
+// (0 = f32, 1 = bf16); lse [B,H,tq] f32 from the forward; g_lse [B,H,tq]
+// f32, the cotangent of the forward's lse output, or null for none.  Row r
+// of q sits at position q_offset + r of the causal mask; window <= 0 means
+// none.  Kernel 2 writes dk, dv [B,G,tk,D]; kernel 3 writes dq [B,H,tq,D].
 extern "C" int dct_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                                   const void* o, const void* dout,
-                                  const void* lse, void* dk, void* dv, int B,
-                                  int H, int G, int seq, int D, float scale,
-                                  int causal, int window, int dtype,
-                                  void* stream) {
-  const Args a{q,  k,  v, o,   dout,  lse,    nullptr, dk,
-               dv, B,  H, G,   seq,   scale,  causal,  window,
-               static_cast<cudaStream_t>(stream)};
+                                  const void* lse, const void* g_lse,
+                                  void* dk, void* dv, int B, int H, int G,
+                                  int tq, int tk, int q_offset, int D,
+                                  float scale, int causal, int window,
+                                  int dtype, void* stream) {
+  const Args a{q,  k,  v,  o,  dout,     lse,   g_lse,  nullptr, dk,
+               dv, B,  H,  G,  tq,       tk,    q_offset, scale, causal,
+               window, static_cast<cudaStream_t>(stream)};
   return run<true>(a, D, dtype);
 }
 
 extern "C" int dct_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* o, const void* dout,
-                                const void* lse, void* dq, int B, int H,
-                                int G, int seq, int D, float scale,
-                                int causal, int window, int dtype,
-                                void* stream) {
-  const Args a{q,       k,       v, o,   dout,  lse,    dq,     nullptr,
-               nullptr, B,       H, G,   seq,   scale,  causal, window,
-               static_cast<cudaStream_t>(stream)};
+                                const void* lse, const void* g_lse, void* dq,
+                                int B, int H, int G, int tq, int tk,
+                                int q_offset, int D, float scale, int causal,
+                                int window, int dtype, void* stream) {
+  const Args a{q,       k,  v,  o,  dout, lse, g_lse, dq, nullptr,
+               nullptr, B,  H,  G,  tq,   tk,  q_offset, scale, causal,
+               window,  static_cast<cudaStream_t>(stream)};
   return run<false>(a, D, dtype);
 }

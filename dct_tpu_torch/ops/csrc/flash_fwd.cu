@@ -8,6 +8,12 @@
 //   0 <= q_pos - k_pos < window), and the TPU kernel's fully-masked-row guard;
 // - grouped-query attention: q head h reads kv head h / (H / G) (the
 //   group-major layout of `_kv_flat_row`); K/V are never expanded in memory;
+// - rectangular Tq != Tk (not causal: the striped ring's half-chunk blocks)
+//   and `q_offset`, the shift of the q positions under the causal mask and
+//   window (the windowed ring's partial-band shards, :84, :117-119,
+//   :152-157): row r sits at position q_offset + r, the keys at 0..Tk-1.
+//   A row that no key reaches gets o = 0 and lse = -1e30, the TPU kernel's
+//   fully-masked-row guard;
 // - the optional per-row log-sum-exp lse = m + log(l), f32;
 // - f32 or bf16 inputs, f32 accumulation; P is rounded to the input dtype
 //   before P.V exactly where the TPU kernel casts it (`:140-143`; in f32 it
@@ -109,6 +115,14 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// A row's log-sum-exp from its running max m (log2 units) and its sum of
+// exponentials l_sum, denom = max(l_sum, 1e-20).  A row that no key
+// reaches (an offset band, ragged keys) keeps l_sum = 0: its lse is NEG,
+// as the TPU kernel's m + log(1e-20) is in f32, not NEG * ln 2.
+__device__ __forceinline__ float row_lse(float m, float l_sum, float denom) {
+  return l_sum > 0.f ? m * LN2 + logf(denom) : NEG;
+}
+
 // ---- bf16: tensor cores (wgmma) ------------------------------------------
 
 // Q tile, then WG_STAGES x (K tile, V tile), each 1024-byte aligned.
@@ -124,8 +138,9 @@ __global__ void __launch_bounds__(WG)
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
                            __nv_bfloat16* __restrict__ o,
-                           float* __restrict__ lse, int H, int G, int seq,
-                           float scale, int causal, int window) {
+                           float* __restrict__ lse, int H, int G, int tq,
+                           int tk, int q_offset, float scale, int causal,
+                           int window) {
   static_assert(BQ == 64 && BK == 64, "one m64n64 score tile per KV tile");
   using Tl = sm90::Tile<D, BQ>;
   extern __shared__ uint8_t smem_raw[];
@@ -140,22 +155,24 @@ __global__ void __launch_bounds__(WG)
   const int b = bh / H;
   const int kvh = b * G + (bh % H) / (H / G);
   const int q0 = qt * BQ;
-  const __nv_bfloat16* kb = k + (size_t)kvh * seq * D;
-  const __nv_bfloat16* vb = v + (size_t)kvh * seq * D;
+  const int qp0 = q_offset + q0;  // the tile's first q position
+  const __nv_bfloat16* kb = k + (size_t)kvh * tk * D;
+  const __nv_bfloat16* vb = v + (size_t)kvh * tk * D;
 
   int j_lo;
-  const int n_kv = sm90::kv_tiles(q0, BQ, BK, seq, causal, window, j_lo);
+  const int n_kv =
+      sm90::kv_tiles(q0, BQ, BK, tq, tk, q_offset, causal, window, j_lo);
 
   auto load_kv = [&](int t) {
     const uint32_t dst = sKV + (t % WG_STAGES) * 2 * Tl::BYTES;
     const int k0 = (j_lo + t) * BK;
-    sm90::load_tile<D, BK, WG>(dst, kb, k0, seq, tid);
-    sm90::load_tile<D, BK, WG>(dst + Tl::BYTES, vb, k0, seq, tid);
+    sm90::load_tile<D, BK, WG>(dst, kb, k0, tk, tid);
+    sm90::load_tile<D, BK, WG>(dst + Tl::BYTES, vb, k0, tk, tid);
   };
   // Prologue: Q with KV tile 0, then tiles 1 .. WG_STAGES - 2; one commit
   // group per KV tile, empty past the last, so the ring's waits count
   // uniformly (tile t is group t).
-  sm90::load_tile<D, BQ, WG>(sQ, q + (size_t)bh * seq * D, q0, seq, tid);
+  sm90::load_tile<D, BQ, WG>(sQ, q + (size_t)bh * tq * D, q0, tq, tid);
   load_kv(0);
   sm90::cp_async_commit();
 #pragma unroll
@@ -201,9 +218,9 @@ __global__ void __launch_bounds__(WG)
     // kernel's guard).
     const int k0 = (j_lo + t) * BK;
     const bool edge =
-        k0 + BK > seq ||
-        (causal && (k0 + BK - 1 > q0 ||
-                    (window > 0 && q0 + BQ - 1 - k0 >= window)));
+        k0 + BK > tk ||
+        (causal && (k0 + BK - 1 > qp0 ||
+                    (window > 0 && qp0 + BQ - 1 - k0 >= window)));
     float mx[2] = {NEG, NEG};
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -213,8 +230,8 @@ __global__ void __launch_bounds__(WG)
         for (int c = 0; c < 2; ++c) {
           float x = s[4 * j + 2 * i + c] * sl2;
           if (edge) {
-            const int qp = q0 + r0 + 8 * i, kp = k0 + 8 * j + c0 + c;
-            bool keep = kp < seq;
+            const int qp = qp0 + r0 + 8 * i, kp = k0 + 8 * j + c0 + c;
+            bool keep = kp < tk;
             if (causal) {
               keep = keep && qp >= kp;
               if (window > 0) keep = keep && qp - kp < window;
@@ -265,17 +282,18 @@ __global__ void __launch_bounds__(WG)
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const float denom = fmaxf(quad_sum(l[i]), 1e-20f);
+    const float l_sum = quad_sum(l[i]);
+    const float denom = fmaxf(l_sum, 1e-20f);
     const int r = q0 + r0 + 8 * i;
-    if (r >= seq) continue;
-    __nv_bfloat16* orow = o + ((size_t)bh * seq + r) * D;
+    if (r >= tq) continue;
+    __nv_bfloat16* orow = o + ((size_t)bh * tq + r) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + c0) =
           __floats2bfloat162_rn(acc[4 * j + 2 * i] / denom,
                                 acc[4 * j + 2 * i + 1] / denom);
     if (lse != nullptr && (tid & 3) == 0)
-      lse[(size_t)bh * seq + r] = m[i] * LN2 + logf(denom);
+      lse[(size_t)bh * tq + r] = row_lse(m[i], l_sum, denom);
   }
 }
 
@@ -308,8 +326,9 @@ __global__ void __launch_bounds__(Tf32Cfg<D>::NT)
     flash_fwd_kernel_tf32(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v, float* __restrict__ o,
-                          float* __restrict__ lse, int H, int G, int seq,
-                          float scale, int causal, int window) {
+                          float* __restrict__ lse, int H, int G, int tq,
+                          int tk, int q_offset, float scale, int causal,
+                          int window) {
   using C = Tf32Cfg<D>;
   using QT = typename C::QT;
   using KT = typename C::KT;
@@ -336,13 +355,15 @@ __global__ void __launch_bounds__(Tf32Cfg<D>::NT)
   const int kvh = b * G + (bh % H) / (H / G);
   const int q0 = qt * BQB;        // the block's first q row
   const int q0w = q0 + BQ * wg;   // this warpgroup's
-  const float* kb = k + (size_t)kvh * seq * D;
-  const float* vb = v + (size_t)kvh * seq * D;
+  const int qp0w = q_offset + q0w;  // its first q position
+  const float* kb = k + (size_t)kvh * tk * D;
+  const float* vb = v + (size_t)kvh * tk * D;
 
   int j_lo;
-  const int n_kv = sm90::kv_tiles(q0, BQB, BKT, seq, causal, window, j_lo);
+  const int n_kv =
+      sm90::kv_tiles(q0, BQB, BKT, tq, tk, q_offset, causal, window, j_lo);
 
-  // Raw K and V tile t, row-major, rows past seq zeroed.
+  // Raw K and V tile t, row-major, rows past tk zeroed.
   auto load_kv = [&](int t) {
     const int k0 = (j_lo + t) * BKT;
     static_assert(BKT * CH % NT == 0, "whole chunks per thread");
@@ -350,7 +371,7 @@ __global__ void __launch_bounds__(Tf32Cfg<D>::NT)
     for (int n = 0; n < BKT * CH / NT; ++n) {
       const int i = tid + n * NT;
       const int r = i / CH;
-      const bool ok = k0 + r < seq;
+      const bool ok = k0 + r < tk;
       const size_t g = (size_t)(ok ? k0 + r : 0) * D + 4 * (i % CH);
       sm90::cp_async16(sRaw + 16 * i, kb + g, ok);
       sm90::cp_async16(sRaw + C::RAW + 16 * i, vb + g, ok);
@@ -362,14 +383,14 @@ __global__ void __launch_bounds__(Tf32Cfg<D>::NT)
   // Q, read once from device memory, split into its warpgroup's hi and lo
   // tiles while KV tile 0 lands.
   {
-    const float* qb = q + (size_t)bh * seq * D;
+    const float* qb = q + (size_t)bh * tq * D;
     static_assert(BQB * CH % NT == 0, "whole chunks per thread");
 #pragma unroll
     for (int n = 0; n < BQB * CH / NT; ++n) {
       const int i = tid + n * NT;
       const int r = i / CH, c = i % CH;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (q0 + r < seq)
+      if (q0 + r < tq)
         x = *reinterpret_cast<const float4*>(qb + (size_t)(q0 + r) * D +
                                              4 * c);
       uint4 hi, lo;
@@ -445,9 +466,9 @@ __global__ void __launch_bounds__(Tf32Cfg<D>::NT)
     // diagonal or past its window; ragged: no q row left).
     const int k0 = (j_lo + t) * BKT;
     const bool live =
-        q0w < seq &&
-        !(causal && (k0 > q0w + BQ - 1 ||
-                     (window > 0 && q0w - (k0 + BKT - 1) >= window)));
+        q0w < tq &&
+        !(causal && (k0 > qp0w + BQ - 1 ||
+                     (window > 0 && qp0w - (k0 + BKT - 1) >= window)));
     if (!live) continue;
 
     // S = Q.K^T as Qhi.Klo + Qlo.Khi + Qhi.Khi: the small products first,
@@ -473,9 +494,9 @@ __global__ void __launch_bounds__(Tf32Cfg<D>::NT)
     // Mask (diagonal, window-edge and ragged tiles only), row max and the
     // online softmax, as in flash_fwd_kernel_wgmma; P stays f32.
     const bool edge =
-        k0 + BKT > seq ||
-        (causal && (k0 + BKT - 1 > q0w ||
-                    (window > 0 && q0w + BQ - 1 - k0 >= window)));
+        k0 + BKT > tk ||
+        (causal && (k0 + BKT - 1 > qp0w ||
+                    (window > 0 && qp0w + BQ - 1 - k0 >= window)));
     float mx[2] = {NEG, NEG};
 #pragma unroll
     for (int j = 0; j < BKT / 8; ++j)
@@ -485,8 +506,8 @@ __global__ void __launch_bounds__(Tf32Cfg<D>::NT)
         for (int c = 0; c < 2; ++c) {
           float x = s[4 * j + 2 * i + c] * sl2;
           if (edge) {
-            const int qp = q0w + r0 + 8 * i, kp = k0 + 8 * j + c0 + c;
-            bool keep = kp < seq;
+            const int qp = qp0w + r0 + 8 * i, kp = k0 + 8 * j + c0 + c;
+            bool keep = kp < tk;
             if (causal) {
               keep = keep && qp >= kp;
               if (window > 0) keep = keep && qp - kp < window;
@@ -557,70 +578,70 @@ __global__ void __launch_bounds__(Tf32Cfg<D>::NT)
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const float denom = fmaxf(quad_sum(l[i]), 1e-20f);
+    const float l_sum = quad_sum(l[i]);
+    const float denom = fmaxf(l_sum, 1e-20f);
     const int r = q0w + r0 + 8 * i;
-    if (r >= seq) continue;
-    float* orow = o + ((size_t)bh * seq + r) * D;
+    if (r >= tq) continue;
+    float* orow = o + ((size_t)bh * tq + r) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<float2*>(orow + 8 * j + c0) =
           make_float2(acc[4 * j + 2 * i] / denom,
                       acc[4 * j + 2 * i + 1] / denom);
     if (lse != nullptr && (wt & 3) == 0)
-      lse[(size_t)bh * seq + r] = m[i] * LN2 + logf(denom);
+      lse[(size_t)bh * tq + r] = row_lse(m[i], l_sum, denom);
   }
 }
 
+// The launch of either kernel: B*H on x, the q tiles on y.
+struct FwdArgs {
+  const void *q, *k, *v;
+  void* o;
+  float* lse;
+  int B, H, G, tq, tk, q_offset;
+  float scale;
+  int causal, window;
+  cudaStream_t stream;
+};
+
 template <int D>
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* o, float* lse, int B, int H, int G, int seq,
-                         float scale, int causal, int window,
-                         cudaStream_t stream) {
+cudaError_t launch_wgmma(const FwdArgs& a) {
   auto kern = flash_fwd_kernel_wgmma<D>;
   const size_t smem = WgSmem<D>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(B * H, (seq + BQ - 1) / BQ);
+  const dim3 grid(a.B * a.H, (a.tq + BQ - 1) / BQ);
   using bf16 = __nv_bfloat16;
-  kern<<<grid, WG, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, G, seq,
-      scale, causal, window);
+  kern<<<grid, WG, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.lse, a.H,
+      a.G, a.tq, a.tk, a.q_offset, a.scale, a.causal, a.window);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_tf32(const void* q, const void* k, const void* v,
-                        void* o, float* lse, int B, int H, int G, int seq,
-                        float scale, int causal, int window,
-                        cudaStream_t stream) {
+cudaError_t launch_tf32(const FwdArgs& a) {
   using C = Tf32Cfg<D>;
   auto kern = flash_fwd_kernel_tf32<D>;
   const size_t smem = C::bytes;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(B * H, (seq + BQ * C::NWG - 1) / (BQ * C::NWG));
-  kern<<<grid, C::NT, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, H, G, seq,
-      scale, causal, window);
+  const dim3 grid(a.B * a.H, (a.tq + BQ * C::NWG - 1) / (BQ * C::NWG));
+  kern<<<grid, C::NT, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.H,
+      a.G, a.tq, a.tk, a.q_offset, a.scale, a.causal, a.window);
   return cudaGetLastError();
 }
 
 // f32 -> flash_fwd_kernel_tf32; bf16 -> flash_fwd_kernel_wgmma.
 template <bool BF16>
-cudaError_t dispatch_dim(const void* q, const void* k, const void* v, void* o,
-                         float* lse, int B, int H, int G, int seq, int D,
-                         float scale, int causal, int window,
-                         cudaStream_t stream) {
-#define DCT_FWD_CASE(DIM)                                                     \
-  case DIM:                                                                   \
-    return BF16 ? launch_wgmma<DIM>(q, k, v, o, lse, B, H, G, seq, scale,     \
-                                    causal, window, stream)                   \
-                : launch_tf32<DIM>(q, k, v, o, lse, B, H, G, seq, scale,      \
-                                   causal, window, stream);
+cudaError_t dispatch_dim(const FwdArgs& a, int D) {
+#define DCT_FWD_CASE(DIM) \
+  case DIM:               \
+    return BF16 ? launch_wgmma<DIM>(a) : launch_tf32<DIM>(a);
   switch (D) {
     DCT_FWD_CASE(16)
     DCT_FWD_CASE(32)
@@ -634,21 +655,23 @@ cudaError_t dispatch_dim(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// q [B,H,T,D], k/v [B,G,T,D], o [B,H,T,D], all contiguous, of one dtype
-// (0 = f32, 1 = bf16); lse [B,H,T] f32 or null.  window <= 0 means none.
+// q [B,H,tq,D], k/v [B,G,tk,D], o [B,H,tq,D], all contiguous, of one dtype
+// (0 = f32, 1 = bf16); lse [B,H,tq] f32 or null.  Row r of q sits at
+// position q_offset + r of the causal mask (q_offset >= 0); causal needs
+// tq == tk (the wrapper checks).  window <= 0 means none.
 extern "C" int dct_flash_fwd(const void* q, const void* k, const void* v,
-                             void* o, void* lse, int B, int H, int G, int seq,
-                             int D, float scale, int causal, int window,
-                             int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || G <= 0 || seq <= 0 || H % G != 0)
+                             void* o, void* lse, int B, int H, int G, int tq,
+                             int tk, int q_offset, int D, float scale,
+                             int causal, int window, int dtype,
+                             void* stream) {
+  if (B <= 0 || H <= 0 || G <= 0 || tq <= 0 || tk <= 0 || q_offset < 0 ||
+      H % G != 0)
     return (int)cudaErrorInvalidValue;
-  float* lse_f = static_cast<float*>(lse);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_dim<false>(q, k, v, o, lse_f, B, H, G, seq, D, scale,
-                                    causal, window, s);
-  if (dtype == 1)
-    return (int)dispatch_dim<true>(q, k, v, o, lse_f, B, H, G, seq, D, scale,
-                                   causal, window, s);
+  const FwdArgs a{q,  k,  v,  o,        static_cast<float*>(lse),
+                  B,  H,  G,  tq,       tk,
+                  q_offset, scale, causal, window,
+                  static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return (int)dispatch_dim<false>(a, D);
+  if (dtype == 1) return (int)dispatch_dim<true>(a, D);
   return (int)cudaErrorInvalidValue;
 }

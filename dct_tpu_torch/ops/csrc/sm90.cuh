@@ -293,20 +293,23 @@ __device__ __forceinline__ int tf32_key(int kp) {
 
 // ---- attention tiles -------------------------------------------------------
 
-// The KV tiles of `bk` keys that the q rows q0..q0+rows-1 need: j_lo and
-// the count.  Causal stops at the diagonal; a window starts at the tile
-// holding the first key of the band of row q0 (the TPU kernels' clamped
-// index maps, dct_tpu/ops/pallas_attention.py:218-235, as loop bounds).
-__device__ __forceinline__ int kv_tiles(int q0, int rows, int bk, int seq,
-                                        int causal, int window, int& j_lo) {
-  const int q_last = min(q0 + rows, seq) - 1;
-  int j_hi = (seq + bk - 1) / bk - 1;
+// The KV tiles of `bk` keys (of tk) that the q rows q0..q0+rows-1 (of tq)
+// need: j_lo and the count, 0 when every row is masked.  Row r sits at
+// position q_offset + r.  Causal stops at the diagonal; a window starts at
+// the tile holding the first key of the band of row q0 (the TPU kernels'
+// clamped index maps, dct_tpu/ops/pallas_attention.py:218-235, as loop
+// bounds).
+__device__ __forceinline__ int kv_tiles(int q0, int rows, int bk, int tq,
+                                        int tk, int q_offset, int causal,
+                                        int window, int& j_lo) {
+  const int q_last = q_offset + min(q0 + rows, tq) - 1;
+  int j_hi = (tk + bk - 1) / bk - 1;
   j_lo = 0;
   if (causal) {
-    j_hi = q_last / bk;
-    if (window > 0) j_lo = max(0, q0 - window + 1) / bk;
+    j_hi = min(j_hi, q_last / bk);
+    if (window > 0) j_lo = max(0, q_offset + q0 - window + 1) / bk;
   }
-  return j_hi - j_lo + 1;
+  return max(0, j_hi - j_lo + 1);
 }
 
 // ---- fragments -----------------------------------------------------------

@@ -1,8 +1,8 @@
 """Flash attention: the hand-written CUDA kernels and their plain versions.
 
-Counterpart of ``flash_attention`` and its ``custom_vjp`` in
-``dct_tpu/ops/pallas_attention.py`` (:547-596). :func:`flash_attention` is
-the one entry point:
+Counterpart of ``flash_attention`` and ``flash_attention_lse`` and their
+``custom_vjp`` s in ``dct_tpu/ops/pallas_attention.py`` (:547-667).
+:func:`flash_attention` is the one entry point:
 
 - on a CUDA tensor it launches ``csrc/flash_fwd.cu`` (built at first use by
   :mod:`dct_tpu_torch.ops.build`) on the current stream, or raises; the C
@@ -20,18 +20,24 @@ the one entry point:
 Nothing falls back: a kernel that does not build or launch raises.
 
 Supported: ``causal``, a causal sliding ``window``, grouped-query K/V
-(``[B, G, T, D]`` with ``H % G == 0``), the f32 log-sum-exp, f32 and bf16,
+(``[B, G, Tk, D]`` with ``H % G == 0``), the f32 log-sum-exp, f32 and bf16,
 head dims up to 128. The kernels are instanced for D in 16/32/64/128: the
 wrappers zero-pad D up to the next of those and slice the outputs back,
 which is exact (zero columns add nothing to q.k and give zero columns of
 o, dq, dk and dv); the scale stays ``1/sqrt(D)`` of the true D, on the CPU
-path as on the card. D > 128 raises (ROADMAP Queue B, B2). Not yet ported (the wrapper raises): ``q_offset``
-and rectangular ``Tq != Tk``, which only the ring engine's per-shard calls
-use, and the backward through the lse output (the ring's merge weights).
-``block_q``/``block_k`` keep the reference's contract (T must be a
-multiple of each) and set the plain versions' blocks; the CUDA kernels
-pick their own tiles (64 rows a warpgroup, 16-64 in the streamed f32
-tiles) and their loops mask any ragged edge.
+path as on the card. D > 128 raises (ROADMAP Queue B, B2). The ring
+engine's per-shard variants (:mod:`dct_tpu_torch.ops.attention`) are the
+kernels' arguments too: rectangular ``Tq != Tk`` (not causal, as the
+reference: the striped ring's half-chunk blocks), ``q_offset`` (causal:
+q row ``r`` sits at position ``q_offset + r``, the windowed ring's
+partial-band shards; a row no key reaches gets o = 0 and lse = -1e30),
+and, under grad with ``return_lse=True``, the backward through the lse
+output (the ring's merge weights: delta' = rowsum(dO o) - g_lse, folded
+into the backward kernels). ``block_q``/``block_k`` keep the reference's
+contract (Tq a multiple of ``min(block_q, Tq)``, Tk of ``min(block_k,
+Tk)``) and set the plain versions' blocks; the CUDA kernels pick their
+own tiles (64 rows a warpgroup, 16-64 in the streamed f32 tiles) and
+their loops mask any ragged edge.
 """
 
 from __future__ import annotations
@@ -99,24 +105,20 @@ def _validate(q, k, v, *, causal, window, block_q, block_k, q_offset):
             f"{q.dtype}/{k.dtype}/{v.dtype}"
         )
     _check_window(window, causal)
-    if q_offset:
-        raise NotImplementedError(
-            "flash q_offset (the windowed ring's partial-band shards) is "
-            "not ported yet: ROADMAP Queue B, kernel 1"
-        )
     tk = k.shape[2]
-    if tk != t:
-        if causal:
-            raise ValueError(f"causal flash needs square Tq==Tk, got {t} vs {tk}")
-        raise NotImplementedError(
-            f"rectangular flash Tq={t} != Tk={tk} (the striped ring's "
-            "blocks) is not ported yet: ROADMAP Queue B, kernel 1"
-        )
-    bq, bk = min(block_q, t), min(block_k, t)
-    if t % bq or t % bk:
+    if causal and tk != t:
+        raise ValueError(f"causal flash needs square Tq==Tk, got {t} vs {tk}")
+    if q_offset and not causal:
+        # The offset only shifts the causal position math; a non-causal
+        # caller would silently get unshifted full attention.
+        raise ValueError("flash q_offset requires causal attention")
+    if q_offset < 0:
+        raise ValueError(f"flash q_offset must be >= 0, got {q_offset}")
+    bq, bk = min(block_q, t), min(block_k, tk)
+    if t % bq or tk % bk:
         raise ValueError(
-            f"seq len {t} must be a multiple of block_q={bq} and "
-            f"block_k={bk} (pad upstream)"
+            f"seq lens q={t}, kv={tk} must be multiples of block_q={bq} "
+            f"and block_k={bk} (pad upstream)"
         )
 
 
@@ -143,21 +145,23 @@ def _pad(d: int, *tensors):
 
 def flash_attention_plain(q, k, v, *, causal: bool = False,
                           scale: float | None = None,
-                          window: int | None = None, block_k: int = 128):
+                          window: int | None = None, block_k: int = 128,
+                          q_offset: int = 0):
     """The kernel's function in plain PyTorch: online softmax over KV
     blocks of ``block_k``, f32 statistics and sums, P rounded to the
-    input dtype before P.V. Returns ``(o [B,H,T,D] in q's dtype,
-    lse [B,H,T] f32)``."""
+    input dtype before P.V, q row ``r`` at position ``q_offset + r``.
+    Returns ``(o [B,H,Tq,D] in q's dtype, lse [B,H,Tq] f32)``."""
     return blockwise_attention_lse(
         q, k, v, block_size=min(block_k, k.shape[-2]), causal=causal,
-        scale=scale, window=window,
+        scale=scale, window=window, q_offset=q_offset,
     )
 
 
 def _tile_needed(q0: int, bq: int, k0: int, bk: int, causal: bool,
                  window: int | None) -> bool:
-    """Whether any (q, k) pair of the tile survives the mask: the tile skip
-    of the kernels' loop bounds (``pallas_attention.py:356-365``)."""
+    """Whether any (q, k) pair of the tile whose first q position is
+    ``q0`` survives the mask: the tile skip of the kernels' loop bounds
+    (``pallas_attention.py:152-157, 356-365``)."""
     if not causal:
         return True
     if q0 + bq - 1 < k0:  # the whole tile lies above the diagonal
@@ -168,38 +172,45 @@ def _tile_needed(q0: int, bq: int, k0: int, bk: int, causal: bool,
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = False,
                               scale: float | None = None,
                               window: int | None = None, block_q: int = 128,
-                              block_k: int = 128):
+                              block_k: int = 128, q_offset: int = 0,
+                              g_lse=None):
     """The backward kernels' function in plain PyTorch, blockwise over
     ``block_q`` x ``block_k`` tiles with the kernels' tile skip and
-    roundings: P = exp(scale q.k - lse) (0 where masked), dP = dO.v,
-    delta = rowsum(dO * O), dS = P (dP - delta) scale, all f32; P is
-    rounded to dO's dtype before P^T dO and dS to the input dtype before
-    dS^T Q and dS K; sums in f32. A GQA group's q heads are summed into
-    their KV head. Returns ``(dq, dk, dv)`` in q's, k's and v's dtypes."""
+    roundings: P = exp(scale q.k - lse) (0 where masked, q row ``r`` at
+    position ``q_offset + r``), dP = dO.v, delta = rowsum(dO * O) - g_lse
+    (``g_lse`` ``[B,H,Tq]``, the cotangent of the lse output, or None),
+    dS = P (dP - delta) scale, all f32; P is rounded to dO's dtype before
+    P^T dO and dS to the input dtype before dS^T Q and dS K; sums in f32.
+    A GQA group's q heads are summed into their KV head. Tq may differ
+    from Tk. Returns ``(dq, dk, dv)`` in q's, k's and v's dtypes."""
     b, h, t, d = q.shape
-    g = k.shape[1]
+    g, tk = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    bq, bk = min(block_q, t), min(block_k, t)
+    bq, bk = min(block_q, t), min(block_k, tk)
     kx, vx = expand_kv(q, k, v)
     qf, kf, vf, dof = q.float(), kx.float(), vx.float(), do.float()
     delta = (dof * o.float()).sum(-1)
+    if g_lse is not None:
+        delta = delta - g_lse.float()
     dq = torch.zeros_like(qf)
-    dk = torch.zeros_like(qf)
-    dv = torch.zeros_like(qf)
-    pos = torch.arange(t, device=q.device)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    q_pos = q_offset + torch.arange(t, device=q.device)
+    k_pos = torch.arange(tk, device=q.device)
     for q0 in range(0, t, bq):
         qs = slice(q0, q0 + bq)
         qb, dob = qf[..., qs, :], dof[..., qs, :]
         lse_b, delta_b = lse[..., qs, None], delta[..., qs, None]
-        for k0 in range(0, t, bk):
-            if not _tile_needed(q0, bq, k0, bk, causal, window):
+        for k0 in range(0, tk, bk):
+            if not _tile_needed(q_offset + q0, bq, k0, bk, causal, window):
                 continue
             ks = slice(k0, k0 + bk)
             kb, vb = kf[..., ks, :], vf[..., ks, :]
             p = torch.exp(torch.matmul(qb, kb.transpose(-1, -2)) * scale
                           - lse_b)
             if causal:
-                p = torch.where(_band_mask(pos[qs], pos[ks], window), p, 0.0)
+                p = torch.where(_band_mask(q_pos[qs], k_pos[ks], window), p,
+                                0.0)
             dp = torch.matmul(dob, vb.transpose(-1, -2))
             ds = p * (dp - delta_b) * scale
             ds = ds.to(q.dtype).float()
@@ -209,8 +220,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = False,
             dk[..., ks, :] += torch.matmul(ds.transpose(-1, -2), qb)
             dq[..., qs, :] += torch.matmul(ds, kb)
     if g != h:
-        dk = dk.view(b, g, h // g, t, d).sum(2)
-        dv = dv.view(b, g, h // g, t, d).sum(2)
+        dk = dk.view(b, g, h // g, tk, d).sum(2)
+        dv = dv.view(b, g, h // g, tk, d).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -220,10 +231,10 @@ def _kernel_fn(lib_name: str, symbol: str, n_ptrs: int):
     fn = getattr(load_kernel(lib_name), symbol)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        # n_ptrs tensors, then B, H, G, T, D, scale, causal, window, dtype,
-        # and the stream.
-        fn.argtypes = [p] * n_ptrs + [i, i, i, i, i, ctypes.c_float, i, i,
-                                      i, p]
+        # n_ptrs tensors, then B, H, G, Tq, Tk, q_offset, D, scale, causal,
+        # window, dtype, and the stream.
+        fn.argtypes = [p] * n_ptrs + [i, i, i, i, i, i, i, ctypes.c_float,
+                                      i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -244,24 +255,24 @@ def _check_cuda(q, named):
         _checked_devices.add(q.device.index)
 
 
-def _launch(kernel, fn, tensors, q, k, *, causal, scale, window):
+def _launch(kernel, fn, tensors, q, k, *, causal, scale, window, q_offset):
     b, h, t, d = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             *(x.data_ptr() if x is not None else None for x in tensors),
-            b, h, k.shape[1], t, d, float(scale), int(causal),
-            int(window or 0), _DTYPE_CODES[q.dtype], stream,
+            b, h, k.shape[1], t, k.shape[2], int(q_offset), d, float(scale),
+            int(causal), int(window or 0), _DTYPE_CODES[q.dtype], stream,
         )
     if err != 0:
         raise RuntimeError(
             f"{kernel} kernel launch failed: CUDA error {err} "
-            f"(q {tuple(q.shape)} {q.dtype}, causal={causal}, "
-            f"window={window})"
+            f"(q {tuple(q.shape)}, k {tuple(k.shape)} {q.dtype}, "
+            f"causal={causal}, window={window}, q_offset={q_offset})"
         )
 
 
-def _flash_cuda(q, k, v, *, causal, scale, window, return_lse):
+def _flash_cuda(q, k, v, *, causal, scale, window, return_lse, q_offset=0):
     global launches
     _check_cuda(q, (("q", q), ("k", k), ("v", v)))
     b, h, t, _ = q.shape
@@ -272,13 +283,13 @@ def _flash_cuda(q, k, v, *, causal, scale, window, return_lse):
     )
     _launch("flash_fwd", _kernel_fn("flash_fwd", "dct_flash_fwd", 5),
             (q, k, v, o, lse), q, k, causal=causal, scale=scale,
-            window=window)
+            window=window, q_offset=q_offset)
     with _count_lock:
         launches += 1
     return o, lse
 
 
-def _check_bwd(kernel, q, k, v, o, lse, do):
+def _check_bwd(kernel, q, k, v, o, lse, do, g_lse):
     b, h, t, _ = q.shape
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(
@@ -289,37 +300,44 @@ def _check_bwd(kernel, q, k, v, o, lse, do):
         raise TypeError(
             f"o/dO dtypes {o.dtype}/{do.dtype} must be q's ({q.dtype})"
         )
-    if lse.shape != (b, h, t) or lse.dtype != torch.float32:
-        raise ValueError(
-            f"lse must be f32 [B,H,T]={[b, h, t]}, got {lse.dtype} "
-            f"{list(lse.shape)}"
-        )
+    for name, x in (("lse", lse), ("g_lse", g_lse)):
+        if x is not None and (x.shape != (b, h, t)
+                              or x.dtype != torch.float32):
+            raise ValueError(
+                f"{name} must be f32 [B,H,Tq]={[b, h, t]}, got {x.dtype} "
+                f"{list(x.shape)}"
+            )
     if q.device.type != "cuda":
         raise ValueError(
             f"{kernel} launches its CUDA kernel and takes CUDA tensors, not "
             f"{q.device}; on the CPU the backward is FlashAttention's, "
             "through flash_attention_bwd_plain"
         )
-    _check_cuda(q, (("q", q), ("k", k), ("v", v), ("o", o), ("lse", lse),
-                    ("dO", do)))
+    named = [("q", q), ("k", k), ("v", v), ("o", o), ("lse", lse),
+             ("dO", do)]
+    if g_lse is not None:
+        named.append(("g_lse", g_lse))
+    _check_cuda(q, named)
 
 
 def flash_bwd_dkdv(q, k, v, o, lse, do, *, causal: bool = False,
-                   scale: float | None = None, window: int | None = None):
-    """Kernel 2 (``_flash_bwd_dkdv_kernel``): ``(dk, dv)`` ``[B,G,T,D]``
-    from the forward's q, k, v, o, lse and the output cotangent dO, all
-    CUDA tensors; launches ``flash_bwd_dkdv`` or raises."""
+                   scale: float | None = None, window: int | None = None,
+                   q_offset: int = 0, g_lse=None):
+    """Kernel 2 (``_flash_bwd_dkdv_kernel``): ``(dk, dv)`` ``[B,G,Tk,D]``
+    from the forward's q, k, v, o, lse, the output cotangent dO and the
+    lse cotangent ``g_lse`` (or None), all CUDA tensors; launches
+    ``flash_bwd_dkdv`` or raises."""
     global dkdv_launches
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     # Padded copies are contiguous, whatever the (sliced) o passed in.
     q, k, v, o, do = _pad(d, q, k, v, o, do)
-    _check_bwd("flash_bwd_dkdv", q, k, v, o, lse, do)
+    _check_bwd("flash_bwd_dkdv", q, k, v, o, lse, do, g_lse)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_bwd_dkdv",
-            _kernel_fn("flash_bwd", "dct_flash_bwd_dkdv", 8),
-            (q, k, v, o, do, lse, dk, dv), q, k, causal=causal, scale=scale,
-            window=window)
+            _kernel_fn("flash_bwd", "dct_flash_bwd_dkdv", 9),
+            (q, k, v, o, do, lse, g_lse, dk, dv), q, k, causal=causal,
+            scale=scale, window=window, q_offset=q_offset)
     with _count_lock:
         dkdv_launches += 1
     if dk.shape[-1] != d:
@@ -328,19 +346,21 @@ def flash_bwd_dkdv(q, k, v, o, lse, do, *, causal: bool = False,
 
 
 def flash_bwd_dq(q, k, v, o, lse, do, *, causal: bool = False,
-                 scale: float | None = None, window: int | None = None):
-    """Kernel 3 (``_flash_bwd_dq_kernel``): dq ``[B,H,T,D]`` from CUDA
-    tensors; launches ``flash_bwd_dq`` or raises."""
+                 scale: float | None = None, window: int | None = None,
+                 q_offset: int = 0, g_lse=None):
+    """Kernel 3 (``_flash_bwd_dq_kernel``): dq ``[B,H,Tq,D]`` from CUDA
+    tensors (``g_lse`` as for kernel 2); launches ``flash_bwd_dq`` or
+    raises."""
     global dq_launches
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     # Padded copies are contiguous, whatever the (sliced) o passed in.
     q, k, v, o, do = _pad(d, q, k, v, o, do)
-    _check_bwd("flash_bwd_dq", q, k, v, o, lse, do)
+    _check_bwd("flash_bwd_dq", q, k, v, o, lse, do, g_lse)
     dq = torch.empty_like(q)
-    _launch("flash_bwd_dq", _kernel_fn("flash_bwd", "dct_flash_bwd_dq", 7),
-            (q, k, v, o, do, lse, dq), q, k, causal=causal, scale=scale,
-            window=window)
+    _launch("flash_bwd_dq", _kernel_fn("flash_bwd", "dct_flash_bwd_dq", 8),
+            (q, k, v, o, do, lse, g_lse, dq), q, k, causal=causal,
+            scale=scale, window=window, q_offset=q_offset)
     with _count_lock:
         dq_launches += 1
     return dq[..., :d].contiguous() if dq.shape[-1] != d else dq
@@ -362,69 +382,81 @@ def bwd_mode(device="cpu") -> str:
     return mode
 
 
-def _remat_bwd(q, k, v, do, *, causal, scale, window, block_k):
+def _remat_bwd(q, k, v, do, g_lse, *, causal, scale, window, block_k,
+               q_offset):
     """The ``remat`` escape hatch: differentiate the blockwise path (plain
     PyTorch, CPU tensors only) instead of the kernel's plain backward."""
-    from dct_tpu_torch.ops.attention import blockwise_attention
-
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-        o = blockwise_attention(*leaves, block_size=min(block_k, k.shape[-2]),
-                                causal=causal, scale=scale, window=window)
-        return torch.autograd.grad(o, leaves, do)
+        o, lse = blockwise_attention_lse(
+            *leaves, block_size=min(block_k, k.shape[-2]), causal=causal,
+            scale=scale, window=window, q_offset=q_offset)
+        outs, cots = [o], [do]
+        if g_lse is not None:
+            outs.append(lse)
+            cots.append(g_lse)
+        return torch.autograd.grad(outs, leaves, cots, allow_unused=True)
 
 
 class FlashAttention(torch.autograd.Function):
-    """Flash attention with its backward (the reference's ``custom_vjp``,
-    ``pallas_attention.py:547-596``): the forward saves (q, k, v, o, lse)
-    as ``_vjp_fwd`` does; the backward runs kernels 2 and 3 on a CUDA
-    tensor and :func:`flash_attention_bwd_plain` on a CPU tensor, or under
+    """Flash attention with its backward (the reference's ``custom_vjp``s,
+    ``pallas_attention.py:547-667``): the forward returns (o, lse) and
+    saves (q, k, v, o, lse) as ``_vjp_fwd`` does; the backward takes the
+    cotangents of both outputs (None where an output is unused) and runs
+    kernels 2 and 3 on a CUDA tensor, the lse cotangent folded into delta,
+    and :func:`flash_attention_bwd_plain` on a CPU tensor, or under
     ``DCT_FLASH_BWD=remat`` the gradient of the blockwise path on a CPU
     tensor (on a CUDA tensor ``remat`` raises)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, window, block_q, block_k):
+    def forward(ctx, q, k, v, causal, scale, window, block_q, block_k,
+                q_offset):
         if q.device.type == "cuda":
             o, lse = _flash_cuda(q, k, v, causal=causal, scale=scale,
-                                 window=window, return_lse=True)
+                                 window=window, return_lse=True,
+                                 q_offset=q_offset)
         else:
             o, lse = flash_attention_plain(q, k, v, causal=causal,
                                            scale=scale, window=window,
-                                           block_k=block_k)
+                                           block_k=block_k,
+                                           q_offset=q_offset)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.opts = (causal, scale, window, block_q, block_k)
-        return o
+        ctx.opts = (causal, scale, window, block_q, block_k, q_offset)
+        ctx.set_materialize_grads(False)
+        return o, lse
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, g_lse):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, scale, window, block_q, block_k = ctx.opts
+        causal, scale, window, block_q, block_k, q_offset = ctx.opts
         # dO arrives strided from o.transpose(1, 2).reshape(...) upstream.
-        do = do.contiguous()
+        do = torch.zeros_like(o) if do is None else do.contiguous()
+        if g_lse is not None:
+            g_lse = g_lse.float().contiguous()
+        none = (None,) * 6
         if bwd_mode(q.device) == "remat":
-            return (*_remat_bwd(q, k, v, do, causal=causal, scale=scale,
-                                window=window, block_k=block_k),
-                    None, None, None, None, None)
+            return (*_remat_bwd(q, k, v, do, g_lse, causal=causal,
+                                scale=scale, window=window, block_k=block_k,
+                                q_offset=q_offset), *none)
+        kw = dict(causal=causal, scale=scale, window=window,
+                  q_offset=q_offset, g_lse=g_lse)
         if q.device.type == "cuda":
-            kw = dict(causal=causal, scale=scale, window=window)
             dk, dv = flash_bwd_dkdv(q, k, v, o, lse, do, **kw)
             dq = flash_bwd_dq(q, k, v, o, lse, do, **kw)
         else:
             dq, dk, dv = flash_attention_bwd_plain(
-                q, k, v, o, lse, do, causal=causal, scale=scale,
-                window=window, block_q=block_q, block_k=block_k,
-            )
-        return dq, dk, dv, None, None, None, None, None
+                q, k, v, o, lse, do, block_q=block_q, block_k=block_k, **kw)
+        return (dq, dk, dv, *none)
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
                     scale: float | None = None, window: int | None = None,
                     block_q: int = 128, block_k: int = 128,
                     return_lse: bool = False, q_offset: int = 0):
-    """Flash attention; q ``[B,H,T,D]``, k/v ``[B,G,T,D]`` -> o
-    ``[B,H,T,D]`` (and lse ``[B,H,T]`` f32 with ``return_lse``). With
-    grad enabled and any input requiring grad, the output's ``grad_fn`` is
-    :class:`FlashAttention`."""
+    """Flash attention; q ``[B,H,Tq,D]``, k/v ``[B,G,Tk,D]`` -> o
+    ``[B,H,Tq,D]`` (and lse ``[B,H,Tq]`` f32 with ``return_lse``). With
+    grad enabled and any input requiring grad, the outputs' ``grad_fn`` is
+    :class:`FlashAttention`, and both carry gradients."""
     _validate(q, k, v, causal=causal, window=window, block_q=block_q,
               block_k=block_k, q_offset=q_offset)
     d = q.shape[-1]
@@ -436,21 +468,16 @@ def flash_attention(q, k, v, *, causal: bool = False,
     if torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad
     ):
-        if return_lse:
-            raise NotImplementedError(
-                "the backward through flash attention's lse output (the "
-                "ring engine's merge weights, _vjp_lse_bwd) is not ported "
-                "yet: ROADMAP Queue A item 16"
-            )
-        o = FlashAttention.apply(q, k, v, causal, scale, window, block_q,
-                                 block_k)
-        return o[..., :d] if o.shape[-1] != d else o
-    if q.device.type == "cuda":
+        o, lse = FlashAttention.apply(q, k, v, causal, scale, window,
+                                      block_q, block_k, q_offset)
+    elif q.device.type == "cuda":
         o, lse = _flash_cuda(q, k, v, causal=causal, scale=scale,
-                             window=window, return_lse=return_lse)
+                             window=window, return_lse=return_lse,
+                             q_offset=q_offset)
     else:
         o, lse = flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                       window=window, block_k=block_k)
+                                       window=window, block_k=block_k,
+                                       q_offset=q_offset)
     if o.shape[-1] != d:
         o = o[..., :d]
     return (o, lse) if return_lse else o

@@ -1,28 +1,38 @@
 """The process grid and its collectives (counterpart of
-``dct_tpu/parallel/mesh.py``; the ``seq`` and ``pipe`` axes wait for
-ROADMAP Queue A items 16 and 17).
+``dct_tpu/parallel/mesh.py``; the ``pipe`` axis waits for ROADMAP Queue A
+item 17).
 
 One process drives one device. The reference lays its devices out in
 enumeration order over ``[data, model, seq, pipe]`` (``mesh.py:140``), so
-process ``p`` of ``W = D x M`` sits at data row ``p // M`` and model
-column ``p % M``. :func:`make_mesh` builds that grid from a
-:class:`~dct_tpu_torch.config.MeshConfig` and one process group per data
-row (its ``M`` processes: the **model group**, which shares one block of
-every batch) and one per model column (its ``D`` processes: the **data
-group**, over which gradients and metrics are reduced). Every process
-creates every group, in the same order, as ``torch.distributed`` requires.
+process ``p`` of ``W = D x M x S`` sits at data row ``p // (M S)``, model
+column ``(p // S) % M`` and seq index ``p % S``. :func:`make_mesh` builds
+that grid from a :class:`~dct_tpu_torch.config.MeshConfig` and its
+process groups: the **model group** (the ``M`` processes of one data row
+and seq index, which share one block of every batch and split the
+tensor-parallel layers), the **seq group** (the ``S`` processes of one
+data row and model column, which hold the ``T/S`` positions of that block
+each and run the sequence-parallel attention engines), the **data group**
+(the ``D`` processes of one model column and seq index) and the
+**gradient group** (the ``D x S`` processes of one model column, over
+which gradients, losses and metrics are reduced). Every process creates
+every group, in the same order, as ``torch.distributed`` requires.
 
 :func:`set_mesh` makes a grid the process default; without one, the
 default is the data axis alone over every process. The reductions below
-run over the default grid's data group: the model ranks of one block hold
-the same loss, the same metric sums and the same gradients of replicated
-parameters, so a sum over the world would count them ``M`` times. The
-reference's step is one program over the global batch; here each process
-divides its block's weighted loss sum by the global row count and
-:func:`all_reduce_sum` adds the gradients and the losses over the data
-group in one flat buffer (:mod:`dct_tpu_torch.train.steps`): the
-reference's global weighted mean, the zero-weight padding of the last
-batch included, which a mean of per-process means is not.
+run over the default grid's gradient group: the model ranks of one block
+hold the same loss, the same metric sums and the same gradients of
+replicated parameters, so a sum over the world would count them ``M``
+times. The seq ranks of a block hold one share each of its gradients
+(their positions' part of every parameter's), and the replicated tail
+of the model (the pooled head, the gathered per-position logits) counts
+on seq index 0 alone (:func:`seq_owned`), so a sum over the gradient
+group is exact. The reference's step is one program over the global
+batch; here each process divides its block's weighted loss sum by the
+global row count and :func:`all_reduce_sum` adds the gradients and the
+losses over the gradient group in one flat buffer
+(:mod:`dct_tpu_torch.train.steps`): the reference's global weighted mean,
+the zero-weight padding of the last batch included, which a mean of
+per-process means is not.
 
 The model axis's collectives carry gradients (small
 ``torch.autograd.Function`` s): :func:`copy_to_model` (the identity
@@ -30,7 +40,17 @@ forward, an all-reduce backward: the input of a column-parallel layer),
 :func:`reduce_from_model` (an all-reduce forward, the identity backward:
 the output of a row-parallel layer), :func:`gather_from_model` (a tiled
 all-gather forward, this rank's slice backward) and
-:func:`all_to_all_model` (the expert exchange, its own inverse).
+:func:`all_to_all_model` (the expert exchange, its own inverse). So do the
+seq axis's: :func:`ring_shift` (one ``batch_isend_irecv`` to the next
+seq rank, the reverse shift backward: a ring step of the ring engine),
+:func:`seq_to_heads` and :func:`heads_to_seq` (the all-to-all engine's
+two ``all_to_all_single`` exchanges, each the other's backward),
+:func:`reduce_from_seq` (the mean pool's sum, all-reduced both ways) and
+:func:`gather_from_seq` (the per-position logits, an all-gather forward
+and an all-reduce of the gradient, this rank's slice, backward). Each of
+them is one collective a call: where several tensors travel together
+(the ring's K and V, the engine's q, k and v) they travel as one, so
+the backward's collectives run in one order on every rank.
 """
 
 from __future__ import annotations
@@ -45,9 +65,8 @@ from dct_tpu_torch.config import MeshConfig
 from dct_tpu_torch.parallel.distributed import process_count, process_index
 
 AXES = ("data", "model", "seq", "pipe")
-# The axes beyond data and model, with the ROADMAP item that ports each.
-_UNPORTED_AXES = {"seq": ("a sequence-parallel axis", 16),
-                  "pipe": ("a pipeline axis", 17)}
+# The axes the port does not have, with the ROADMAP item that ports each.
+_UNPORTED_AXES = {"pipe": ("a pipeline axis", 17)}
 
 
 @dataclass(frozen=True)
@@ -60,21 +79,35 @@ class ModelShard:
     group: object = None
 
 
-class ProcessMesh:
-    """The ``[data, model]`` grid of processes (``seq`` and ``pipe`` are
-    1). ``shape`` maps every axis name to its size, as the reference's
-    ``Mesh.shape``; ``data_index`` and ``model_index`` place this
-    process."""
+@dataclass(frozen=True)
+class SeqShard:
+    """This process's place on the seq axis: ``index`` of ``size``, the
+    process group of its ``size`` seq ranks and their global ranks in seq
+    order (the peers of a ring step)."""
 
-    def __init__(self, data: int, model: int = 1, *, rank: int | None = None,
-                 world: int | None = None):
-        self.shape = {"data": int(data), "model": int(model), "seq": 1,
-                      "pipe": 1}
+    size: int
+    index: int
+    group: object = None
+    ranks: tuple = ()
+
+
+class ProcessMesh:
+    """The ``[data, model, seq]`` grid of processes (``pipe`` is 1).
+    ``shape`` maps every axis name to its size, as the reference's
+    ``Mesh.shape``; ``data_index``, ``model_index`` and ``seq_index``
+    place this process."""
+
+    def __init__(self, data: int, model: int = 1, seq: int = 1, *,
+                 rank: int | None = None, world: int | None = None):
+        self.shape = {"data": int(data), "model": int(model),
+                      "seq": int(seq), "pipe": 1}
         self.world = process_count() if world is None else int(world)
         self.rank = process_index() if rank is None else int(rank)
-        m = self.model_size
-        self.data_index, self.model_index = self.rank // m, self.rank % m
+        self.data_index, self.model_index, self.seq_index = self._coords(
+            self.rank)
         self.data_group = self.model_group = None
+        self.seq_group = self.grad_group = None
+        self.seq_ranks = tuple(self._peers((2,))[0])
         if self.world > 1 and dist.is_initialized():
             self._build_groups()
 
@@ -86,18 +119,54 @@ class ProcessMesh:
     def model_size(self) -> int:
         return self.shape["model"]
 
+    @property
+    def seq_size(self) -> int:
+        return self.shape["seq"]
+
+    @property
+    def grad_size(self) -> int:
+        """The processes a gradient is summed over: ``data x seq``."""
+        return self.data_size * self.seq_size
+
+    def _coords(self, p: int) -> tuple[int, int, int]:
+        m, s = self.model_size, self.seq_size
+        return p // (m * s), (p // s) % m, p % s
+
+    def _peers(self, vary: tuple) -> list:
+        """The groups of processes that differ only on the axes ``vary``
+        (0 data, 1 model, 2 seq), in the order of their first rank: this
+        process's first, then every group."""
+        groups: dict = {}
+        for p in range(self.data_size * self.model_size * self.seq_size):
+            c = self._coords(p)
+            groups.setdefault(tuple(c[a] for a in range(3)
+                                    if a not in vary), []).append(p)
+        mine = tuple(c for a, c in enumerate(self._coords(self.rank))
+                     if a not in vary)
+        return [groups[mine], list(groups.values())]
+
     def _build_groups(self) -> None:
-        d, m = self.data_size, self.model_size
-        # A group spanning the world is the default group (``None``).
-        if m > 1 and d > 1:
-            for row in range(d):  # every process creates every group
-                g = dist.new_group([row * m + c for c in range(m)])
-                if row == self.data_index:
-                    self.model_group = g
-            for col in range(m):
-                g = dist.new_group([r * m + col for r in range(d)])
-                if col == self.model_index:
-                    self.data_group = g
+        def build(vary):
+            mine, groups = self._peers(vary)
+            out = None
+            for ranks in groups:  # every process creates every group
+                # A group spanning the world is the default group (None);
+                # a group of one process is never used.
+                if 1 < len(ranks) < self.world:
+                    g = dist.new_group(ranks)
+                    if ranks == mine:
+                        out = g
+            return out
+
+        self.model_group = build((1,))
+        self.data_group = build((0,))
+        self.seq_group = build((2,))
+        if self.seq_size == 1:
+            self.grad_group = self.data_group
+        elif self.data_size == 1:
+            self.grad_group = self.seq_group
+        else:
+            self.grad_group = build((0, 2))
 
     def model_shard(self) -> ModelShard | None:
         """This process's :class:`ModelShard`, or None when the model axis
@@ -106,9 +175,18 @@ class ProcessMesh:
             return None
         return ModelShard(self.model_size, self.model_index, self.model_group)
 
+    def seq_shard(self) -> SeqShard | None:
+        """This process's :class:`SeqShard`, or None when the seq axis has
+        one process."""
+        if self.seq_size == 1:
+            return None
+        return SeqShard(self.seq_size, self.seq_index, self.seq_group,
+                        self.seq_ranks)
+
     def __repr__(self) -> str:
         return (f"ProcessMesh({self.shape}, rank={self.rank}: data row "
-                f"{self.data_index}, model column {self.model_index})")
+                f"{self.data_index}, model column {self.model_index}, seq "
+                f"index {self.seq_index})")
 
 
 def resolve_sizes(cfg: MeshConfig, n: int) -> dict:
@@ -147,7 +225,7 @@ def make_mesh(cfg: MeshConfig | None = None) -> ProcessMesh:
                 f"DCT_MESH_{axis.upper()}={sizes[axis]} asks for {what}; "
                 f"the port has the data and model axes only: ROADMAP Queue "
                 f"A item {item}")
-    return ProcessMesh(sizes["data"], sizes["model"])
+    return ProcessMesh(sizes["data"], sizes["model"], sizes["seq"])
 
 
 _MESH: ProcessMesh | None = None
@@ -171,27 +249,38 @@ def get_mesh() -> ProcessMesh:
 
 def process_data_block() -> tuple[int, int]:
     """``(num_blocks, my_block)`` of each global batch: one block per data
-    row, the ``M`` processes of a model group loading the same block."""
+    row, the ``M x S`` processes of a data row loading the same block."""
     mesh = get_mesh()
     return mesh.data_size, mesh.data_index
 
 
 def data_parallel() -> bool:
     """Whether gradients and metrics are reduced over processes."""
-    return get_mesh().data_size > 1
+    return get_mesh().grad_size > 1
+
+
+def seq_owned(weight: torch.Tensor) -> torch.Tensor:
+    """``weight`` on seq index 0 and zeros on the other seq ranks: the
+    rows' weights of a loss or metric over the model's replicated tail
+    (every seq rank of a block computes the same logits), so the sum over
+    the gradient group counts them once."""
+    mesh = get_mesh()
+    if mesh.seq_size == 1 or mesh.seq_index == 0:
+        return weight
+    return torch.zeros_like(weight)
 
 
 def all_reduce_sum(tensors) -> list[torch.Tensor]:
-    """The elementwise sums of ``tensors`` over the data group, through
-    one f32 all-reduce of a flat buffer; the tensors themselves come back
-    (as f32 values in their own dtypes) when the data axis has one
-    process."""
+    """The elementwise sums of ``tensors`` over the gradient group (data
+    x seq), through one f32 all-reduce of a flat buffer; the tensors
+    themselves come back (as f32 values in their own dtypes) when that
+    group has one process."""
     tensors = list(tensors)
     mesh = get_mesh()
-    if mesh.data_size == 1:
+    if mesh.grad_size == 1:
         return tensors
     flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.data_group)
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.grad_group)
     out, i = [], 0
     for t in tensors:
         n = t.numel()
@@ -307,3 +396,145 @@ def all_to_all_model(x: torch.Tensor, shard: ModelShard) -> torch.Tensor:
     ``j`` of the result came from rank ``j``. Its own inverse, so the
     backward is the same exchange."""
     return _AllToAllModel.apply(x, shard.group)
+
+
+# --------------------------------------------------- seq-axis autograd
+
+
+def _shift(x: torch.Tensor, shard: SeqShard, step: int) -> torch.Tensor:
+    """``x`` of the seq rank ``step`` places back: one send to the rank
+    ``step`` ahead and one receive, batched."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    n, i = shard.size, shard.index
+    ops = [dist.P2POp(dist.isend, x, shard.ranks[(i + step) % n],
+                      group=shard.group),
+           dist.P2POp(dist.irecv, out, shard.ranks[(i - step) % n],
+                      group=shard.group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return _shift(x, shard, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.shard, -1), None
+
+
+def ring_shift(x: torch.Tensor, shard: SeqShard) -> torch.Tensor:
+    """One ring step: this rank's ``x`` goes to the next seq rank and the
+    previous one's comes back (``lax.ppermute`` over ``j -> j + 1``); the
+    backward shifts the gradient the other way."""
+    return _RingShift.apply(x, shard)
+
+
+def _exchange(x: torch.Tensor, shard: SeqShard) -> torch.Tensor:
+    """``x`` ``[S, ...]``: row ``j`` to seq rank ``j``; row ``j`` of the
+    result came from seq rank ``j``."""
+    x = x.contiguous()
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(out, x, group=shard.group)
+    return out
+
+
+def _seq_to_heads(x: torch.Tensor, shard: SeqShard) -> torch.Tensor:
+    b, h, t, d = x.shape
+    s = shard.size
+    parts = x.reshape(b, s, h // s, t, d).transpose(0, 1)
+    out = _exchange(parts, shard)  # [S (source seq rank), B, H/S, T, D]
+    return out.permute(1, 2, 0, 3, 4).reshape(b, h // s, s * t, d)
+
+
+def _heads_to_seq(x: torch.Tensor, shard: SeqShard) -> torch.Tensor:
+    b, h, t, d = x.shape
+    s = shard.size
+    parts = x.reshape(b, h, s, t // s, d).permute(2, 0, 1, 3, 4)
+    out = _exchange(parts, shard)  # [S (source head group), B, H, T/S, D]
+    return out.transpose(0, 1).reshape(b, s * h, t // s, d)
+
+
+class _SeqToHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return _seq_to_heads(x, shard)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _heads_to_seq(g, ctx.shard), None
+
+
+class _HeadsToSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        return _heads_to_seq(x, shard)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_to_heads(g, ctx.shard), None
+
+
+def seq_to_heads(x: torch.Tensor, shard: SeqShard) -> torch.Tensor:
+    """``[B, H, T/S, D]`` (this rank's positions of every head) ->
+    ``[B, H/S, T, D]`` (every position of its ``H/S`` heads): one
+    ``all_to_all_single`` (``lax.all_to_all(split_axis=1,
+    concat_axis=2)``); the backward is :func:`heads_to_seq`."""
+    return _SeqToHeads.apply(x, shard)
+
+
+def heads_to_seq(x: torch.Tensor, shard: SeqShard) -> torch.Tensor:
+    """The inverse of :func:`seq_to_heads`."""
+    return _HeadsToSeq.apply(x, shard)
+
+
+class _ReduceFromSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=shard.group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.shard.group)
+        return g, None
+
+
+class _GatherFromSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard, ctx.n = shard, x.shape[1]
+        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for _ in range(shard.size)]
+        dist.all_gather(parts, x.contiguous(), group=shard.group)
+        return torch.cat(parts, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.shard.group)
+        lo = ctx.shard.index * ctx.n
+        return g[:, lo:lo + ctx.n], None
+
+
+def reduce_from_seq(x: torch.Tensor, shard: SeqShard) -> torch.Tensor:
+    """The sum of the seq ranks' ``x``, on every seq rank. Each rank's
+    copy feeds its own share of the objective, so the backward sums the
+    copies' gradients the same way (an all-reduce)."""
+    return _ReduceFromSeq.apply(x, shard)
+
+
+def gather_from_seq(x: torch.Tensor, shard: SeqShard) -> torch.Tensor:
+    """The seq ranks' ``x`` ``[B, T/S, ...]`` concatenated on dim 1 in
+    seq order, on every seq rank; the backward sums the copies' gradients
+    and keeps this rank's positions."""
+    return _GatherFromSeq.apply(x, shard)

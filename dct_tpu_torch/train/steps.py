@@ -31,6 +31,10 @@ split over ``data``); the eval sums are reduced once per pass. Every
 process then holds the reference's global weighted means. The model ranks
 of a block hold the same loss and sums, so nothing is reduced over the
 model axis here: its collectives run inside the tensor-parallel modules.
+The seq ranks of a block hold one share each of its gradients, and the
+same logits: the bodies weight the rows on seq index 0 alone
+(:func:`~dct_tpu_torch.parallel.mesh.seq_owned`), and the gradients and
+sums are reduced over data x seq.
 The grad norm is :meth:`~dct_tpu_torch.train.state.TrainState.grad_norm`,
 over the logical arrays. FSDP parameters are all-gathered for each body
 (:meth:`~dct_tpu_torch.train.state.TrainState.full_params`). With one
@@ -46,7 +50,7 @@ from dct_tpu_torch.ops.losses import (
     masked_binary_counts,
     masked_cross_entropy,
 )
-from dct_tpu_torch.parallel.mesh import all_reduce_sum
+from dct_tpu_torch.parallel.mesh import all_reduce_sum, seq_owned
 from dct_tpu_torch.parallel.sharding_rules import cast_params_by_rules
 from dct_tpu_torch.train.state import TrainState
 
@@ -85,6 +89,7 @@ def loss_and_grads(state: TrainState, x, y, weight):
     ``(loss, grads)`` with grads in the update space (``state.params``
     order; see :mod:`dct_tpu_torch.train.state`)."""
     x, y, weight = _device_tensors(state, x, y, weight)
+    weight = seq_owned(weight)
     state.model.train()
     with state.full_params():
         logits = _apply(state, x, (state.rng, state.step))
@@ -114,6 +119,7 @@ def _train_accum_body(state: TrainState, x, y, weight, accum_steps: int):
     is its weighted CE sum over the whole batch's supervised count, so the
     sum equals one step on the whole batch."""
     x, y, weight = _device_tensors(state, x, y, weight)
+    weight = seq_owned(weight)
     b = x.shape[0]
     if b % accum_steps:
         raise ValueError(f"batch {b} does not split into {accum_steps} "
@@ -150,6 +156,7 @@ def _train_accum_body(state: TrainState, x, y, weight, accum_steps: int):
 def _eval_body(state: TrainState, x, y, weight):
     """One eval batch -> (loss_sum, acc_sum, count, tp, fp, fn)."""
     x, y, weight = _device_tensors(state, x, y, weight)
+    weight = seq_owned(weight)
     state.model.eval()
     with torch.no_grad(), state.full_params():
         logits = _apply(state, x, None)

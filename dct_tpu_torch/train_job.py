@@ -16,16 +16,20 @@ dct_tpu_torch.train_job``). Environment:
       ``r`` has no card of its own (two ranks never share one)
   DCT_RUN_ID  the run-correlation ID (the launcher mints it; an unlaunched
       run mints its own), logged first
-  DCT_MESH_DATA / DCT_MESH_MODEL  the process grid (``data=-1`` absorbs
-      every process; WORLD_SIZE must equal data x model): the model axis
-      runs the transformers tensor-parallel and the MoE expert-parallel
+  DCT_MESH_DATA / DCT_MESH_MODEL / DCT_MESH_SEQ  the process grid
+      (``data=-1`` absorbs every process; WORLD_SIZE must equal data x
+      model x seq): the model axis runs the transformers tensor-parallel
+      and the MoE expert-parallel; the seq axis runs the two transformer
+      families sequence-parallel (``DCT_SP_ENGINE`` ring or a2a,
+      ``DCT_RING_STRIPED``), and refuses the MoE, the GRU and ZeRO-1/FSDP
+      naming ROADMAP Queue A item 16b
   DCT_SHARD_OPT_STATE / DCT_SHARD_PARAMS / DCT_SHARD_RULES  ZeRO-1, FSDP
       and the partition-rule overrides
       (:mod:`dct_tpu_torch.parallel.sharding_rules`)
   DCT_* training, model, data, tracking, observability and resilience
-      settings (:class:`dct_tpu_torch.config.RunConfig`); the sequence and
-      pipeline axes and the stream ingest are refused with the ROADMAP
-      item that ports them
+      settings (:class:`dct_tpu_torch.config.RunConfig`); the pipeline
+      axis and the stream ingest are refused with the ROADMAP item that
+      ports them
 
 Prints ``[train_job] launches {...}``, this process's flash-kernel launch
 counts, when training ends (done, preempted or halted), so a supervisor's
@@ -52,22 +56,21 @@ import sys
 #: (environment variable, what the port does not have yet, the ROADMAP
 #: Queue A item that ports it).
 _UNPORTED = (
-    ("DCT_MESH_SEQ", "a sequence-parallel axis", 16),
     ("DCT_MESH_PIPE", "a pipeline axis", 17),
 )
 
 
 def refuse_unported_env(env=None) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item when the
-    environment asks for a sequence or pipeline axis or the stream
-    ingest, none of which the port has."""
+    environment asks for a pipeline axis or the stream ingest, neither of
+    which the port has."""
     env = os.environ if env is None else env
     for var, what, item in _UNPORTED:
         raw = (env.get(var) or "").strip()
         if raw and int(raw) > 1:
             raise NotImplementedError(
-                f"{var}={raw} asks for {what}; the port has the data and "
-                f"model axes only: ROADMAP Queue A item {item}")
+                f"{var}={raw} asks for {what}; the port has the data, "
+                f"model and seq axes only: ROADMAP Queue A item {item}")
     mode = (env.get("DCT_INGEST_MODE") or "poll").strip().lower()
     if mode != "poll":
         raise NotImplementedError(

@@ -4,8 +4,9 @@
 
 Builds ``dct_tpu_torch/ops/csrc/flash_fwd.cu`` and ``flash_bwd.cu`` of the
 base checkout and of this one (``nvcc`` with the port's flags, into
-``build/kernel_ab/``), loads both through their C entry points (the same
-signatures in both) and times every kernel at the main path's shape
+``build/kernel_ab/``), loads both through their C entry points (a
+checkout's entry points take one ``seq``, or ``tq, tk, q_offset`` and the
+backward's ``g_lse`` pointer, as its ``flash_fwd.cu`` says) and times every kernel at the main path's shape
 (B=32, H=G=8, T=1024, D=64), f32 and bf16, causal and not, in the order
 base, head, head, base, ``--rounds`` times over, each reading by
 ``chip_smoke.time_ms``. Prints, per kernel and variant, both sides'
@@ -34,10 +35,18 @@ sys.path.insert(0, ROOT)
 SHAPE = (32, 8, 8, 1024, 64)  # B, H, G, T, D
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Tensor arguments of each C entry point (then B, H, G, T, D, scale,
-# causal, window, dtype, stream).
+# causal, window, dtype, stream; where the entry points take Tq, Tk and
+# q_offset, the backward's take a g_lse pointer after lse, null here).
 ENTRY = {"flash_fwd": ("flash_fwd", "dct_flash_fwd", 5),
          "flash_bwd_dkdv": ("flash_bwd", "dct_flash_bwd_dkdv", 8),
          "flash_bwd_dq": ("flash_bwd", "dct_flash_bwd_dq", 7)}
+
+
+def takes_offset(checkout: str) -> bool:
+    """Whether the checkout's entry points take ``tq, tk, q_offset``."""
+    with open(os.path.join(checkout, "dct_tpu_torch", "ops", "csrc",
+                           "flash_fwd.cu")) as f:
+        return "int tq" in f.read()
 
 
 def build(side: str, checkout: str) -> dict[str, ctypes.CDLL]:
@@ -63,12 +72,25 @@ def build(side: str, checkout: str) -> dict[str, ctypes.CDLL]:
     return libs
 
 
-def entry(libs, kernel):
+def entry(libs, kernel, offset: bool):
     lib, symbol, n_ptrs = ENTRY[kernel]
     fn = getattr(libs[lib], symbol)
-    fn.argtypes = [P] * n_ptrs + [I] * 5 + [F, I, I, I, P]
+    if offset:
+        n_ptrs += kernel != "flash_fwd"
+    fn.argtypes = [P] * n_ptrs + [I] * (7 if offset else 5) + [F, I, I, I, P]
     fn.restype = I
     return fn
+
+
+def call_args(tensors, kernel, offset: bool, b, h, g, t, d):
+    """The pointers and sizes of one call: Tq = Tk = T, no offset, no
+    lse cotangent."""
+    ptrs = [x.data_ptr() for x in tensors]
+    if not offset:
+        return [*ptrs, b, h, g, t, d]
+    if kernel != "flash_fwd":
+        ptrs.insert(6, None)  # g_lse after lse
+    return [*ptrs, b, h, g, t, t, 0, d]
 
 
 def main() -> int:
@@ -86,6 +108,8 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = {"base": build("base", os.path.abspath(args.base)),
             "head": build("head", ROOT)}
+    offset = {"base": takes_offset(os.path.abspath(args.base)),
+              "head": takes_offset(ROOT)}
     print(f"[ab] built both sides in {time.perf_counter() - t0:.1f} s",
           flush=True)
     b, h, g, t, d = SHAPE
@@ -110,10 +134,11 @@ def main() -> int:
             for kernel, (tensors, checks) in outs.items():
                 calls = {}
                 for side in ("base", "head"):
-                    fn = entry(libs[side], kernel)
-                    ptrs = [x.data_ptr() for x in tensors]
-                    calls[side] = (lambda fn=fn, ptrs=ptrs: fn(
-                        *ptrs, b, h, g, t, d, scale, int(causal), 0,
+                    fn = entry(libs[side], kernel, offset[side])
+                    head = call_args(tensors, kernel, offset[side], b, h, g,
+                                     t, d)
+                    calls[side] = (lambda fn=fn, head=head: fn(
+                        *head, scale, int(causal), 0,
                         0 if dtype == torch.float32 else 1, stream))
                 errors = {}
                 for side, call in calls.items():

@@ -814,3 +814,169 @@ def test_flash_interpret_mode_raises_on_a_cuda_tensor(card, monkeypatch):
         out.sum().backward()
     assert fa.launch_counts() == {"flash_fwd": 1, "flash_bwd_dkdv": 0,
                                   "flash_bwd_dq": 0}
+
+
+# (tq, tk, q_offset, window, kv heads): the ring's variants (the windowed
+# ring's partial-band shards, some with rows no key reaches; the striped
+# ring's rectangular half-chunk blocks; ragged lengths).
+SP_CASES = [
+    (128, 128, 128, 64, 4),
+    (256, 256, 256, 100, 2),
+    (128, 128, 256, 64, 4),
+    (256, 128, 0, None, 4),
+    (128, 256, 0, None, 2),
+    (96, 160, 0, None, 4),
+    (160, 160, 96, 80, 2),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tq,tk,q_offset,window,g", SP_CASES)
+def test_ring_variants_match_plain(card, tq, tk, q_offset, window, g,
+                                   dtype):
+    """q_offset, Tq != Tk and the lse cotangent in the backward, each
+    kernel against its plain version: o within 1e-5 (f32) or 2e-2, lse
+    within 1e-4 (rows no key reaches at -1e30 on both sides), dq, dk, dv
+    within 1e-4 (f32) or 1e-2 of max|plain|; one launch each, nothing
+    infinite or NaN."""
+    causal = window is not None
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    rng = np.random.default_rng(tq + tk + q_offset)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(card)
+
+    q, do = rand(B, H, tq, 64).to(dtype), rand(B, H, tq, 64).to(dtype)
+    k, v = rand(B, g, tk, 64).to(dtype), rand(B, g, tk, 64).to(dtype)
+    g_lse = rand(B, H, tq)
+    fa.reset_launches()
+    # 32-row blocks: the wrapper's contract at the ragged lengths.
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, block_q=32,
+                                block_k=32, **kw)
+    dk, dv = fa.flash_bwd_dkdv(q, k, v, o, lse, do, g_lse=g_lse, **kw)
+    dq = fa.flash_bwd_dq(q, k, v, o, lse, do, g_lse=g_lse, **kw)
+    torch.cuda.synchronize()
+    assert fa.launch_counts() == {"flash_fwd": 1, "flash_bwd_dkdv": 1,
+                                  "flash_bwd_dq": 1}
+    po, plse = fa.flash_attention_plain(q, k, v, block_k=32, **kw)
+    grads = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, g_lse=g_lse,
+                                         block_q=32, block_k=32, **kw)
+    f32 = dtype == torch.float32
+    for x in (o, lse, dq, dk, dv):
+        assert torch.isfinite(x).all()
+    assert (o.float() - po.float()).abs().max().item() <= (
+        1e-5 if f32 else 2e-2)
+    assert (lse - plse).abs().max().item() <= 1e-4
+    for got, ref in zip((dq, dk, dv), grads):
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= (1e-4 if f32 else 1e-2) * max(
+            ref.float().abs().max().item(), 1e-30)
+
+
+def test_ring_variants_under_autograd_launch_the_kernels(card):
+    """flash_attention(return_lse=True) under grad: the lse's cotangent
+    reaches the backward kernels (the gradients equal the plain
+    backward's with it), and nothing runs a plain path."""
+    rng = np.random.default_rng(5)
+    leaves = [torch.from_numpy(rng.standard_normal((B, H, t, 32)).astype(
+        np.float32)).to(card).requires_grad_() for t in (128, 256, 256)]
+    fa.reset_launches()
+    o, lse = fa.flash_attention(*leaves, return_lse=True)
+    do, g_lse = torch.ones_like(o), torch.full_like(lse, 0.5)
+    got = torch.autograd.grad([o, lse], leaves, [do, g_lse])
+    torch.cuda.synchronize()
+    assert fa.launch_counts() == {"flash_fwd": 1, "flash_bwd_dkdv": 1,
+                                  "flash_bwd_dq": 1}
+    q, k, v = (x.detach() for x in leaves)
+    want = fa.flash_attention_bwd_plain(q, k, v, o.detach(), lse.detach(),
+                                        do, g_lse=g_lse)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+class _OneProcessSeq:
+    """A grid whose seq axis of ``size`` ranks runs rank after rank in one
+    process: ``seq_shard`` is rank ``index``'s, and ``shift`` (in place of
+    ``ring_shift``) hands it the stacked K/V its ring steps bring."""
+
+    def __init__(self, size):
+        self.size, self.index, self.kvs, self.shifts = size, 0, [], 0
+        self.shape = {"data": 1, "model": 1, "seq": size, "pipe": 1}
+
+    def seq_shard(self):
+        from dct_tpu_torch.parallel.mesh import SeqShard
+
+        return SeqShard(self.size, self.index)
+
+    def shift(self, x, shard):
+        self.shifts += 1
+        return self.kvs[(shard.index - self.shifts) % self.size]
+
+
+def _seq4_ring(card, monkeypatch, t, causal, window, striped):
+    """Each rank's ring output at seq=4 on the card (forward only), with
+    its positions, and dense attention over the whole sequence."""
+    from dct_tpu_torch.ops import attention as att
+    from dct_tpu_torch.parallel import mesh as pm
+
+    monkeypatch.setenv("DCT_SP_ENGINE", "ring")
+    monkeypatch.setenv("DCT_RING_STRIPED", striped)
+    grid = _OneProcessSeq(4)
+    monkeypatch.setattr(pm, "ring_shift", grid.shift)
+    q, k, v = _qkv(17, 2, 64, torch.float32, card, t=t)
+    engines, pos = [], []
+    for my in range(4):
+        grid.index = my
+        engines.append(att.SequenceParallelAttention(grid, causal=causal,
+                                                     window=window))
+        pos.append(engines[-1].positions(t, card))
+    grid.kvs = [torch.stack([k[..., p, :], v[..., p, :]]) for p in pos]
+    outs = []
+    for my in range(4):
+        grid.index, grid.shifts = my, 0
+        outs.append(engines[my](q[..., pos[my], :], k[..., pos[my], :],
+                                v[..., pos[my], :]))
+    torch.cuda.synchronize()
+    return outs, pos, att.dense_attention(q, k, v, causal=causal,
+                                          window=window)
+
+
+# (causal, window, DCT_RING_STRIPED, forward launches over the 4 ranks):
+# striped half shards of 32 (3 + 3 a rank), the contiguous causal ring
+# (1 + my), the non-causal ring (4 a rank), a window over 3 steps.
+SEQ4_T256 = [
+    (True, None, "auto", 24),
+    (True, None, "off", 10),
+    (False, None, "auto", 16),
+    (True, 100, "auto", 9),
+]
+
+
+@pytest.mark.parametrize("causal,window,striped,launches", SEQ4_T256)
+def test_seq4_ring_at_t256_runs_the_kernels(card, monkeypatch, causal,
+                                            window, striped, launches):
+    """seq=4 at T=256 (shards of 64 rows, half shards of 32) runs every
+    ring step on the kernel, not a plain path: each rank's output equals
+    dense attention at its positions within 1e-4, and the forward kernel
+    launched the layout's count of calls."""
+    fa.reset_launches()
+    outs, pos, ref = _seq4_ring(card, monkeypatch, 256, causal, window,
+                                striped)
+    assert fa.launch_counts()["flash_fwd"] == launches
+    for o, p in zip(outs, pos):
+        assert (o - ref[..., p, :]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("t,window,striped", [(768, None, "off"),
+                                              (768, None, "auto"),
+                                              (256, 64, "on")])
+def test_seq4_ring_without_a_kernel_body_raises(card, monkeypatch, t,
+                                                window, striped):
+    """Shards of 192 rows (no whole number of 128-blocks) and a windowed
+    striped ring have no kernel body: the ring raises on the card and
+    launches nothing."""
+    fa.reset_launches()
+    with pytest.raises(ValueError, match="no flash kernel body"):
+        _seq4_ring(card, monkeypatch, t, True, window, striped)
+    assert fa.launch_counts()["flash_fwd"] == 0

@@ -131,12 +131,20 @@ def test_wrapper_on_cpu_takes_the_plain_path():
 
 def test_wrapper_refusals():
     (tq, tk, tv), _ = _as("f32", *_inputs(4, G))
-    with pytest.raises(NotImplementedError, match="q_offset"):
-        fa.flash_attention(tq, tk, tv, causal=True, q_offset=128)
+    # The ring's variants are ported: q_offset and rectangular Tq != Tk
+    # run the plain version on a CPU tensor (tests/test_torch_flash_variants
+    # holds them to the reference).
+    o, lse = fa.flash_attention(tq, tk, tv, causal=True, window=64,
+                                q_offset=128, return_lse=True)
+    po, plse = fa.flash_attention_plain(tq, tk, tv, causal=True, window=64,
+                                        q_offset=128)
+    assert torch.equal(o, po) and torch.equal(lse, plse)
+    assert torch.equal(
+        fa.flash_attention(tq, tk[:, :, :128], tv[:, :, :128]),
+        fa.flash_attention_plain(tq, tk[:, :, :128], tv[:, :, :128])[0])
+    # Causal Tq != Tk keeps raising, as the reference's (_flash_fwd :177).
     with pytest.raises(ValueError, match="square"):
         fa.flash_attention(tq, tk[:, :, :128], tv[:, :, :128], causal=True)
-    with pytest.raises(NotImplementedError, match="rectangular"):
-        fa.flash_attention(tq, tk[:, :, :128], tv[:, :, :128])
     q256 = torch.zeros(B, H, T, 256)
     kv256 = torch.zeros(B, G, T, 256)
     with pytest.raises(ValueError, match="head dim 256.*B2"):

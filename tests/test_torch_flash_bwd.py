@@ -151,10 +151,18 @@ def test_bwd_refusals_and_counters():
     with pytest.raises(ValueError, match="must match"):
         fa.flash_bwd_dq(tq, tk, tv, o, lse, tdo[:, :2])
     q = tq.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="Queue A item 16"):
-        fa.flash_attention(q, tk, tv, return_lse=True)
+    # Under grad the lse output carries its cotangent into the backward
+    # (the ring's merge weights): the same (o, lse) as without grad, and
+    # the gradient of lse alone is the plain backward with dO = 0.
+    o_g, lse_g = fa.flash_attention(q, tk, tv, return_lse=True)
     with torch.no_grad():  # no grad required: lse is served as before
-        fa.flash_attention(q, tk, tv, return_lse=True)
+        o_n, lse_n = fa.flash_attention(q, tk, tv, return_lse=True)
+    assert torch.equal(o_g, o_n) and torch.equal(lse_g, lse_n)
+    g_lse = torch.ones_like(lse_n)
+    (dq,) = torch.autograd.grad(lse_g, q, g_lse)
+    want = fa.flash_attention_bwd_plain(tq, tk, tv, o_n, lse_n,
+                                        torch.zeros_like(tdo), g_lse=g_lse)
+    assert torch.equal(dq, want[0])
     fa.reset_launches()
     assert fa.launch_counts() == {"flash_fwd": 0, "flash_bwd_dkdv": 0,
                                   "flash_bwd_dq": 0}

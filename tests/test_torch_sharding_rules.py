@@ -254,14 +254,28 @@ def test_grid_places_processes_in_enumeration_order():
 
 @pytest.mark.parametrize("axis,item", [("SEQ", 16), ("PIPE", 17)])
 def test_seq_and_pipe_axes_raise_naming_their_items(monkeypatch, axis, item):
+    from dct_tpu_torch.config import ModelConfig
+    from dct_tpu_torch.models.registry import get_model
     from dct_tpu_torch.train_job import refuse_unported_env
 
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        refuse_unported_env({f"DCT_MESH_{axis}": "2"})
     monkeypatch.setattr(port_mesh, "process_count", lambda: 2)
     cfg = MeshConfig(data=1, **{axis.lower(): 2})
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        port_mesh.make_mesh(cfg)
+    if axis == "SEQ":
+        # Item 16 ported the seq axis: the job and the grid take it, and
+        # what it still refuses (the MoE, the GRU, ZeRO-1/FSDP under seq)
+        # names item 16b.
+        refuse_unported_env({"DCT_MESH_SEQ": "2"})
+        mesh = port_mesh.make_mesh(cfg)
+        assert mesh.shape["seq"] == 2 and mesh.seq_shard().size == 2
+        for name in ("weather_moe", "weather_gru"):
+            with pytest.raises(NotImplementedError, match=f"item {item}b"):
+                get_model(ModelConfig(name=name, seq_len=8), input_dim=5,
+                          device="cpu", mesh=mesh)
+    else:
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            refuse_unported_env({f"DCT_MESH_{axis}": "2"})
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            port_mesh.make_mesh(cfg)
     # The model axis and the shard knobs are no longer refused.
     refuse_unported_env({"DCT_MESH_MODEL": "2", "DCT_SHARD_OPT_STATE": "1",
                          "DCT_SHARD_PARAMS": "1",
