@@ -163,7 +163,9 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
    (the monitor's startup grace too, so it must exceed a cold rank's 8-11 s
    from launch to its first beat on an H100 host): stall-killed (SIGTERM,
    SIGKILL 3 s later), relaunched once, exit 0; the relaunched rank finds
-   the card's memory free again. (i1) and (i2) print each attempt's
+   the card's memory free again; it runs last, alone on the card (its
+   free-memory check reads the whole card), after (j). (i1) and (i2)
+   print each attempt's
    seconds from ``launch_start`` to its first beat (``fit_start``). (i3)
    SIGTERM to the rank while ``slow_epoch`` holds it (1 s) in epoch 0: it
    finishes the epoch, saves, exits 75; a free relaunch finishes; no epoch
@@ -179,7 +181,8 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
    epochs that attempt trained times the per-epoch counts of its data
    (4 forward launches per train step and per eval batch, 4 dK/dV and 4 dQ
    per train step); they join the ``kernels`` line's counts
-   (``launches_by_path.supervised``).
+   (``launches_by_path.supervised``). After the uninterrupted world, (i1),
+   (i3) and (i4) run one after another beside (i5).
 
 12. (j) The multi-tenant scheduler at the width of 4., every tenant (h)'s
    bf16 transformer on (h)'s 6,304 rows (the hot tenant on 6,304 other
@@ -208,7 +211,10 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
    (j3) sick's rank exits 76, the tenant parks (``health_halt``), bulk is
        granted after sick's release, and the job exits 1. Each rank's
        launches are one epoch of the per-epoch counts; the job's own are
-       the gate engines'. Prints each sub-phase's wall.
+       the gate engines'. (j2)/(j3) run last, alone on the card (the
+       revoked world must save and exit within the preemption grace,
+       which a loaded card's slower epoch can outlast). Prints each
+       sub-phase's wall.
 
 (k) Completes the serving path at the same full width (``serving_phase``;
    ``--phase k`` runs only the kernel build and (k), over a random
@@ -253,6 +259,7 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
        ``DCT_FLASH_BLOCK_Q=96`` stop the server at its warm start; one f32
        train step under ``DCT_FLASH_BWD=remat`` launches its 4 forwards
        and raises in the backward with no backward launch.
+   (k2), (k3) and (k6) (child processes) run beside (k4), (k5) and (k7).
 
 (l) The GRU and MoE families (``families_phase``; ``--phase l`` runs only
    the kernel build and (l), over synthetic rows):
@@ -272,15 +279,18 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
        ``einsum_ms``, ``sorted_speedup``, the bench's ``moe`` leg);
    (l2) ``python -m dct_tpu_torch.train_job`` for ``weather_moe`` (bf16)
        and ``weather_gru`` (f32, hidden 64, 2 layers, T=32:
-       ``dct_tpu/config.py:74-83``), 2 epochs at batch 32 over (h)'s rows:
+       ``dct_tpu/config.py:74-83``), 2 epochs at batch 32 over LOOP_ROWS
+       synthetic rows (those of (h1)'s first cycle):
        a finite val_loss, a checkpoint, the launches of every step and eval
        batch (none for the GRU); its package through the HTTP server on the
        card at 1, 3 and 8 windows within 1e-4 of the numpy runtime (the
        worst window printed; the MoE
        one forward per layer per request, the GRU none); ``predict_job`` in
        chunks of 256 (the MoE over 356 synthetic windows, the GRU over
-       (h)'s): windows/s and every full chunk within 1e-4 of the numpy
-       engine on that chunk (the worst row printed).
+       those rows): windows/s and every full chunk within 1e-4 of the numpy
+       engine on that chunk (the worst row printed). The two families'
+       chains run beside (l1) and each other; (l1) and the servers, which
+       read this process's launch counts, one at a time.
 
 (m) The model axis (``model_axis_phase``; ``--phase m`` runs only the
    kernel build and (m)), on two or more cards, one ``train_job`` process
@@ -351,7 +361,33 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
        1), a2a 1); the step ms, samples/s and per-rank peak memory of
        each world are printed, then all of them on ``[smoke] (n)
        summary`` and in ``phase_n.json``. On one card it prints
-       ``{"phase": "n", "ran": false, "cards": 1}`` after (n0).
+       ``{"phase": "n", "ran": false, "cards": 1}`` after (n0) and (n3a).
+   (n3) ``--phase n3`` runs it alone: the MoE, the GRU and ZeRO-1/FSDP on
+       the seq axis. (n3a), on any count of cards: the three kernels
+       against their plain versions at the per-rank shapes the MoE's
+       worlds launch, ``[B, H, T, 64]`` = ring steps ``[16, 8, 512]``
+       (seq=2), ``[8, 8, 512]`` (data=2 seq=2), ``[16, 4, 512]`` (model=2
+       seq=2), ``[16, 8, 256]`` (a seq=4 ring), each backward with an lse
+       cotangent, and a2a's full-length ``[16, 2|4, 1024]``; f32 and bf16
+       (FWD_TOL, BWD_TOL). (n3b), on four cards, ``train_job`` worlds on
+       (m)'s rows and schedule against a W=1 run each (the four W=1 runs
+       side by side): ``weather_moe`` (4 experts, f32; sorted at capacity
+       factor 8, einsum at 1.25, where tokens drop in the global order)
+       on the ring at ``seq=2``, a2a at ``seq=4``, the ring at ``data=2
+       seq=2`` and at ``model=2 seq=2`` (experts split); ``weather_gru``
+       (f32, hidden 64, 2 layers, T=32) at ``seq=2``; the transformer with
+       ZeRO-1 and with FSDP at ``data=2 seq=2`` (the units replicated by
+       rules). Worlds whose cards add up to four run side by side. Every
+       rank ends within 1e-5 of W=1's val_loss (f32; 5e-3 bf16) and
+       launched W=1's kernels times its calls per layer (the GRU none).
+
+After (g), four chains share the card: (h1) then (k) in this thread,
+(l) beside them (the two hold one lock around every part that reads
+this process's launch counts), (i) then (j1), and (f), (h0) then (h2);
+(l) runs over its own LOOP_ROWS rows (those of (h1)'s first cycle).
+(i2), (j2)/(j3), (m) and (n) follow once all four have ended. Each phase
+prints its wall on a ``[smoke] wall`` line, and all of them, with the
+total, on ``[smoke] walls``.
 
 Prints the ``kernels`` JSON line (each kernel with its f32 numbers at the
 top level, as earlier slices did, a ``bf16`` summary beside them, its
@@ -364,6 +400,7 @@ then, last, ``{"ok": true, "device": {...}}``. Any failure raises.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -374,6 +411,7 @@ import sys
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -1406,6 +1444,16 @@ def _loop_env(root: str) -> dict:
     return env
 
 
+def _set_dct_env(env: dict) -> None:
+    """Make ``env`` this process's whole ``DCT_*`` environment; a no-op
+    when it already is (other threads read the environment)."""
+    now = {k: v for k, v in os.environ.items() if k.startswith("DCT_")}
+    if now != env:
+        for key in now:
+            del os.environ[key]
+        os.environ.update(env)
+
+
 def _without_dct(environ) -> dict:
     return {k: v for k, v in environ.items() if not k.startswith("DCT_")}
 
@@ -1447,9 +1495,7 @@ def episodic_phase(fa, root: str, card: str) -> dict:
     from dct_tpu_torch.etl.preprocess import read_etl_state
     from dct_tpu_torch.evaluation import harness
 
-    for key in [k for k in os.environ if k.startswith("DCT_")]:
-        del os.environ[key]
-    os.environ.update(_loop_env(root))
+    _set_dct_env(_loop_env(root))
     cfg = RunConfig.from_env()
     generate_weather_csv(cfg.data.raw_csv, rows=LOOP_ROWS, seed=1)
     client = LocalEndpointClient(
@@ -1743,6 +1789,10 @@ def _named(events, name):
     return [e for e in events if e["event"] == name]
 
 
+def _event_names(events) -> list:
+    return [(e["component"], e["event"]) for e in events]
+
+
 def _first_beat_s(events) -> list:
     """Per attempt, seconds from its ``launch_start`` to the rank's first
     beat (``fit_start`` follows the startup beat at once); None for an
@@ -1837,9 +1887,10 @@ def _free_gib(out: str) -> list[float]:
 
 def supervised_phase(root: str, card: str) -> dict:
     """(i): the supervised world on the card through the supervise CLI:
-    an uninterrupted 2-epoch world, then (i1) crash, (i2) hang, (i3)
-    SIGTERM and (i4) nan drills against it, then (i5) loop_job in its
-    default (supervised) mode."""
+    an uninterrupted 2-epoch world, then two chains side by side: (i1)
+    crash, (i3) SIGTERM and (i4) nan drills against it, one after
+    another, and (i5) loop_job in its default (supervised) mode. The (i2)
+    hang drill runs later, alone on the card (:func:`hang_drill`)."""
     import signal
 
     from dct_tpu_torch.config import DataConfig, RunConfig
@@ -1854,11 +1905,6 @@ def supervised_phase(root: str, card: str) -> dict:
     preprocess_csv_to_parquet(base["DCT_RAW_CSV"], base["DCT_PROCESSED_DIR"])
     per_epoch = _expected_train_launches(RunConfig(
         data=DataConfig(processed_dir=base["DCT_PROCESSED_DIR"])))
-    launches = dict.fromkeys(per_epoch, 0)
-
-    def add(counts):
-        for k in launches:
-            launches[k] += counts[k]
 
     # The uninterrupted world every drill is held to.
     clean = _sup_env(root, "clean")
@@ -1868,54 +1914,208 @@ def supervised_phase(root: str, card: str) -> dict:
     if rc != 0:
         raise AssertionError(f"(i) uninterrupted world exit {rc}: "
                              f"{out[-2000:]}")
-    add(_child_launches(out, _epochs_of(per_epoch, 2), "i0"))
+    launches = _child_launches(out, _epochs_of(per_epoch, 2), "i0")
     free_gib = _free_gib(out)
 
-    # (i1) crash@rank0:epoch1: one restart, classified crash.
-    env = _sup_env(root, "crash", DCT_FAULT_SPEC="crash@rank0:epoch1")
-    t0 = time.perf_counter()
-    rc, out = _supervise(env, root, "crash")
-    crash_s = time.perf_counter() - t0
-    ev = _events_of(env)
-    relaunch = _named(ev, "restart.relaunch")
-    fault = _named(ev, "fault.injected")
-    hb = json.load(open(os.path.join(env["DCT_HEARTBEAT_DIR"],
-                                     "rank_00000.json")))
-    if not (rc == 0 and len(_named(ev, "launch_start")) == 2
-            and [e["classification"] for e in relaunch] == ["crash"]
-            and [e["returncode"] for e in _named(ev, "rank_exit")]
-            == [117, 0] and len(fault) == 1 and _named(ev, "launch_end")
-            and [e["epoch"] for e in _named(ev, "epoch_end")] == [0, 1]
-            and hb["phase"] == "done"):
-        raise AssertionError(f"(i1) crash drill exit {rc}: "
-                             f"{[(e['component'], e['event']) for e in ev]}")
-    add(_child_launches(out, _epochs_of(per_epoch, 1), "i1"))
-    # Time to recover: from the crashed rank's last act (fault.injected,
-    # just before os._exit) to the relaunched rank's first trained step
-    # (the end of its trainer.startup span: the first step is issued
-    # there; it adds one step time, about 20 ms at this width).
-    spans = [json.loads(x) for x in open(os.path.join(
-        env["DCT_EVENTS_DIR"], "spans", "rank_00000.jsonl"))]
-    startup = [r for r in spans if r["name"] == "trainer.startup"
-               and r["t0"] > fault[0]["ts"]]
-    exit_ts = [e["ts"] for e in _named(ev, "rank_exit")
-               if e["returncode"] == 117][0]
-    crash = {
-        "exit": rc, "wall_s": crash_s, "attempts": 2,
-        "classification": relaunch[0]["classification"],
-        "recover_s": startup[0]["t1"] - fault[0]["ts"],
-        "exit_seen_after_s": exit_ts - fault[0]["ts"],
-        "relaunch_startup_s": startup[0]["t1"] - startup[0]["t0"],
-        "backoff_s": relaunch[0]["backoff_s"],
-        "lost_wall_s": relaunch[0]["lost_wall_s"],
-        "free_gib_at_start": _free_gib(out),
-        "first_beat_s": _first_beat_s(ev),
-        **_against_clean(env, clean, "i1"),
-    }
-    print(f"[smoke] (i1) crash drill {crash}", flush=True)
-    print(f"[smoke] (i1) time to recover {crash['recover_s']:.3f} s "
-          f"(lost_wall_s {crash['lost_wall_s']}, backoff "
-          f"{crash['backoff_s']} s) on {card}", flush=True)
+    def crash_drill():
+        # (i1) crash@rank0:epoch1: one restart, classified crash.
+        env = _sup_env(root, "crash", DCT_FAULT_SPEC="crash@rank0:epoch1")
+        t0 = time.perf_counter()
+        rc, out = _supervise(env, root, "crash")
+        crash_s = time.perf_counter() - t0
+        ev = _events_of(env)
+        relaunch = _named(ev, "restart.relaunch")
+        fault = _named(ev, "fault.injected")
+        hb = json.load(open(os.path.join(env["DCT_HEARTBEAT_DIR"],
+                                         "rank_00000.json")))
+        if not (rc == 0 and len(_named(ev, "launch_start")) == 2
+                and [e["classification"] for e in relaunch] == ["crash"]
+                and [e["returncode"] for e in _named(ev, "rank_exit")]
+                == [117, 0] and len(fault) == 1 and _named(ev, "launch_end")
+                and [e["epoch"] for e in _named(ev, "epoch_end")] == [0, 1]
+                and hb["phase"] == "done"):
+            raise AssertionError(f"(i1) crash drill exit {rc}: "
+                                 f"{_event_names(ev)}")
+        counts = _child_launches(out, _epochs_of(per_epoch, 1), "i1")
+        # Time to recover: from the crashed rank's last act (fault.injected,
+        # just before os._exit) to the relaunched rank's first trained step
+        # (the end of its trainer.startup span: the first step is issued
+        # there; it adds one step time, about 20 ms at this width).
+        spans = [json.loads(x) for x in open(os.path.join(
+            env["DCT_EVENTS_DIR"], "spans", "rank_00000.jsonl"))]
+        startup = [r for r in spans if r["name"] == "trainer.startup"
+                   and r["t0"] > fault[0]["ts"]]
+        exit_ts = [e["ts"] for e in _named(ev, "rank_exit")
+                   if e["returncode"] == 117][0]
+        crash = {
+            "exit": rc, "wall_s": crash_s, "attempts": 2,
+            "classification": relaunch[0]["classification"],
+            "recover_s": startup[0]["t1"] - fault[0]["ts"],
+            "exit_seen_after_s": exit_ts - fault[0]["ts"],
+            "relaunch_startup_s": startup[0]["t1"] - startup[0]["t0"],
+            "backoff_s": relaunch[0]["backoff_s"],
+            "lost_wall_s": relaunch[0]["lost_wall_s"],
+            "free_gib_at_start": _free_gib(out),
+            "first_beat_s": _first_beat_s(ev),
+            **_against_clean(env, clean, "i1"),
+        }
+        print(f"[smoke] (i1) crash drill {crash}", flush=True)
+        print(f"[smoke] (i1) time to recover {crash['recover_s']:.3f} s "
+              f"(lost_wall_s {crash['lost_wall_s']}, backoff "
+              f"{crash['backoff_s']} s) on {card}", flush=True)
+        return crash, counts
+
+    def sigterm_drill():
+        # (i3) SIGTERM to the rank in mid-epoch (held by slow_epoch): 75, a
+        # free relaunch, exit 0.
+        env = _sup_env(root, "sigterm",
+                       DCT_FAULT_SPEC="slow_epoch@rank0:epoch0",
+                       DCT_FAULT_SLEEP_S="1")
+        signalled = {}
+
+        def sigterm_rank(proc):
+            while proc.poll() is None:
+                if _named(_events_of(env), "fault.injected"):
+                    pid = json.load(open(os.path.join(
+                        env["DCT_HEARTBEAT_DIR"], "rank_00000.json")))["pid"]
+                    signalled["at"] = time.time()
+                    os.kill(pid, signal.SIGTERM)
+                    return
+                time.sleep(0.05)
+
+        t0 = time.perf_counter()
+        rc, out = _supervise(env, root, "sigterm", on_start=sigterm_rank)
+        sigterm_s = time.perf_counter() - t0
+        ev = _events_of(env)
+        relaunch = _named(ev, "restart.relaunch")
+        saved = _named(ev, "preempt.checkpoint_saved")
+        if not (rc == 0 and "at" in signalled
+                and [e["returncode"] for e in _named(ev, "rank_exit")]
+                == [75, 0]
+                and [(e["classification"], e["restarts_used"], e["backoff_s"])
+                     for e in relaunch] == [("preempted", 0, 0)]
+                and [e["epochs_completed"] for e in saved] == [1]
+                and [e["epoch"] for e in _named(ev, "epoch_end")] == [0, 1]):
+            raise AssertionError(f"(i3) SIGTERM drill exit {rc}: "
+                                 f"{_event_names(ev)}")
+        counts = _child_launches(out, _epochs_of(per_epoch, 1, 1), "i3")
+        sigterm = {"exit": rc, "wall_s": sigterm_s, "epochs_lost": 0,
+                   "saved_after_signal_s": saved[0]["ts"] - signalled["at"],
+                   **_against_clean(env, clean, "i3")}
+        print(f"[smoke] (i3) SIGTERM drill {sigterm}", flush=True)
+        return sigterm, counts
+
+    def nan_drill():
+        # (i4) nan under the halt policy: 76, no relaunch, the supervisor 1.
+        env = _sup_env(root, "nan", DCT_FAULT_SPEC="nan:epoch0",
+                       DCT_HALT_ON_NAN="1")
+        t0 = time.perf_counter()
+        rc, out = _supervise(env, root, "nan")
+        nan_s = time.perf_counter() - t0
+        ev = _events_of(env)
+        gave_up = _named(ev, "restart.gave_up")
+        if not (rc == 1 and [e["returncode"] for e in _named(ev, "rank_exit")]
+                == [76] and len(_named(ev, "launch_start")) == 1
+                and [e["classification"] for e in gave_up] == ["health_halt"]
+                and _named(ev, "health.nan_loss")
+                and not _named(ev, "epoch_end")):
+            raise AssertionError(f"(i4) nan drill exit {rc}: "
+                                 f"{_event_names(ev)}")
+        counts = _child_launches(out, _epochs_of(per_epoch, 1), "i4")
+        print(f"[smoke] (i4) nan drill: exit {rc}, rank exit 76, "
+              f"classification health_halt, no relaunch, {nan_s:.1f} s",
+              flush=True)
+        return {"exit": rc, "wall_s": nan_s}, counts
+
+    def loop_drill():
+        # (i5) loop_job in its default mode: two supervised rounds, then a
+        # SIGTERM run that drains.
+        from dct_tpu_torch.data.synthetic import append_weather_rows
+
+        lroot = os.path.join(root, "loop")
+        loop_env = _loop_env(lroot)
+        generate_weather_csv(loop_env["DCT_RAW_CSV"], rows=LOOP_ROWS, seed=3)
+        env = _without_dct(os.environ)
+        env.update(loop_env, PYTHONPATH=HERE, DCT_LOOP_MAX_ROUNDS="2",
+                   DCT_LOOP_POLL_S="0.5", DCT_LOOP_EVAL_POLL_S="0.5",
+                   DCT_HEARTBEAT_DIR=os.path.join(lroot, "hb"))
+        del env["DCT_LOOP_TRAIN_MODE"]
+        appended = {}
+
+        def append_rows(proc):
+            appended["at"] = time.time()
+            append_weather_rows(loop_env["DCT_RAW_CSV"], rows=LOOP_APPEND,
+                                seed=4)
+
+        t0 = time.perf_counter()
+        two, out = _loop_job(env, lroot, "two_rounds",
+                             on_round_start=append_rows)
+        two_s = time.perf_counter() - t0
+        rounds = _named(read_events(loop_env["DCT_EVENTS_DIR"]),
+                        "loop.round")
+        fresh = two["freshness_s"]
+        if not (two["rounds"] == 2 and two["reason"] == "max_rounds"
+                and two["promotions"] >= 1 and fresh
+                and all(np.isfinite(fresh)) and "at" in appended
+                and two["ingested_generations"] == 2
+                and two["evaluator_errors"] == 0 and two["ingest_errors"] == 0
+                and [(r["mode"], r["classification"]) for r in rounds]
+                == [("supervised", "success")] * 2):
+            raise AssertionError(f"(i5) two supervised rounds: {two} {rounds}")
+        # Round 2 trains on the appended rows too.
+        grown = _expected_train_launches(RunConfig(
+            data=DataConfig(processed_dir=loop_env["DCT_PROCESSED_DIR"])))
+        counts = _child_launches(out, [per_epoch, grown], "i5")
+        env["DCT_LOOP_MAX_ROUNDS"] = "0"
+        signalled = {}
+
+        def sigterm_loop(proc):
+            signalled["at"] = time.time()
+            proc.send_signal(signal.SIGTERM)
+
+        t0 = time.perf_counter()
+        drained, out = _loop_job(env, lroot, "sigterm",
+                                 on_round_start=sigterm_loop)
+        drained_s = time.perf_counter() - t0
+        last = os.path.join(loop_env["DCT_MODELS_DIR"], "last.ckpt")
+        if not (drained["reason"] == "preempted" and drained["rounds"] == 1
+                and drained["error"] is None and "at" in signalled
+                and os.path.getmtime(last) >= signalled["at"]):
+            raise AssertionError(f"(i5) SIGTERM drain: {drained}")
+        counts = {k: v + counts[k] for k, v in
+                  _child_launches(out, [grown], "i5").items()}
+        loop = {"two_rounds": two, "two_rounds_wall_s": two_s,
+                "round_classifications": [r["classification"] for r in rounds],
+                "freshness_s": fresh, "sigterm": drained,
+                "sigterm_wall_s": drained_s}
+        print(f"[smoke] (i5) loop_job supervised {loop}", flush=True)
+        return loop, counts
+
+    with ThreadPoolExecutor(2) as pool:
+        chain = pool.submit(lambda: [crash_drill(), sigterm_drill(),
+                                     nan_drill()])
+        looped = pool.submit(loop_drill)
+        (crash, c1), (sigterm, c3), (nan, c4) = chain.result()
+        loop, c5 = looped.result()
+    for counts in (c1, c3, c4, c5):
+        launches = {k: v + counts[k] for k, v in launches.items()}
+    out = {"uninterrupted_wall_s": clean_s, "free_gib_at_start": free_gib,
+           "clean_models_dir": clean["DCT_MODELS_DIR"], "clean_env": clean,
+           "crash": crash, "sigterm": sigterm, "nan": nan, "loop": loop,
+           "launches": launches, "per_epoch": per_epoch, "card": card}
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"[smoke] (i) supervised launches {launches} "
+          f"(per epoch {per_epoch}); uninterrupted world {clean_s:.1f} s, "
+          f"phase {out['phase_s']:.1f} s on {card}", flush=True)
+    return out
+
+
+def hang_drill(root: str, card: str, clean: dict, per_epoch: dict) -> dict:
+    """(i2) hang@rank0:epoch1 against (i)'s uninterrupted world ``clean``:
+    stall-killed, relaunched. Run with no other process on the card: its
+    check that the killed rank's memory came back reads the card's free
+    memory at each start."""
+    import signal
 
     # (i2) hang@rank0:epoch1: stall-killed, relaunched.
     env = _sup_env(root, "hang", DCT_FAULT_SPEC="hang@rank0:epoch1",
@@ -1938,7 +2138,7 @@ def supervised_phase(root: str, card: str) -> dict:
         raise AssertionError(f"(i2) hang drill exit {rc}, free {free}, "
                              f"first beat {_first_beat_s(ev)} s: "
                              f"{[(e['component'], e['event']) for e in ev]}")
-    add(_child_launches(out, _epochs_of(per_epoch, 1), "i2"))
+    launches = _child_launches(out, _epochs_of(per_epoch, 1), "i2")
     hang = {"exit": rc, "wall_s": hang_s,
             "classification": relaunch[0]["classification"],
             "stall_s": SUP_STALL_S,
@@ -1948,129 +2148,7 @@ def supervised_phase(root: str, card: str) -> dict:
             "free_gib_at_start": free, "first_beat_s": _first_beat_s(ev),
             **_against_clean(env, clean, "i2")}
     print(f"[smoke] (i2) hang drill {hang}", flush=True)
-
-    # (i3) SIGTERM to the rank in mid-epoch (held by slow_epoch): 75, a
-    # free relaunch, exit 0.
-    env = _sup_env(root, "sigterm", DCT_FAULT_SPEC="slow_epoch@rank0:epoch0",
-                   DCT_FAULT_SLEEP_S="1")
-    signalled = {}
-
-    def sigterm_rank(proc):
-        while proc.poll() is None:
-            if _named(_events_of(env), "fault.injected"):
-                pid = json.load(open(os.path.join(
-                    env["DCT_HEARTBEAT_DIR"], "rank_00000.json")))["pid"]
-                signalled["at"] = time.time()
-                os.kill(pid, signal.SIGTERM)
-                return
-            time.sleep(0.05)
-
-    t0 = time.perf_counter()
-    rc, out = _supervise(env, root, "sigterm", on_start=sigterm_rank)
-    sigterm_s = time.perf_counter() - t0
-    ev = _events_of(env)
-    relaunch = _named(ev, "restart.relaunch")
-    saved = _named(ev, "preempt.checkpoint_saved")
-    if not (rc == 0 and "at" in signalled
-            and [e["returncode"] for e in _named(ev, "rank_exit")] == [75, 0]
-            and [(e["classification"], e["restarts_used"], e["backoff_s"])
-                 for e in relaunch] == [("preempted", 0, 0)]
-            and [e["epochs_completed"] for e in saved] == [1]
-            and [e["epoch"] for e in _named(ev, "epoch_end")] == [0, 1]):
-        raise AssertionError(f"(i3) SIGTERM drill exit {rc}: "
-                             f"{[(e['component'], e['event']) for e in ev]}")
-    add(_child_launches(out, _epochs_of(per_epoch, 1, 1), "i3"))
-    sigterm = {"exit": rc, "wall_s": sigterm_s, "epochs_lost": 0,
-               "saved_after_signal_s": saved[0]["ts"] - signalled["at"],
-               **_against_clean(env, clean, "i3")}
-    print(f"[smoke] (i3) SIGTERM drill {sigterm}", flush=True)
-
-    # (i4) nan under the halt policy: 76, no relaunch, the supervisor 1.
-    env = _sup_env(root, "nan", DCT_FAULT_SPEC="nan:epoch0",
-                   DCT_HALT_ON_NAN="1")
-    t0 = time.perf_counter()
-    rc, out = _supervise(env, root, "nan")
-    nan_s = time.perf_counter() - t0
-    ev = _events_of(env)
-    gave_up = _named(ev, "restart.gave_up")
-    if not (rc == 1 and [e["returncode"] for e in _named(ev, "rank_exit")]
-            == [76] and len(_named(ev, "launch_start")) == 1
-            and [e["classification"] for e in gave_up] == ["health_halt"]
-            and _named(ev, "health.nan_loss")
-            and not _named(ev, "epoch_end")):
-        raise AssertionError(f"(i4) nan drill exit {rc}: "
-                             f"{[(e['component'], e['event']) for e in ev]}")
-    add(_child_launches(out, _epochs_of(per_epoch, 1), "i4"))
-    print(f"[smoke] (i4) nan drill: exit {rc}, rank exit 76, "
-          f"classification health_halt, no relaunch, {nan_s:.1f} s",
-          flush=True)
-
-    # (i5) loop_job in its default mode: two supervised rounds, then a
-    # SIGTERM run that drains.
-    from dct_tpu_torch.data.synthetic import append_weather_rows
-
-    lroot = os.path.join(root, "loop")
-    loop_env = _loop_env(lroot)
-    generate_weather_csv(loop_env["DCT_RAW_CSV"], rows=LOOP_ROWS, seed=3)
-    env = _without_dct(os.environ)
-    env.update(loop_env, PYTHONPATH=HERE, DCT_LOOP_MAX_ROUNDS="2",
-               DCT_LOOP_POLL_S="0.5", DCT_LOOP_EVAL_POLL_S="0.5",
-               DCT_HEARTBEAT_DIR=os.path.join(lroot, "hb"))
-    del env["DCT_LOOP_TRAIN_MODE"]
-    appended = {}
-
-    def append_rows(proc):
-        appended["at"] = time.time()
-        append_weather_rows(loop_env["DCT_RAW_CSV"], rows=LOOP_APPEND, seed=4)
-
-    t0 = time.perf_counter()
-    two, out = _loop_job(env, lroot, "two_rounds", on_round_start=append_rows)
-    two_s = time.perf_counter() - t0
-    rounds = _named(read_events(loop_env["DCT_EVENTS_DIR"]), "loop.round")
-    fresh = two["freshness_s"]
-    if not (two["rounds"] == 2 and two["reason"] == "max_rounds"
-            and two["promotions"] >= 1 and fresh
-            and all(np.isfinite(fresh)) and "at" in appended
-            and two["ingested_generations"] == 2
-            and two["evaluator_errors"] == 0 and two["ingest_errors"] == 0
-            and [(r["mode"], r["classification"]) for r in rounds]
-            == [("supervised", "success")] * 2):
-        raise AssertionError(f"(i5) two supervised rounds: {two} {rounds}")
-    # Round 2 trains on the appended rows too.
-    grown = _expected_train_launches(RunConfig(
-        data=DataConfig(processed_dir=loop_env["DCT_PROCESSED_DIR"])))
-    add(_child_launches(out, [per_epoch, grown], "i5"))
-    env["DCT_LOOP_MAX_ROUNDS"] = "0"
-    signalled = {}
-
-    def sigterm_loop(proc):
-        signalled["at"] = time.time()
-        proc.send_signal(signal.SIGTERM)
-
-    t0 = time.perf_counter()
-    drained, out = _loop_job(env, lroot, "sigterm",
-                             on_round_start=sigterm_loop)
-    drained_s = time.perf_counter() - t0
-    last = os.path.join(loop_env["DCT_MODELS_DIR"], "last.ckpt")
-    if not (drained["reason"] == "preempted" and drained["rounds"] == 1
-            and drained["error"] is None and "at" in signalled
-            and os.path.getmtime(last) >= signalled["at"]):
-        raise AssertionError(f"(i5) SIGTERM drain: {drained}")
-    add(_child_launches(out, [grown], "i5"))
-    loop = {"two_rounds": two, "two_rounds_wall_s": two_s,
-            "round_classifications": [r["classification"] for r in rounds],
-            "freshness_s": fresh, "sigterm": drained,
-            "sigterm_wall_s": drained_s}
-    print(f"[smoke] (i5) loop_job supervised {loop}", flush=True)
-    out = {"uninterrupted_wall_s": clean_s, "free_gib_at_start": free_gib,
-           "clean_models_dir": clean["DCT_MODELS_DIR"],
-           "crash": crash, "hang": hang, "sigterm": sigterm, "loop": loop,
-           "launches": launches, "per_epoch": per_epoch, "card": card}
-    out["phase_s"] = time.perf_counter() - phase_t0
-    print(f"[smoke] (i) supervised launches {launches} "
-          f"(per epoch {per_epoch}); uninterrupted world {clean_s:.1f} s, "
-          f"phase {out['phase_s']:.1f} s on {card}", flush=True)
-    return out
+    return dict(hang, launches=launches, card=card)
 
 
 # ----------------------------------------------------------------------
@@ -2320,8 +2398,17 @@ def sched_revocation_phase(root: str, card: str, per_epoch: dict,
             and [e["epoch"] for e in _named(bulk, "epoch_end")] == [0, 1]
             and [r.get("preempted") for r in _named(bulk, "loop.round")]
             == [True, None]):
-        raise AssertionError(f"(j2) exit {rc}: {order} "
-                             f"{[(e['component'], e['event']) for e in bulk]}")
+        seen = {"staged": "at" in staged,
+                "preempts": [(p["tenant"], p["waiter"]) for p in preempts],
+                "rank_exits": [e["returncode"]
+                               for e in _named(bulk, "rank_exit")],
+                "saved": [e["epochs_completed"] for e in _named(
+                    bulk, "preempt.checkpoint_saved")],
+                "epochs": [e["epoch"] for e in _named(bulk, "epoch_end")],
+                "rounds": [r.get("preempted")
+                           for r in _named(bulk, "loop.round")]}
+        raise AssertionError(f"(j2) exit {rc}, {seen}: {order} "
+                             f"{_event_names(bulk)}")
     after = order[order.index(("sched.preempt", "bulk")):]
     hot_epochs = _named(read_events(os.path.join(troot, "hot", "events")),
                         "epoch_end")
@@ -2387,14 +2474,13 @@ def sched_revocation_phase(root: str, card: str, per_epoch: dict,
     return res
 
 
-def scheduler_phase(root: str, card: str, clean_models_dir: str) -> dict:
-    """(j): ``python -m dct_tpu_torch.scheduler_job`` on the card: (j1)
-    quota, then (j2) revocation with (j3) isolation in one session."""
+def scheduler_quota(root: str, card: str) -> dict:
+    """(j1): the per-epoch launch counts of (h)'s rows, then the quota
+    session (:func:`sched_quota_phase`)."""
     from dct_tpu_torch.config import DataConfig, RunConfig
-    from dct_tpu_torch.etl.preprocess import preprocess_csv_to_parquet
     from dct_tpu_torch.data.synthetic import generate_weather_csv
+    from dct_tpu_torch.etl.preprocess import preprocess_csv_to_parquet
 
-    phase_t0 = time.perf_counter()
     os.makedirs(root, exist_ok=True)
     # The per-epoch counts of (h)'s rows (the same for every tenant here).
     probe = os.path.join(root, "probe")
@@ -2405,6 +2491,17 @@ def scheduler_phase(root: str, card: str, clean_models_dir: str) -> dict:
     per_epoch = _expected_train_launches(RunConfig(data=DataConfig(
         processed_dir=os.path.join(probe, "processed"))))
     quota = sched_quota_phase(os.path.join(root, "quota"), card, per_epoch)
+    return dict(quota, per_epoch=per_epoch)
+
+
+def scheduler_phase(root: str, card: str, clean_models_dir: str,
+                    quota: dict) -> dict:
+    """(j): ``python -m dct_tpu_torch.scheduler_job`` on the card: (j1)'s
+    ``quota`` session (:func:`scheduler_quota`), then (j2) revocation
+    with (j3) isolation in one session. (j2) runs with no other work on
+    the card: its revoked world must save and exit within the preemption
+    grace, which a loaded card's slower epoch can outlast."""
+    per_epoch = quota["per_epoch"]
     revoke = sched_revocation_phase(os.path.join(root, "revoke"), card,
                                     per_epoch, clean_models_dir)
     launches = {k: quota["launches"][k] + revoke["rank_launches"][k]
@@ -2413,13 +2510,12 @@ def scheduler_phase(root: str, card: str, clean_models_dir: str) -> dict:
     gate["flash_fwd"] = _gate_per_consult() * (quota["gate_consults"]
                                                + revoke["gate_consults"])
     out = {"quota": quota, "revoke": revoke, "launches": launches,
-           "gate_launches": gate,
-           "phase_s": time.perf_counter() - phase_t0, "card": card}
+           "gate_launches": gate, "card": card,
+           "phase_s": quota["wall_s"] + revoke["wall_s"]}
     print(f"[smoke] (j) scheduler launches {launches} (gate {gate}); "
-          f"(j1) {quota['wall_s']:.1f} s, (j2/j3) {revoke['wall_s']:.1f} s, "
-          f"phase {out['phase_s']:.1f} s on {card}", flush=True)
+          f"(j1) {quota['wall_s']:.1f} s, (j2/j3) {revoke['wall_s']:.1f} s "
+          f"on {card}", flush=True)
     return out
-
 
 
 # ----------------------------------------------------------------------
@@ -3113,26 +3209,36 @@ def k_knobs_phase(fa, root: str) -> dict:
 
 
 def serving_phase(fa, root: str, ckpt: str, processed: str,
-                  card: str) -> dict:
-    """(k1)-(k7); each sub-phase's launches and wall."""
+                  card: str, counted=None) -> dict:
+    """(k1)-(k7); each sub-phase's launches and wall. (k2), (k3) and
+    (k6) drive child processes beside (k4), (k5) and (k7), which, as
+    (k1), hold ``counted`` (as :func:`families_phase`)."""
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     phase_t0 = time.perf_counter()
     walls = {}
+    counted = counted or threading.Lock()
 
-    def timed(key, fn, *args):
-        t0 = time.perf_counter()
-        res = fn(*args)
-        walls[key] = time.perf_counter() - t0
+    def timed(key, fn, *args, lock=None):
+        with lock or contextlib.nullcontext():
+            t0 = time.perf_counter()
+            res = fn(*args)
+            walls[key] = time.perf_counter() - t0
         return res
 
-    k1 = timed("k1", k_int8_phase, fa, root)
-    k2 = timed("k2", k_warm_phase, root, ckpt)
-    k3 = timed("k3", k_pool_phase, root, os.path.join(root, "f32"))
-    k4 = timed("k4", k_overload_phase, fa, root)
-    k5 = timed("k5", k_endpoint_phase, fa, root)
-    k6 = timed("k6", k_predict_phase, root, ckpt, processed)
-    k7 = timed("k7", k_knobs_phase, fa, root)
+    k1 = timed("k1", k_int8_phase, fa, root, lock=counted)
+    # The child-process drills (their launches are the children's) run
+    # beside the in-process ones, which alone touch this process's counts.
+    with ThreadPoolExecutor(3) as pool:
+        children = [pool.submit(timed, "k2", k_warm_phase, root, ckpt),
+                    pool.submit(timed, "k3", k_pool_phase, root,
+                                os.path.join(root, "f32")),
+                    pool.submit(timed, "k6", k_predict_phase, root, ckpt,
+                                processed)]
+        k4 = timed("k4", k_overload_phase, fa, root, lock=counted)
+        k5 = timed("k5", k_endpoint_phase, fa, root, lock=counted)
+        k7 = timed("k7", k_knobs_phase, fa, root, lock=counted)
+        k2, k3, k6 = (c.result() for c in children)
     in_process = (k1["f32"]["launches"] + k1["int8"]["launches"]
                   + k1["mlp"]["launches"] + k4["launches"] + k5["launches"])
     children = (sum(v["launches"]["flash_fwd"] for v in k2.values())
@@ -3536,8 +3642,12 @@ def family_predict(family: str, ckpt: str, processed: str,
     return out
 
 
-def families_phase(fa, root: str, processed: str, card: str) -> dict:
-    """(l1) and (l2); each sub-phase's launches and wall."""
+def families_phase(fa, root: str, processed: str, card: str,
+                   counted=None) -> dict:
+    """(l1) and (l2); each sub-phase's launches and wall. The two
+    families' (l2) chains run beside (l1). ``counted``: the lock every
+    phase that reads this process's launch counts holds (one of its
+    own by default)."""
     from dct_tpu_torch.data.synthetic import generate_weather_csv
     from dct_tpu_torch.etl.preprocess import preprocess_csv_to_parquet
 
@@ -3545,25 +3655,33 @@ def families_phase(fa, root: str, processed: str, card: str) -> dict:
     os.makedirs(root)
     phase_t0 = time.perf_counter()
     walls = {}
-    t0 = time.perf_counter()
-    l1 = moe_train_phase(fa)
-    walls["l1"] = time.perf_counter() - t0
-    torch.cuda.empty_cache()
     raw = os.path.join(root, "predict-raw.csv")
     generate_weather_csv(raw, rows=MOE_PREDICT_ROWS, seed=2)
     moe_rows = os.path.join(root, "predict-processed")
     preprocess_csv_to_parquet(raw, moe_rows)
-    l2 = {}
-    for family in ("weather_moe", "weather_gru"):
+    # The in-process work (l1, each family's server) reads this process's
+    # launch counts: one at a time.
+    counted = counted or threading.Lock()
+
+    def family_chain(family):
         t0 = time.perf_counter()
         trained = family_train_job(family, root, processed)
-        served = family_serve(fa, family, trained["ckpt"], root)
+        with counted:
+            served = family_serve(fa, family, trained["ckpt"], root)
         predicted = family_predict(
             family, trained["ckpt"],
             moe_rows if family == "weather_moe" else processed, root)
-        l2[family] = {"train_job": trained, "serve": served,
-                      "predict": predicted}
         walls[f"l2_{family}"] = time.perf_counter() - t0
+        return {"train_job": trained, "serve": served, "predict": predicted}
+
+    families = ("weather_moe", "weather_gru")
+    with ThreadPoolExecutor(len(families)) as pool:
+        chains = [pool.submit(family_chain, f) for f in families]
+        with counted:
+            t0 = time.perf_counter()
+            l1 = moe_train_phase(fa)
+            walls["l1"] = time.perf_counter() - t0
+        l2 = {f: c.result() for f, c in zip(families, chains)}
     moe = l2["weather_moe"]
     launches = {k: (l1["launches"][k] + moe["train_job"]["launches"][k]
                     + moe["predict"]["launches"][k])
@@ -3581,19 +3699,26 @@ def serving_probe(root: str) -> tuple[str, str]:
     synthetic rows, for ``--phase k`` (the whole script uses (g)'s
     checkpoint and (h)'s rows)."""
     from dct_tpu_torch.checkpoint.manager import save_checkpoint
-    from dct_tpu_torch.data.synthetic import generate_weather_csv
-    from dct_tpu_torch.etl.preprocess import preprocess_csv_to_parquet
     from dct_tpu_torch.models.registry import config_from_meta, get_model
 
     os.makedirs(root, exist_ok=True)
     torch.manual_seed(0)
     ckpt = save_checkpoint(os.path.join(root, "last.ckpt"), get_model(
         config_from_meta(K_META), device="cpu"), K_META)
+    return ckpt, synthetic_rows(root)
+
+
+def synthetic_rows(root: str) -> str:
+    """A processed dir of LOOP_ROWS synthetic rows (seed 1, the rows of
+    (h1)'s first cycle) under ``root``."""
+    from dct_tpu_torch.data.synthetic import generate_weather_csv
+    from dct_tpu_torch.etl.preprocess import preprocess_csv_to_parquet
+
     raw = os.path.join(root, "raw", "weather.csv")
     generate_weather_csv(raw, rows=LOOP_ROWS, seed=1)
     processed = os.path.join(root, "processed")
     preprocess_csv_to_parquet(raw, processed)
-    return ckpt, processed
+    return processed
 
 
 # (m) the model axis: one process per card, NCCL, through train_job.
@@ -3612,6 +3737,8 @@ MESH_REPLICATE_UNITS = "(qkv_proj|o_proj|ffn_in|ffn_out).*="
 def _mesh_env(root: str, name: str, processed: str, *, family: str,
               bf16: bool, data: int, model: int, batch: int,
               epochs: int = MESH_EPOCHS, **extra) -> dict:
+    """A train_job rank's environment on (m)'s rows and schedule at the
+    bench's width; ``extra`` overrides (the GRU's width, an engine)."""
     env = _child_env(
         DCT_PROCESSED_DIR=processed,
         DCT_MODELS_DIR=os.path.join(root, f"models-{name}"),
@@ -3625,10 +3752,11 @@ def _mesh_env(root: str, name: str, processed: str, *, family: str,
         DCT_OPTIMIZER="sgd", DCT_LR=str(MESH_LR),
         DCT_MOMENTUM=str(MESH_MOMENTUM),
         DCT_VAL_FRACTION=str(MESH_VAL_FRACTION),
-        DCT_MESH_DATA=str(data), DCT_MESH_MODEL=str(model), **extra)
+        DCT_MESH_DATA=str(data), DCT_MESH_MODEL=str(model))
     if family == "weather_moe":
         env.update(DCT_MOE_DISPATCH="sorted",
                    DCT_CAPACITY_FACTOR=str(MESH_MOE_CAPACITY))
+    env.update({k: str(v) for k, v in extra.items()})
     return env
 
 
@@ -3688,16 +3816,6 @@ def _mesh_world(root: str, name: str, processed: str, **kw) -> dict:
     return _finish_world(_start_world(root, name, processed, **kw))
 
 
-def _parallel_worlds(root: str, processed: str, specs: list) -> list:
-    """One-card worlds side by side, spec ``j`` = ``(name, kw)`` alone on
-    card ``j`` (``CUDA_VISIBLE_DEVICES``), at the global batch."""
-    started = [_start_world(root, name, processed, data=1, model=1,
-                            batch=MESH_BATCH, CUDA_VISIBLE_DEVICES=str(j),
-                            **kw)
-               for j, (name, kw) in enumerate(specs)]
-    return [_finish_world(w) for w in started]
-
-
 def _mesh_summary(run: dict, base: dict | None = None) -> dict:
     r0 = run["ranks"][0]
     out = {"val_loss": r0["val_loss"],
@@ -3740,6 +3858,43 @@ def _check_mesh_run(run: dict, base: dict, tol: float, *, heads=None,
     return summary
 
 
+def _rank_shape_row(fa, gen, shape, dtype, *, g_lse: bool, where: str):
+    """The three kernels against their plain versions at one per-rank
+    shape ``[B, H, T, D]`` (q, k, v alike), not causal, with a nonzero
+    lse cotangent in the backward when ``g_lse`` (a ring step's merge),
+    held to FWD_TOL and BWD_TOL; the row, printed under ``where``."""
+    b, h, t, d = shape
+    q, k, v, do = (torch.randn(b, h, t, d, generator=gen,
+                               device="cuda").to(dtype) for _ in range(4))
+    gl = (torch.randn(b, h, t, generator=gen, device="cuda") if g_lse
+          else None)
+    o, lse = fa.flash_attention(q, k, v, causal=False, return_lse=True)
+    args = (q, k, v, o, lse, do)
+    dk, dv = fa.flash_bwd_dkdv(*args, causal=False, g_lse=gl)
+    dq = fa.flash_bwd_dq(*args, causal=False, g_lse=gl)
+    torch.cuda.synchronize()
+    po, plse = fa.flash_attention_plain(q, k, v, causal=False)
+    pdq, pdk, pdv = fa.flash_attention_bwd_plain(*args, causal=False,
+                                                 g_lse=gl)
+    row = {"shape": [b, h, t, d], "dtype": str(dtype).replace("torch.", ""),
+           "g_lse": g_lse, "o_max_abs_err": abs_rel_err(o, po)[0],
+           "lse_max_abs_err": (lse - plse).abs().max().item(),
+           **{f"{n}_max_rel_err": abs_rel_err(got, ref)[1]
+              for n, got, ref in (("dq", dq, pdq), ("dk", dk, pdk),
+                                  ("dv", dv, pdv))}}
+    bad = (row["o_max_abs_err"] > FWD_TOL[dtype]
+           or row["lse_max_abs_err"] > 1e-4
+           or any(row[f"{n}_max_rel_err"] > BWD_TOL[dtype]
+                  for n in ("dq", "dk", "dv")))
+    if bad:
+        raise AssertionError(
+            f"{where} kernels at the per-rank shape: {row} (tol "
+            f"{FWD_TOL[dtype]} on o, 1e-4 on lse, {BWD_TOL[dtype]} "
+            "relative on dq, dk, dv)")
+    print(f"[smoke] {where} rank shape {json.dumps(row)}", flush=True)
+    return row
+
+
 def check_rank_shapes(fa) -> list[dict]:
     """The three kernels against their plain versions, on one card, at the
     per-rank shapes ``[B/D, H/M, T, D]`` that (m)'s worlds launch them at
@@ -3749,40 +3904,11 @@ def check_rank_shapes(fa) -> list[dict]:
     h, t = MESH_CFG["n_heads"], MESH_CFG["seq_len"]
     d = MESH_CFG["d_model"] // h
     gen = torch.Generator(device="cuda").manual_seed(12)
-    rows = []
-    for b, hl in ((MESH_BATCH, h // 2), (MESH_BATCH // 2, h // 2),
-                  (MESH_BATCH, h // 4)):
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, do = (torch.randn(b, hl, t, d, generator=gen,
-                                       device="cuda").to(dtype)
-                           for _ in range(4))
-            o, lse = fa.flash_attention(q, k, v, causal=False,
-                                        return_lse=True)
-            args = (q, k, v, o, lse, do)
-            dk, dv = fa.flash_bwd_dkdv(*args, causal=False)
-            dq = fa.flash_bwd_dq(*args, causal=False)
-            torch.cuda.synchronize()
-            po, plse = fa.flash_attention_plain(q, k, v, causal=False)
-            pdq, pdk, pdv = fa.flash_attention_bwd_plain(*args, causal=False)
-            row = {"shape": [b, hl, t, d],
-                   "dtype": str(dtype).replace("torch.", ""),
-                   "o_max_abs_err": abs_rel_err(o, po)[0],
-                   "lse_max_abs_err": (lse - plse).abs().max().item(),
-                   **{f"{n}_max_rel_err": abs_rel_err(got, ref)[1]
-                      for n, got, ref in (("dq", dq, pdq), ("dk", dk, pdk),
-                                          ("dv", dv, pdv))}}
-            bad = (row["o_max_abs_err"] > FWD_TOL[dtype]
-                   or row["lse_max_abs_err"] > 1e-4
-                   or any(row[f"{n}_max_rel_err"] > BWD_TOL[dtype]
-                          for n in ("dq", "dk", "dv")))
-            if bad:
-                raise AssertionError(
-                    f"(m) kernels at the per-rank shape: {row} (tol "
-                    f"{FWD_TOL[dtype]} on o, 1e-4 on lse, {BWD_TOL[dtype]} "
-                    "relative on dq, dk, dv)")
-            print(f"[smoke] (m) rank shape {json.dumps(row)}", flush=True)
-            rows.append(row)
-    return rows
+    return [_rank_shape_row(fa, gen, (b, hl, t, d), dtype, g_lse=False,
+                            where="(m)")
+            for b, hl in ((MESH_BATCH, h // 2), (MESH_BATCH // 2, h // 2),
+                          (MESH_BATCH, h // 4))
+            for dtype in (torch.float32, torch.bfloat16)]
 
 
 def model_axis_phase(root: str, card: str) -> dict:
@@ -3931,6 +4057,20 @@ SP_VARIANTS = [(256, 256, 256, 256), (256, 256, 512, 256),
                (512, 256, 0, None), (256, 512, 0, None),
                (256, 128, 0, None), (128, 256, 0, None)]
 SP_TOL = {"0": 1e-4, "1": 2e-2}  # |val_loss - W=1's|, f32 and bf16
+# (n3): the MoE (4 experts), the GRU and ZeRO-1/FSDP on the seq axis, on
+# (m)'s rows and schedule. The sorted engine at MESH_MOE_CAPACITY, where
+# no token drops, so every shard routes as one card does; einsum at the
+# port's default capacity factor, where tokens drop in the global order
+# (at 8 its one-hot dispatch would be [16384, 4, 32768] f32, 8.6 GB, a
+# layer on one card).
+N3_EINSUM_CAPACITY = 1.25
+N3_TOL = {"0": 1e-5, "1": 5e-3}  # |val_loss - W=1's|, f32 and bf16
+# (n3a) the per-rank (B, H, T) of the MoE worlds' attention: ring steps
+# (merged by lse, so their backward takes its cotangent) at seq=2, at
+# data=2 seq=2, at model=2 seq=2 (H/2 heads) and a seq=4 ring's shard;
+# the all-to-all engine's full-length call at H/4 and H/2 heads.
+N3_RING_SHAPES = [(16, 8, 512), (8, 8, 512), (16, 4, 512), (16, 8, 256)]
+N3_A2A_SHAPES = [(16, 2, 1024), (16, 4, 1024)]
 
 
 def _sp_reach(tq, tk, q_offset, window):
@@ -4059,6 +4199,96 @@ def check_sp_variants(fa) -> list[dict]:
     return rows
 
 
+def check_n3_rank_shapes(fa) -> list[dict]:
+    """(n3a) The three kernels against their plain versions at the
+    per-rank shapes (n3)'s MoE worlds launch (``N3_RING_SHAPES`` with an
+    lse cotangent, ``N3_A2A_SHAPES``), f32 and bf16, on one card."""
+    d = MESH_CFG["d_model"] // MESH_CFG["n_heads"]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    return [_rank_shape_row(fa, gen, (b, h, t, d), dtype, g_lse=ring,
+                            where="(n3a)")
+            for shapes, ring in ((N3_RING_SHAPES, True),
+                                 (N3_A2A_SHAPES, False))
+            for b, h, t in shapes
+            for dtype in (torch.float32, torch.bfloat16)]
+
+
+def n3_worlds() -> list:
+    """(n3b)'s worlds: ``(where, world kw, layout, W=1 base)``, a layout
+    of None where no kernel lies on the path (the GRU)."""
+    tf = dict(family="weather_transformer", bf16=False)
+    worlds = []
+    for engine in ("sorted", "einsum"):
+        moe = dict(family="weather_moe", bf16=False, DCT_N_EXPERTS=4,
+                   DCT_MOE_DISPATCH=engine)
+        if engine == "einsum":
+            moe["DCT_CAPACITY_FACTOR"] = N3_EINSUM_CAPACITY
+        base = f"moe_{engine}"
+        worlds += [
+            (f"moe {engine} ring seq=2", dict(moe, seq=2), "ring", base),
+            (f"moe {engine} a2a seq=4",
+             dict(moe, seq=4, DCT_SP_ENGINE="a2a"), "a2a", base),
+            (f"moe {engine} ring data=2 seq=2", dict(moe, data=2, seq=2),
+             "ring", base),
+            (f"moe {engine} ring model=2 seq=2", dict(moe, model=2, seq=2),
+             "ring", base)]
+    # Pair the two-card worlds, then the four-card ones.
+    worlds = worlds[0::4] + [w for i, w in enumerate(worlds) if i % 4]
+    worlds += [
+        ("gru seq=2", dict(N3_BASES["gru"], seq=2), None, "gru"),
+        # The units replicated by rules, so the large leaves split too.
+        ("zero1 data=2 seq=2", dict(tf, data=2, seq=2, DCT_SHARD_OPT_STATE=1,
+                                    DCT_SHARD_RULES=MESH_REPLICATE_UNITS),
+         "ring", "tf"),
+        ("fsdp data=2 seq=2", dict(tf, data=2, seq=2, DCT_SHARD_PARAMS=1,
+                                   DCT_SHARD_RULES=MESH_REPLICATE_UNITS),
+         "ring", "tf")]
+    return worlds
+
+
+# (n3b)'s one-card runs, one a card at once.
+N3_BASES = {
+    "moe_sorted": dict(family="weather_moe", bf16=False, DCT_N_EXPERTS=4,
+                       DCT_MOE_DISPATCH="sorted"),
+    "moe_einsum": dict(family="weather_moe", bf16=False, DCT_N_EXPERTS=4,
+                       DCT_MOE_DISPATCH="einsum",
+                       DCT_CAPACITY_FACTOR=N3_EINSUM_CAPACITY),
+    "gru": dict(family="weather_gru", bf16=False,
+                DCT_SEQ_LEN=GRU_CFG["seq_len"],
+                DCT_HIDDEN_DIM=GRU_CFG["hidden_dim"],
+                DCT_N_LAYERS=GRU_CFG["n_layers"]),
+    "tf": dict(family="weather_transformer", bf16=False),
+}
+
+
+def _packed_worlds(root: str, processed: str, specs: list,
+                   cards: int) -> list:
+    """``(name, kw)`` worlds of ``data x model x seq`` ranks (global batch
+    MESH_BATCH), side by side where their cards add up to at most
+    ``cards``, each on cards of its own (``CUDA_VISIBLE_DEVICES``)."""
+    done, i = [], 0
+    while i < len(specs):
+        started, used = [], 0
+        while i < len(specs):
+            name, kw = specs[i]
+            kw = dict(kw)
+            data, model = kw.pop("data", 1), kw.pop("model", 1)
+            seq = kw.pop("seq", 1)
+            size = data * model * seq
+            if used + size > cards:
+                break
+            visible = ",".join(str(c) for c in range(used, used + size))
+            started.append(_start_world(
+                root, name, processed, data=data, model=model, world=size,
+                batch=MESH_BATCH // data, DCT_MESH_SEQ=seq,
+                CUDA_VISIBLE_DEVICES=visible, **kw))
+            started[-1]["seq"] = seq
+            used += size
+            i += 1
+        done += [_finish_world(w) for w in started]
+    return done
+
+
 def _sp_world(root: str, name: str, processed: str, *, family: str,
               bf16: bool, data: int = 1, model: int = 1, seq: int = 1,
               **extra) -> dict:
@@ -4086,15 +4316,17 @@ def _check_sp_run(run: dict, base: dict, tol: float, *, layout: str,
                   n_steps: int = 1, where: str) -> dict:
     """Every rank ends on the same val_loss, within ``tol`` of W=1's; each
     rank launched W=1's kernels times its forward calls per layer
-    (:func:`sp_forward_calls`; rank r sits at seq index r % S)."""
+    (:func:`sp_forward_calls`; rank r sits at seq index r % S), none
+    where no kernel lies on the path (``layout`` None)."""
     summary = _mesh_summary(run, base)
     losses = {r["val_loss"] for r in run["ranks"]}
     want1 = base["ranks"][0]["launches"]
-    if DEVICE == "cuda" and not all(want1.values()):
+    if DEVICE == "cuda" and (layout is None) == all(want1.values()):
         raise AssertionError(f"(n) {where}: the W=1 run launched {want1}")
     s, bad, per_rank = run["seq"], [], []
     for r, rank in enumerate(run["ranks"]):
-        calls = sp_forward_calls(layout, r % s, s, n_steps)
+        calls = (0 if layout is None
+                 else sp_forward_calls(layout, r % s, s, n_steps))
         want = {k: v * calls for k, v in want1.items()}
         per_rank.append(calls)
         if rank["launches"] != want:
@@ -4108,31 +4340,80 @@ def _check_sp_run(run: dict, base: dict, tol: float, *, layout: str,
     return summary
 
 
-def sequence_phase(root: str, card: str) -> dict:
-    """(n) The seq axis: (n0) on any count of cards, the worlds on two or
-    more (module docstring); one line saying they did not run on fewer."""
+def sequence_phase(root: str, card: str, *, n3_only: bool = False) -> dict:
+    """(n) The seq axis: (n0) and (n3a) on any count of cards, the worlds
+    on two or more (module docstring); one line saying they did not run
+    on fewer. ``n3_only``: (n3) alone."""
     from dct_tpu_torch.data.synthetic import generate_weather_csv
     from dct_tpu_torch.etl.preprocess import preprocess_csv_to_parquet
     from dct_tpu_torch.ops import flash_attention as fa
 
     t_phase = time.perf_counter()
-    variants = check_sp_variants(fa)
+    variants = [] if n3_only else check_sp_variants(fa)
+    n3a = check_n3_rank_shapes(fa)
     cards = torch.cuda.device_count()
     zero = {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
     if cards < 2:
         print(json.dumps({"phase": "n", "ran": False, "cards": cards}),
               flush=True)
         return {"ran": False, "launches": zero, "variants": variants,
-                "phase_s": time.perf_counter() - t_phase}
+                "n3a": n3a, "phase_s": time.perf_counter() - t_phase}
     shutil.rmtree(root, ignore_errors=True)
     raw = os.path.join(root, "raw", "weather.csv")
     generate_weather_csv(raw, rows=MESH_ROWS, seed=12)
     processed = os.path.join(root, "processed")
     preprocess_csv_to_parquet(raw, processed)
-    t_local = MESH_CFG["seq_len"]
     out = {"ran": True, "cards": cards, "card": card, "variants": variants,
-           "n1": {}, "n2": {}}
+           "n3a": n3a, "n1": {}, "n2": {}, "n3": {}}
     runs = []
+    if not n3_only:
+        n12_phase(root, processed, cards, out, runs)
+    n3_phase(root, processed, cards, out, runs)
+    launches = {k: sum(r["launches"][k] for run in runs
+                       for r in run["ranks"]) for k in zero}
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[smoke] (n) seq axis on {cards} cards, launches {launches}, "
+          f"phase {out['phase_s']:.1f} s on {card}", flush=True)
+    print(f"[smoke] (n) summary {json.dumps(out)}", flush=True)
+    with open(os.path.join(root, "phase_n.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
+def n3_phase(root: str, processed: str, cards: int, out: dict,
+             runs: list) -> None:
+    """(n3b): the W=1 runs side by side, then every world of
+    :func:`n3_worlds` that fits on ``cards``, held to its W=1 run
+    (``N3_TOL``) with each rank's launches W=1's times its calls per
+    layer."""
+    t0 = time.perf_counter()
+    bases = _packed_worlds(root, processed, [
+        (f"n3-w1-{n}", kw) for n, kw in N3_BASES.items()], cards)
+    base = dict(zip(N3_BASES, bases))
+    runs += bases
+    for n, run in base.items():
+        out.setdefault("n3_w1", {})[n] = _mesh_summary(run)
+    worlds = [w for w in n3_worlds()
+              if w[1].get("data", 1) * w[1].get("model", 1)
+              * w[1]["seq"] <= cards]
+    done = _packed_worlds(root, processed, [
+        ("n3-" + where.replace(" ", "-").replace("=", ""), kw)
+        for where, kw, _, _ in worlds], cards)
+    runs += done
+    for (where, kw, layout, key), run in zip(worlds, done):
+        out["n3"][where] = _check_sp_run(
+            run, base[key], N3_TOL["1" if kw["bf16"] else "0"],
+            layout=layout, where=f"n3 {where}")
+    out["n3_s"] = time.perf_counter() - t0
+    print(f"[smoke] (n3) {len(done)} worlds on {cards} cards, wall "
+          f"{out['n3_s']:.1f} s", flush=True)
+
+
+def n12_phase(root: str, processed: str, cards: int, out: dict,
+              runs: list) -> None:
+    """(n1) and (n2): the transformer families' worlds (module
+    docstring) against their W=1 runs."""
 
     def world(name, **kw):
         run = _sp_world(root, name, processed, **kw)
@@ -4145,17 +4426,11 @@ def sequence_phase(root: str, card: str) -> dict:
              "causal": dict(family=causal, bf16=False),
              "window": dict(family=causal, bf16=False, DCT_ATTN_WINDOW="256"),
              "causal_bf16": dict(family=causal, bf16=True)}
-    names = list(bases)
-    base = {}
-    for i in range(0, len(names), cards):
-        batch = names[i:i + cards]
-        done = _parallel_worlds(root, processed, [
-            (f"n-w1-{n}", bases[n]) for n in batch])
-        for n, run in zip(batch, done):
-            run["seq"] = 1
-            base[n] = run
-            runs.append(run)
-            out.setdefault("w1", {})[n] = _mesh_summary(run)
+    base = dict(zip(bases, _packed_worlds(root, processed, [
+        (f"n-w1-{n}", kw) for n, kw in bases.items()], cards)))
+    for n, run in base.items():
+        runs.append(run)
+        out.setdefault("w1", {})[n] = _mesh_summary(run)
     # (n1) weather_transformer, f32: the ring (not causal).
     n1 = [("ring seq=2", dict(seq=2), "ring", None)]
     if cards >= 4:
@@ -4191,37 +4466,40 @@ def sequence_phase(root: str, card: str) -> dict:
         if layout == "windowed":
             from dct_tpu_torch.ops.attention import _ring_window_steps
 
-            steps = _ring_window_steps(256, t_local // s, s)
+            steps = _ring_window_steps(256, MESH_CFG["seq_len"] // s, s)
         run = world("n2-" + where.replace(" ", "-").replace("=", ""),
                     family=causal, bf16=bf16, **kw)
         out["n2"][where] = _check_sp_run(
             run, base[key], SP_TOL["1" if bf16 else "0"], layout=layout,
             n_steps=steps, where=f"n2 {where}")
-    launches = {k: sum(r["launches"][k] for run in runs
-                       for r in run["ranks"]) for k in zero}
-    out["launches"] = launches
-    out["phase_s"] = time.perf_counter() - t_phase
-    print(f"[smoke] (n) seq axis on {cards} cards, launches {launches}, "
-          f"phase {out['phase_s']:.1f} s on {card}", flush=True)
-    print(f"[smoke] (n) summary {json.dumps(out)}", flush=True)
-    with open(os.path.join(root, "phase_n.json"), "w") as f:
-        json.dump(out, f, indent=1)
-    return out
 
 
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("all", "k", "l", "m", "n"),
+    ap.add_argument("--phase", choices=("all", "k", "l", "m", "n", "n3"),
                     default="all",
                     help="k: build the kernels and run only (k), over a "
                          "random full-width checkpoint and synthetic rows; "
                          "l: only (l), over synthetic rows; m: only (m), "
                          "the model axis, on two or more cards; n: only "
                          "(n), the seq axis (its worlds on two or more "
-                         "cards)")
+                         "cards); n3: only (n3), the MoE, the GRU and "
+                         "ZeRO-1/FSDP on the seq axis")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
+    walls: dict = {}
+
+    def walled(name, fn, *a, **kw):
+        """``fn(*a, **kw)``, its wall printed on its own line and kept."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            walls[name] = round(time.perf_counter() - t0, 3)
+            print(f"[smoke] wall {name}: {walls[name]:.1f} s", flush=True)
+
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -4240,6 +4518,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build.load_kernels("flash_fwd", "flash_bwd")
     build_s = time.perf_counter() - t0
+    walls["build"] = round(build_s, 3)
     for name in ("flash_fwd", "flash_bwd"):
         info = build.build_info[name]
         print(f"[smoke] {'built' if info['built'] else 'reused'} {name} "
@@ -4254,13 +4533,13 @@ def main(argv=None) -> int:
     tc_counts = tensor_core_instructions(build)
     print(f"[smoke] tensor-core instructions: {tc_counts}", flush=True)
 
-    if args.phase in ("m", "n"):
+    if args.phase in ("m", "n", "n3"):
         if args.phase == "m":
             model_axis_phase(os.path.join(HERE, "build", "chip_smoke_mesh"),
                              card)
         else:
             sequence_phase(os.path.join(HERE, "build", "chip_smoke_seq"),
-                           card)
+                           card, n3_only=args.phase == "n3")
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4286,13 +4565,13 @@ def main(argv=None) -> int:
         }}), flush=True)
         return 0
 
-    variants = check_flash_kernel(fa)
-    bwd_variants = check_bwd_kernels(fa)
+    variants = walled("kernels_fwd", check_flash_kernel, fa)
+    bwd_variants = walled("kernels_bwd", check_bwd_kernels, fa)
 
     pkg_root = os.path.join(HERE, "build", "chip_smoke_packages")
     served = [
-        serve_package(family, os.path.join(pkg_root, f"{family}-{quant}"),
-                      fa, quant)
+        walled(f"serve_{family}_{quant}", serve_package, family,
+               os.path.join(pkg_root, f"{family}-{quant}"), fa, quant)
         for family, quant in (("weather_transformer", None),
                               ("weather_transformer_causal", None),
                               ("weather_transformer", "bf16"))
@@ -4300,56 +4579,89 @@ def main(argv=None) -> int:
     launches = sum(s["launches"] for s in served)
     forwards = sum(s["forwards"] for s in served)
 
-    trained = train_phase(fa)
+    trained = walled("train", train_phase, fa)
     train_counts = {name: sum(r["launches"][name] for r in trained["b"])
                     for name in ("flash_fwd", "flash_bwd_dkdv",
                                  "flash_bwd_dq")}
     train_steps = sum(r["steps"] for r in trained["b"])
 
-    repairs = check_repairs(fa)
+    repairs = walled("repairs", check_repairs, fa)
     fit_root = os.path.join(HERE, "build", "chip_smoke_fit")
-    fit_mlp_phase(fit_root)
     b_bf16 = [r for r in trained["b"] if r["family"] == "weather_transformer"
               and r["compute"] == "bf16"][0]
-    fitted = fit_transformer_phase(fa, fit_root, b_bf16["step_ms"])
+    fitted = walled("fit_transformer", fit_transformer_phase, fa, fit_root,
+                    b_bf16["step_ms"])
     fit_counts = fitted["launches"]
     print(f"[smoke] (g) trainer overhead: fit's device step median "
           f"{fitted['step_ms_events_median']:.3f} ms, its epoch "
           f"{fitted['epoch_ms_per_train_step']:.3f} ms per train step, "
           f"(b)'s step median {b_bf16['step_ms']:.3f} ms", flush=True)
 
+    # From here four chains share the card. This thread and the (l) chain
+    # run the phases that read this process's launch counts, one at a
+    # time (``counted``); the other two drive child processes (whose
+    # launches their outputs carry) and (f), which runs no flash kernel.
+    # The phases that must have the card to themselves come last.
     loop_root = os.path.join(HERE, "build", "chip_smoke_loop")
     shutil.rmtree(loop_root, ignore_errors=True)  # (h) starts from nothing
-    etl_phase(os.path.join(loop_root, "etl"), card)
-    episodic = episodic_phase(fa, os.path.join(loop_root, "episodic"), card)
-    loop_job_phase(os.path.join(loop_root, "loop_job"), card)
-    loop_counts = episodic["launches"]
     sup_root = os.path.join(HERE, "build", "chip_smoke_supervised")
     shutil.rmtree(sup_root, ignore_errors=True)  # (i) starts from nothing
-    torch.cuda.empty_cache()  # the worlds below share the card with us
-    supervised = supervised_phase(sup_root, card)
-    sup_counts = supervised["launches"]
     sched_root = os.path.join(HERE, "build", "chip_smoke_scheduler")
     shutil.rmtree(sched_root, ignore_errors=True)  # (j) starts from nothing
-    sched = scheduler_phase(sched_root, card, supervised["clean_models_dir"])
+    fam_root = os.path.join(HERE, "build", "chip_smoke_families")
+    shutil.rmtree(fam_root, ignore_errors=True)  # (l) starts from nothing
+    counted = threading.Lock()
+    # (h1) sets the process's DCT_* environment; set before the chains
+    # start, which read it.
+    _set_dct_env(_loop_env(os.path.join(loop_root, "episodic")))
+
+    def supervised_then_quota():
+        supervised = walled("supervised", supervised_phase, sup_root, card)
+        return supervised, walled("scheduler_quota", scheduler_quota,
+                                  sched_root, card)
+
+    def mlp_then_loop_job():
+        walled("fit_mlp", fit_mlp_phase, fit_root)
+        walled("etl", etl_phase, os.path.join(loop_root, "etl"), card)
+        walled("loop_job", loop_job_phase,
+               os.path.join(loop_root, "loop_job"), card)
+
+    def families():
+        rows = synthetic_rows(os.path.join(fam_root, "rows"))
+        return walled("families", families_phase, fa,
+                      os.path.join(fam_root, "phase"), rows, card, counted)
+
+    with ThreadPoolExecutor(3) as pool:
+        chain_i = pool.submit(supervised_then_quota)
+        chain_f = pool.submit(mlp_then_loop_job)
+        chain_l = pool.submit(families)
+        with counted:
+            episodic = walled("episodic", episodic_phase, fa,
+                              os.path.join(loop_root, "episodic"), card)
+        loop_counts = episodic["launches"]
+        served_k = walled(
+            "serving", serving_phase, fa,
+            os.path.join(HERE, "build", "chip_smoke_serving"),
+            os.path.join(fit_root, "models-tf", "last.ckpt"),
+            os.path.join(loop_root, "episodic", "processed"), card, counted)
+        k_counts = served_k["launches"]
+        l_counts = chain_l.result()["launches"]
+        supervised, quota = chain_i.result()
+        chain_f.result()
+    torch.cuda.empty_cache()  # the drills below read the card alone
+    hang = walled("hang_drill", hang_drill, sup_root, card,
+                  supervised["clean_env"], supervised["per_epoch"])
+    sup_counts = {k: v + hang["launches"][k]
+                  for k, v in supervised["launches"].items()}
+    sched = walled("scheduler_revocation", scheduler_phase, sched_root,
+                   card, supervised["clean_models_dir"], quota)
     sched_counts = sched["launches"]
-    torch.cuda.empty_cache()
-    served_k = serving_phase(
-        fa, os.path.join(HERE, "build", "chip_smoke_serving"),
-        os.path.join(fit_root, "models-tf", "last.ckpt"),
-        os.path.join(loop_root, "episodic", "processed"), card)
-    k_counts = served_k["launches"]
-    torch.cuda.empty_cache()
-    families = families_phase(
-        fa, os.path.join(HERE, "build", "chip_smoke_families"),
-        os.path.join(loop_root, "episodic", "processed"), card)
-    l_counts = families["launches"]
-    torch.cuda.empty_cache()
-    mesh = model_axis_phase(os.path.join(HERE, "build", "chip_smoke_mesh"),
-                            card)
+    mesh = walled("model_axis", model_axis_phase,
+                  os.path.join(HERE, "build", "chip_smoke_mesh"), card)
     m_counts = mesh["launches"]
     torch.cuda.empty_cache()
-    seq = sequence_phase(os.path.join(HERE, "build", "chip_smoke_seq"), card)
+    seq = walled("seq_axis", sequence_phase,
+                 os.path.join(HERE, "build", "chip_smoke_seq"), card)
     n_counts = seq["launches"]
 
     def bf16_summary(rows):
@@ -4450,6 +4762,8 @@ def main(argv=None) -> int:
              "library_ms": r["library_fwd_ms" if k["name"] == "flash_fwd"
                              else "library_bwd_ms"]}
             for r in seq["variants"]]
+    walls["total"] = round(time.perf_counter() - t_start, 3)
+    print(f"[smoke] walls {json.dumps(walls)} on {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

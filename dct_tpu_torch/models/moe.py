@@ -26,25 +26,35 @@ over the flattened tokens:
   :meth:`WeatherMoE.aux_loss` sums the terms of the last forward.
 
 Under data parallelism (:func:`~dct_tpu_torch.models.mlp.set_data_block`
-with ``W > 1``) each process holds one block of the global batch and the
-routing stays the reference's, which runs one program over the global
-batch:
+with ``W > 1``) each process holds one block of the global batch, and on
+a seq axis of ``S`` ranks (:meth:`MoEFFN.shard_seq_axis`, set by a
+:class:`WeatherMoE` whose attention is the axis's engine) the ``T/S``
+positions of seq shard ``j`` of that block's rows. The routing stays the
+reference's, which runs one program over the global ``[B, T]`` tokens:
 
-- the processes all-gather their ``[k, E]`` choice counts once per layer
-  and forward (:func:`~dct_tpu_torch.parallel.mesh.all_gather_rows`), in
-  lockstep; the blocks are equal, so the global token count is ``W`` times
-  a block's and no count is read back to the host;
-- ``einsum`` routes over the global batch: capacity from the global token
+- the processes of the gradient group (data x seq) all-gather their
+  per-row ``[k, B/W, E]`` choice counts once per layer and forward
+  (:func:`~dct_tpu_torch.parallel.mesh.all_gather_grad`), in lockstep; the
+  blocks and shards are equal, so the global token count is ``W S``
+  times a process's and no count is read back to the host. Per-process
+  totals would not do: under ``seq`` a rank's positions of a row lie
+  between those of the seq ranks before and after it;
+- ``einsum`` routes over the global tokens: capacity from the global
   count, and each entry's slot offset by the entries of its expert that
-  come before it in the global choice-major order (earlier choices of
-  every process, then the same choice of lower ranks);
-- ``sorted`` routes each process's tokens alone with capacity from its own
-  token count, as the reference's ``_sorted_sharded`` does at ep=1;
+  come before it in the global flat order (``[B, T]`` row-major,
+  choice-major over k): every earlier choice, then the same choice of the
+  earlier data blocks, of the block's earlier rows and of the row's
+  positions on the lower seq ranks;
+- ``sorted`` routes each process's ``(B/W) (T/S)`` tokens alone with
+  capacity from their count, as the reference's ``_sorted_sharded`` does
+  at ep=1; where they do not tile the model axis, :func:`sorted_tiling`
+  raises or falls back to ``einsum`` as the reference does;
 - ``auto`` decides with the global count, as the reference does;
 - the load-balance loss of a process is ``w * E * sum_e(frac_e *
   probsum_e) / N`` with the global ``frac`` and ``N`` and its own
-  probability sums: summed over the processes (the step's all-reduce), it
-  is the reference's loss and gradient.
+  probability sums: summed over data x seq (the step's all-reduce, on
+  every seq rank: the cross entropy alone counts on seq index 0), it is
+  the reference's loss and gradient.
 
 On a model axis of ``M`` ranks (the reference's expert parallelism,
 ``dct_tpu/models/moe.py:65-104, 308-360``) the expert stacks split their
@@ -83,11 +93,13 @@ from dct_tpu_torch.models.mlp import Dropout, TorchStyleDense
 from dct_tpu_torch.models.transformer import (
     LayerNorm,
     MultiHeadAttention,
+    embed_positions,
+    mean_pool,
     rope_tables,
     sincos_positions,
 )
 from dct_tpu_torch.parallel.mesh import (
-    all_gather_rows,
+    all_gather_grad,
     all_to_all_model,
     copy_to_model,
     gather_from_model,
@@ -148,6 +160,29 @@ def _sorted_moe(tokens, expert_idx, gate, w_in, b_in, w_out, b_out, *,
     return out_sorted[unsort] * gate[:, None]
 
 
+def sorted_tiling(b: int, s: int, e: int, *, dp: int, sp: int, ep: int,
+                  dispatch: str) -> str:
+    """The sorted engine's tiling test on a global ``[b, s]`` token grid
+    with ``e`` experts over data x seq x model (``dct_tpu/models/
+    moe.py:244-272``): ``"sorted"`` where every (data, seq) shard's tokens
+    split into ``ep`` chunks and the experts over ``ep``; where not,
+    ``"einsum"`` for fewer rows than data blocks (the reference's batch-1
+    escape) and for ``auto``, and a raise, with the reference's message,
+    when ``sorted`` was asked for."""
+    if dp * sp * ep == 1:
+        return "sorted"
+    if (b % dp == 0 and s % sp == 0 and e % ep == 0
+            and ((b // dp) * (s // sp)) % ep == 0):
+        return "sorted"
+    if b < dp:
+        return "einsum"
+    if dispatch == "sorted":
+        raise ValueError(
+            f"sorted MoE dispatch cannot tile tokens [B={b}, S={s}] experts "
+            f"E={e} over mesh data={dp}, seq={sp}, model={ep}")
+    return "einsum"  # auto: fall back rather than fail
+
+
 class MoEFFN(nn.Module):
     """Routed mixture of ``n_experts`` FFNs over ``[B, S, D]`` tokens
     (module docstring). ``last_aux`` holds the pre-weighted load-balance
@@ -205,6 +240,9 @@ class MoEFFN(nn.Module):
         # over it.
         self.ep = None
         self.experts_split = False
+        # The seq axis: this process holds seq shard ``seq_index`` of
+        # ``seq_size`` of every row's positions.
+        self.seq_size, self.seq_index = 1, 0
 
     def shard_model_axis(self, shard, *, split: bool) -> None:
         """Route by the model axis ``shard`` and, with ``split``, keep
@@ -222,6 +260,11 @@ class MoEFFN(nn.Module):
             setattr(self, name, nn.Parameter(
                 getattr(self, name).data[rows].clone()))
         self.experts_split = True
+
+    def shard_seq_axis(self, shard) -> None:
+        """Route as seq shard ``shard.index`` of ``shard.size``: this
+        process's tokens are those positions of its block's rows."""
+        self.seq_size, self.seq_index = shard.size, shard.index
 
     def capacity(self, n: int) -> int:
         """Slots per expert for ``n`` tokens (the reference's float
@@ -248,21 +291,57 @@ class MoEFFN(nn.Module):
         gates = topv / torch.clamp(topv.sum(dim=-1, keepdim=True), min=1e-9)
         return probs, topi.T, gates.T
 
-    def _counts(self, choice):
-        """``[W, k, E]`` int64: every process's per-choice expert counts
-        (one all-gather when ``W > 1``)."""
-        k = choice.shape[0]
+    def _row_counts(self, choice, rows: int):
+        """``[D, S, k, B, E]`` float: the per-row, per-choice expert counts
+        of every process of the gradient group (one all-gather when it
+        has more than one), for ``choice`` ``[k, B*T]`` over ``rows``
+        rows of this process."""
+        k, n = choice.shape
         e = self.n_experts
-        offsets = torch.arange(k, device=choice.device)[:, None] * e
-        counts = torch.bincount((choice + offsets).reshape(-1),
-                                minlength=k * e).reshape(k, e)
-        if self.block[0] == 1:
-            return counts[None]
-        if get_mesh().data_size != self.block[0]:
+        row = torch.arange(n, device=choice.device) // (n // rows)
+        slot = ((torch.arange(k, device=choice.device)[:, None] * rows
+                 + row) * e + choice)
+        counts = torch.bincount(slot.reshape(-1), minlength=k * rows * e)
+        counts = counts.reshape(k, rows, e)
+        world, seq = self.block[0], self.seq_size
+        if world * seq == 1:
+            return counts[None, None].float()
+        mesh = get_mesh()
+        if (mesh.data_size, mesh.seq_size) != (world, seq):
             raise RuntimeError(
-                f"MoE routing over {self.block[0]} data blocks needs a data "
-                f"axis of that size (have {get_mesh().data_size})")
-        return all_gather_rows(counts)
+                f"MoE routing over {world} data blocks and {seq} seq shards "
+                f"needs a grid of that shape (have data={mesh.data_size}, "
+                f"seq={mesh.seq_size})")
+        return all_gather_grad(counts).float()
+
+    def _ahead(self, counts):
+        """``[k, B, E]``: for each choice, row and expert of this
+        process, the entries of that expert before its first position in
+        the reference's global flat order (``[B, T]`` row-major, choice
+        major over k): every earlier choice, then the same choice of the
+        earlier data blocks, of this block's earlier rows, and of this
+        row's positions on the lower seq ranks."""
+        p, q = self.block[1], self.seq_index
+        per_choice = counts.sum(dim=(0, 1, 3))  # [k, E]
+        rows = counts.sum(dim=1)  # [D, k, B, E] over the seq ranks
+        mine = rows[p]
+        before = (torch.cumsum(per_choice, dim=0) - per_choice
+                  + rows[:p].sum(dim=(0, 2)))
+        return (before[:, None] + torch.cumsum(mine, dim=1) - mine
+                + counts[p, :q].sum(dim=0))
+
+    def pick_engine(self, b: int, s: int) -> str:
+        """The engine for a ``[b, s]`` token block of this process: the
+        ``dispatch`` policy on the global token count, then the
+        reference's tiling test of the sorted engine over data x seq x
+        model (``dct_tpu/models/moe.py:244-272``)."""
+        dp, sp = self.block[0], self.seq_size
+        ep = self.ep.size if self.ep is not None else 1
+        engine = self.engine_for(b * s * dp * sp)
+        if engine == "sorted":
+            engine = sorted_tiling(b * dp, s * sp, self.n_experts, dp=dp,
+                                   sp=sp, ep=ep, dispatch=self.dispatch)
+        return engine
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, d = x.shape
@@ -271,28 +350,19 @@ class MoEFFN(nn.Module):
         ct = self.compute_dtype or x.dtype
         tokens = x.reshape(n, d)
         probs, choice, gate = self._route(tokens)
-
-        per_choice = self._counts(choice)  # [W, k, E]
-        world, rank = self.block
-        # Blocks are equal (the loader splits every global batch so), so
-        # the global token count needs no collective and no host read.
-        n_global = world * n
-        # Load balance over the global tokens; this block's share of the
-        # probability mass (the step sums the shares over processes).
-        frac = per_choice[:, 0].sum(dim=0).float() / n_global
+        engine = self.pick_engine(b, s)
+        counts = self._row_counts(choice, b)  # [D, S, k, B, E]
+        # Blocks and shards are equal (the loader splits every global
+        # batch so, the seq axis every window), so the global token count
+        # needs no collective and no host read.
+        n_global = self.block[0] * self.seq_size * n
+        # Load balance over the global tokens; this process's share of
+        # the probability mass (the step sums the shares over data x seq).
+        frac = counts[:, :, 0].sum(dim=(0, 1, 2)) / n_global
         self.last_aux = (self.aux_weight * e
                          * torch.sum(frac * probs.sum(dim=0)) / n_global)
-
-        engine = self.engine_for(n_global)
-        ep = self.ep.size if self.ep is not None else 1
-        if engine == "sorted" and ep > 1 and (e % ep or n % ep):
-            if self.dispatch == "sorted":
-                raise ValueError(
-                    f"sorted MoE dispatch cannot tile tokens [B={b * world}"
-                    f", S={s}] experts E={e} over mesh data={world}, seq=1, "
-                    f"model={ep}")
-            engine = "einsum"  # auto: fall back rather than fail
         self.last_engine = engine
+        ep = self.ep.size if self.ep is not None else 1
         wi = self.experts_in_kernel.to(ct)
         bi = self.experts_in_bias.to(ct)
         wo = self.experts_out_kernel.to(ct)
@@ -310,16 +380,13 @@ class MoEFFN(nn.Module):
                                bo, e_total=e, capacity=self.capacity(n))
         else:
             capacity = self.capacity(n_global)
-            onehot = F.one_hot(choice, e).float()  # [k, N, E]
-            # Entries of each expert ahead of this block's choice j in the
-            # global choice-major order: every process's choices < j, then
-            # choice j of the lower ranks.
-            per_choice = per_choice.float()
-            total = per_choice.sum(dim=0)  # [k, E] over every process
-            ahead = (torch.cumsum(total, dim=0) - total
-                     + per_choice[:rank].sum(dim=0))
-            position = (torch.cumsum(onehot, dim=1) - onehot
-                        + ahead[:, None, :]).reshape(k * n, e)
+            onehot = F.one_hot(choice, e).float().reshape(k, b, s, e)
+            # An entry's slot: the entries of its expert ahead of it in
+            # the global order (other processes' included), then this
+            # row's earlier positions.
+            position = (torch.cumsum(onehot, dim=2) - onehot
+                        + self._ahead(counts)[:, :, None, :]
+                        ).reshape(k * n, e)
             onehot = onehot.reshape(k * n, e)
             keep = (position < capacity).float() * onehot
             slot_of = torch.sum(position * onehot, dim=-1).long()
@@ -387,11 +454,12 @@ class MoEBlock(nn.Module):
         self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, rope=None,
-                key: tuple | None = None) -> torch.Tensor:
+                key: tuple | None = None, seq=None) -> torch.Tensor:
+        """``seq``: ``(positions, T)`` of a seq rank's slice."""
         h = self.attn(self.ln_attn(x), rope)
-        x = x + self.drop(h, None if key is None else key + (0,))
+        x = x + self.drop(h, None if key is None else key + (0,), seq)
         h = self.moe(self.ln_ffn(x))
-        return x + self.drop(h, None if key is None else key + (1,))
+        return x + self.drop(h, None if key is None else key + (1,), seq)
 
 
 class WeatherMoE(nn.Module):
@@ -424,6 +492,8 @@ class WeatherMoE(nn.Module):
 
             attn_fn = make_attention_fn()
         self.compute_dtype = compute_dtype or dtype
+        # The sequence-parallel engine, whose layout the forward takes.
+        self.seq_parallel = attn_fn if hasattr(attn_fn, "positions") else None
         self.input_dim, self.seq_len = input_dim, seq_len
         self.n_layers, self.pos_embed = n_layers, pos_embed
         kw = {"device": device, "dtype": dtype}
@@ -438,6 +508,9 @@ class WeatherMoE(nn.Module):
                 n_kv_heads=n_kv_heads, moe_kw=moe_kw, **ckw))
         self.ln_out = LayerNorm(d_model, **kw)
         self.head = TorchStyleDense(d_model, num_classes, **ckw)
+        if self.seq_parallel is not None:
+            for block in self.blocks():
+                block.moe.shard_seq_axis(self.seq_parallel.shard)
         if pos_embed == "rope":
             cos, sin = rope_tables(seq_len, d_model // n_heads)
             self.register_buffer("rope_cos", cos.to(device), persistent=False)
@@ -460,16 +533,11 @@ class WeatherMoE(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 dropout_key: tuple | None = None) -> torch.Tensor:
-        dtype = self.compute_dtype
-        h = self.in_proj(x.to(dtype))
-        rope = None
-        if self.pos_embed == "rope":
-            t = h.shape[1]
-            rope = (self.rope_cos[:t], self.rope_sin[:t])
-        else:
-            h = h + self.pos_table.to(dtype)
+        """``dropout_key`` as the transformer's. On a seq axis this rank
+        keeps its positions of ``x`` from the input to the pooled head,
+        whose sum is all-reduced over the seq ranks."""
+        h, rope, seq = embed_positions(self, x)
         for i, block in enumerate(self.blocks()):
             key = None if dropout_key is None else tuple(dropout_key) + (i,)
-            h = block(h, rope, key)
-        h = self.ln_out(h)
-        return self.head(h.mean(dim=1)).float()
+            h = block(h, rope, key, seq)
+        return self.head(mean_pool(self, self.ln_out(h), x.shape[1])).float()

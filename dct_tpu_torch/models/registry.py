@@ -4,8 +4,11 @@ The MLP, the two transformer families, the GRU and the MoE are ported.
 The pipeline family raises :class:`NotImplementedError` naming the
 ROADMAP item that ports it; nothing else runs in its place. On a grid
 whose ``seq`` axis has more than one process (``mesh``) the two
-transformer families run sequence-parallel; the others raise, naming
-ROADMAP Queue A item 16b.
+transformer families and the MoE run sequence-parallel (their attention
+is the axis's engine, and each seq rank keeps its positions); the MLP
+and the GRU are replicated over ``seq``, as the reference's builders
+drop the mesh (``dct_tpu/models/registry.py:80-100``): every seq rank of
+a data row computes the whole block, and the loss counts on seq index 0.
 Models come back in eval mode, the flax modules' ``train=False``; a
 trainer calls ``model.train()``.
 """
@@ -24,7 +27,6 @@ from dct_tpu_torch.models.transformer import WeatherTransformer
 SEQUENCE_MODELS = {"weather_transformer", "weather_transformer_causal",
                    "weather_gru", "weather_moe"}
 CAUSAL_MODELS = {"weather_transformer_causal"}
-SEQ_PARALLEL_MODELS = {"weather_transformer", "weather_transformer_causal"}
 
 _NOT_PORTED = {
     "weather_transformer_pp": "ROADMAP Queue A item 17 (pipeline and MPMD)",
@@ -52,8 +54,8 @@ def get_model(cfg: ModelConfig, *, input_dim: int | None = None,
     ``n_layers``. ``device=None`` is the
     card (``cuda:0``; :class:`~dct_tpu_torch.device.DeviceError` without
     CUDA): a CPU model is built only when ``"cpu"`` is asked for. With a
-    ``mesh`` whose seq axis has more than one process, a transformer's
-    attention is that axis's engine
+    ``mesh`` whose seq axis has more than one process, the attention of
+    a transformer or the MoE is that axis's engine
     (:func:`~dct_tpu_torch.ops.attention.make_attention_fn`)."""
     from dct_tpu_torch.device import resolve_device
     from dct_tpu_torch.ops.attention import make_attention_fn
@@ -65,13 +67,6 @@ def get_model(cfg: ModelConfig, *, input_dim: int | None = None,
         )
     if cfg.name != "weather_mlp" and cfg.name not in SEQUENCE_MODELS:
         raise KeyError(f"Unknown model {cfg.name!r}")
-    seq = mesh.shape.get("seq", 1) if mesh is not None else 1
-    if seq > 1 and cfg.name not in SEQ_PARALLEL_MODELS:
-        raise NotImplementedError(
-            f"model {cfg.name!r} on a seq axis of {seq}: the port runs the "
-            f"seq axis for {sorted(SEQ_PARALLEL_MODELS)} only (the MoE's "
-            "routing over data x seq, the GRU and ZeRO-1/FSDP under seq): "
-            "ROADMAP Queue A item 16b")
     dim = cfg.input_dim if input_dim is None else input_dim
     if dim is None:
         raise ValueError("input_dim must be provided (inferred from data)")
@@ -96,7 +91,7 @@ def get_model(cfg: ModelConfig, *, input_dim: int | None = None,
             capacity_factor=cfg.capacity_factor,
             router_aux_weight=cfg.router_aux_weight,
             num_classes=cfg.num_classes, dropout=cfg.dropout,
-            attn_fn=make_attention_fn(), dispatch=cfg.moe_dispatch,
+            attn_fn=make_attention_fn(mesh), dispatch=cfg.moe_dispatch,
             top_k=cfg.router_top_k, auto_threshold=cfg.moe_auto_threshold,
             n_kv_heads=cfg.n_kv_heads if cfg.n_kv_heads > 0 else None,
             pos_embed=cfg.pos_embed, **kw,

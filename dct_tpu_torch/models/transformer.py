@@ -110,6 +110,40 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
+def embed_positions(model: nn.Module, x: torch.Tensor):
+    """``(h, rope, seq)``: ``model.in_proj`` of ``x`` ``[B, T, F]`` with
+    its positions' sincos rows added (or, under rope, the tables its
+    attention rotates by), at this seq rank's positions when
+    ``model.seq_parallel`` is an engine (``seq = (positions, T)``, else
+    None). The encoder families (the transformer, the MoE) share it."""
+    dtype = model.compute_dtype
+    sp, t = model.seq_parallel, x.shape[1]
+    seq = None
+    if sp is not None:  # this seq rank's positions, from here on
+        pos = sp.positions(t, x.device)
+        x = x.index_select(1, pos)
+        seq = (pos, t)
+    h = model.in_proj(x.to(dtype))
+    rope = None
+    if model.pos_embed == "rope":
+        rope = (model.rope_cos[:t], model.rope_sin[:t])
+        if seq is not None:
+            rope = tuple(r.index_select(0, seq[0]) for r in rope)
+    else:
+        table = model.pos_table.to(dtype)
+        h = h + (table if seq is None else table.index_select(0, seq[0]))
+    return h, rope, seq
+
+
+def mean_pool(model: nn.Module, h: torch.Tensor, t: int) -> torch.Tensor:
+    """The mean of ``h`` ``[B, T', D]`` over the ``t`` positions; on a seq
+    axis (``model.seq_parallel``) the ranks' sums all-reduced, in f32."""
+    sp = model.seq_parallel
+    if sp is None:
+        return h.mean(dim=1)
+    return (reduce_from_seq(h.float().sum(dim=1), sp.shard) / t).to(h.dtype)
+
+
 class LayerNorm(nn.LayerNorm):
     """flax ``nn.LayerNorm``: epsilon 1e-6, statistics and affine in f32,
     output in the input's dtype."""
@@ -304,22 +338,8 @@ class WeatherTransformer(nn.Module):
         """``dropout_key``: a tuple of ints (the train state's dropout
         seed and step, for instance) that seeds every dropout mask of
         this forward; needed only in training mode with dropout > 0."""
-        dtype = self.compute_dtype
         sp, t = self.seq_parallel, x.shape[1]
-        seq = None
-        if sp is not None:  # this seq rank's positions, from here on
-            pos = sp.positions(t, x.device)
-            x = x.index_select(1, pos)
-            seq = (pos, t)
-        h = self.in_proj(x.to(dtype))
-        rope = None
-        if self.pos_embed == "rope":
-            rope = (self.rope_cos[:t], self.rope_sin[:t])
-            if seq is not None:
-                rope = tuple(r.index_select(0, pos) for r in rope)
-        else:
-            table = self.pos_table.to(dtype)
-            h = h + (table if seq is None else table.index_select(0, pos))
+        h, rope, seq = embed_positions(self, x)
         for i, block in enumerate(self.blocks()):
             key = None if dropout_key is None else tuple(dropout_key) + (i,)
             if self.remat and torch.is_grad_enabled():
@@ -336,9 +356,6 @@ class WeatherTransformer(nn.Module):
             if self.horizon > 1:
                 logits = logits.reshape(*logits.shape[:2], self.horizon,
                                         self.num_classes)
-        elif sp is not None:
-            pooled = reduce_from_seq(h.float().sum(dim=1), sp.shard) / t
-            logits = self.head(pooled.to(h.dtype))
         else:
-            logits = self.head(h.mean(dim=1))
+            logits = self.head(mean_pool(self, h, t))
         return logits.float()

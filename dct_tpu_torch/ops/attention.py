@@ -397,7 +397,9 @@ def _kernel_route(device, aligned: bool, what: str) -> bool:
             f"{what} has no flash kernel body, and the plain PyTorch path "
             "that the CPU takes there runs on CPU tensors only; pick a "
             "sequence length whose per-rank shards are whole numbers of "
-            "min(128, shard) rows, or another DCT_RING_STRIPED/DCT_SP_ENGINE"
+            "min(128, shard) rows, or another DCT_RING_STRIPED/DCT_SP_ENGINE "
+            "(ragged shards and the windowed striped band on the card: "
+            "ROADMAP Queue A item 16b)"
         )
     return True
 

@@ -223,7 +223,7 @@ def make_mesh(cfg: MeshConfig | None = None) -> ProcessMesh:
         if sizes[axis] > 1:
             raise NotImplementedError(
                 f"DCT_MESH_{axis.upper()}={sizes[axis]} asks for {what}; "
-                f"the port has the data and model axes only: ROADMAP Queue "
+                f"the port has the data, model and seq axes: ROADMAP Queue "
                 f"A item {item}")
     return ProcessMesh(sizes["data"], sizes["model"], sizes["seq"])
 
@@ -298,17 +298,23 @@ def all_gather_ints(value: int) -> list[int]:
     return [int(v) for v in out]
 
 
-def all_gather_rows(tensor: torch.Tensor) -> torch.Tensor:
-    """``tensor`` of every process of the data group stacked in data-row
-    order, ``[D, ...]`` (on its own device: NCCL for CUDA tensors, gloo on
-    the CPU); with one data row, ``tensor[None]``. Carries no gradient."""
+def all_gather_grad(tensor: torch.Tensor) -> torch.Tensor:
+    """``tensor`` of every process of the gradient group (data x seq),
+    ``[D, S, ...]`` by data row and seq index (on its own device: NCCL
+    for CUDA tensors, gloo on the CPU); with one such process,
+    ``tensor[None, None]``. Carries no gradient. The MoE's routing
+    gathers its per-row choice counts with it: under ``seq`` a rank's
+    positions of a row lie between those of the seq ranks before and
+    after it, so the global order needs every rank's rows."""
     tensor = tensor.detach()
     mesh = get_mesh()
-    if mesh.data_size == 1:
-        return tensor[None]
-    out = [torch.empty_like(tensor) for _ in range(mesh.data_size)]
-    dist.all_gather(out, tensor.contiguous(), group=mesh.data_group)
-    return torch.stack(out)
+    if mesh.grad_size == 1:
+        return tensor[None, None]
+    out = tensor.new_empty(mesh.grad_size * tensor.numel())
+    dist.all_gather_into_tensor(out, tensor.reshape(-1).contiguous(),
+                                group=mesh.grad_group)
+    # The group's ranks ascend, so data row major, then seq index.
+    return out.view(mesh.data_size, mesh.seq_size, *tensor.shape)
 
 
 # ------------------------------------------------- model-axis autograd

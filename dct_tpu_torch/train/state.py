@@ -23,10 +23,14 @@ whole, and, for a leaf split over ``data``, its block along the leading
 flax dim: under ZeRO-1 a view of the replicated parameter, whose updated
 blocks are all-gathered back after the step; under FSDP the stored block
 itself, the full parameter existing only inside :meth:`TrainState.
-full_params` (all-gathered for a forward, backward or eval pass, then
-released). :meth:`TrainState.reduce_gradients` brings the raw gradients
-into the update space (one flat all-reduce over the data group, one flat
-reduce-scatter for the data-split leaves), and :meth:`TrainState.
+full_params` (all-gathered over the data group for a forward, backward
+or eval pass, then released). The seq ranks of a data row hold the same
+blocks, as the reference replicates a data-split leaf over ``seq``.
+:meth:`TrainState.reduce_gradients` brings the raw gradients into the
+update space (one flat all-reduce over the gradient group, data x seq;
+for the data-split leaves one flat reduce-scatter over the data group,
+then under ``seq`` one all-reduce of the blocks over the seq group), and
+:meth:`TrainState.
 grad_norm` is the norm over the logical arrays: each split leaf's squares
 summed over the group that splits it, each replicated leaf counted once.
 The numbers equal data parallelism's; what changes is the memory each
@@ -365,9 +369,11 @@ class TrainState:
 
     def reduce_gradients(self, grads, extras=()):
         """Raw per-process gradients (in ``params`` order) and scalars
-        ``extras`` -> (update-space gradients summed over the data group,
-        the summed ``extras``): one flat all-reduce, and one flat
-        reduce-scatter for the data-split leaves."""
+        ``extras`` -> (update-space gradients summed over the gradient
+        group, data x seq, the summed ``extras``): one flat all-reduce,
+        and for the data-split leaves one flat reduce-scatter over the
+        data group and, under ``seq``, one all-reduce of this process's
+        blocks over the seq group."""
         from dct_tpu_torch.parallel.mesh import all_reduce_sum
 
         grads, extras = list(grads), list(extras)
@@ -386,6 +392,10 @@ class TrainState:
             mine = buf.new_empty(buf.shape[1])
             dist.reduce_scatter_tensor(mine, buf.reshape(-1),
                                        group=layout.mesh.data_group)
+            if layout.mesh.seq_size > 1:
+                # The seq ranks of a data row hold the same blocks and
+                # one share each of their gradients.
+                dist.all_reduce(mine, group=layout.mesh.seq_group)
             off = 0
             for i, r in zip(split, rows):
                 lf = layout.leaves[i]

@@ -56,9 +56,11 @@ there the hooks run per step, as the reference's eager path does.
 The process grid comes from ``cfg.mesh`` (:func:`dct_tpu_torch.parallel.
 mesh.make_mesh`; ``data=-1`` absorbs every process, the reference's
 default): the model and seq ranks of a data row load the same block of
-every batch (a transformer's seq ranks then keep their positions of it),
-the state is placed by the family's partition rules with
-``shard_opt_state`` (ZeRO-1) and ``shard_params`` (FSDP)
+every batch (the seq ranks of a transformer or the MoE then keep their
+positions of it; the MLP and the GRU are replicated over ``seq``), the
+state is placed by the family's partition rules with
+``shard_opt_state`` (ZeRO-1) and ``shard_params`` (FSDP; both split over
+``data`` and replicated over ``seq``)
 (:func:`dct_tpu_torch.parallel.sharding_rules.shard_state_with_rules`),
 checked against the declared layout, and the deploy checkpoints are
 gathered dense on every process before the coordinator writes them. The
@@ -425,13 +427,6 @@ class Trainer:
 
         compute_dtype = (torch.bfloat16 if cfg.train.bf16_compute
                          else torch.float32)
-        if mesh.seq_size > 1 and (cfg.train.shard_opt_state
-                                  or cfg.train.shard_params):
-            raise NotImplementedError(
-                f"ZeRO-1/FSDP (DCT_SHARD_OPT_STATE, DCT_SHARD_PARAMS) on a "
-                f"seq axis of {mesh.seq_size}: the port splits the "
-                "optimizer state and parameters over the data axis alone: "
-                "ROADMAP Queue A item 16b")
         model = get_model(cfg.model, input_dim=data.input_dim, device=dev,
                           compute_dtype=compute_dtype, mesh=mesh)
         # Dropout draws the global batch's masks and keeps this block's.

@@ -20,9 +20,10 @@ dct_tpu_torch.train_job``). Environment:
       (``data=-1`` absorbs every process; WORLD_SIZE must equal data x
       model x seq): the model axis runs the transformers tensor-parallel
       and the MoE expert-parallel; the seq axis runs the two transformer
-      families sequence-parallel (``DCT_SP_ENGINE`` ring or a2a,
-      ``DCT_RING_STRIPED``), and refuses the MoE, the GRU and ZeRO-1/FSDP
-      naming ROADMAP Queue A item 16b
+      families and the MoE sequence-parallel (``DCT_SP_ENGINE`` ring or
+      a2a, ``DCT_RING_STRIPED``), the MoE routing over data x seq, and
+      replicates the MLP and the GRU over it; ZeRO-1 and FSDP split over
+      ``data`` and replicate over ``seq``
   DCT_SHARD_OPT_STATE / DCT_SHARD_PARAMS / DCT_SHARD_RULES  ZeRO-1, FSDP
       and the partition-rule overrides
       (:mod:`dct_tpu_torch.parallel.sharding_rules`)

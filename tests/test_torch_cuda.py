@@ -980,3 +980,103 @@ def test_seq4_ring_without_a_kernel_body_raises(card, monkeypatch, t,
     with pytest.raises(ValueError, match="no flash kernel body"):
         _seq4_ring(card, monkeypatch, t, True, window, striped)
     assert fa.launch_counts()["flash_fwd"] == 0
+
+
+class _OneProcessSeqGrid(_OneProcessSeq):
+    """:class:`_OneProcessSeq` with the grid's sizes the MoE's routing
+    checks (one data row, ``size`` seq ranks)."""
+
+    data_size = 1
+
+    @property
+    def seq_size(self):
+        return self.size
+
+
+def test_moe_seq4_ring_at_t256_runs_the_kernels(card, monkeypatch):
+    """weather_moe's block at seq=4, T=256 (shards of 64 rows), run rank
+    after rank on one card with the ring's shift, the routing gather and
+    the pooled sum stubbed: each rank's attention launches the non-causal
+    ring's 4 forward calls and equals dense attention at its positions
+    within 1e-4, and its MoE layer, routed over the four ranks' counts
+    (einsum, tokens dropping), equals the one-process layer there within
+    1e-4."""
+    from dct_tpu_torch.config import ModelConfig
+    from dct_tpu_torch.models import moe as moe_mod
+    from dct_tpu_torch.models import transformer as tf_mod
+    from dct_tpu_torch.models.registry import get_model
+    from dct_tpu_torch.ops.attention import dense_attention
+    from dct_tpu_torch.parallel import mesh as pm
+
+    monkeypatch.setenv("DCT_SP_ENGINE", "ring")
+    grid = _OneProcessSeqGrid(4)
+    monkeypatch.setattr(pm, "ring_shift", grid.shift)
+    monkeypatch.setattr(moe_mod, "get_mesh", lambda: grid)
+    monkeypatch.setattr(tf_mod, "reduce_from_seq", lambda x, shard: x)
+    counts, gathered = [], {}
+
+    def gather(c):  # [k, B, E] -> [1, 4, k, B, E] over the four ranks
+        counts.append(c)
+        return gathered.get("all", c[None, None].expand(1, 4, *c.shape))
+
+    monkeypatch.setattr(moe_mod, "all_gather_grad", gather)
+    cfg = ModelConfig(name="weather_moe", seq_len=256, d_model=64,
+                      n_heads=4, n_layers=1, d_ff=128, n_experts=4,
+                      capacity_factor=0.5, moe_dispatch="einsum",
+                      dropout=0.0)
+    torch.manual_seed(5)
+    one = get_model(cfg, input_dim=5, device=card)
+    state = one.state_dict()
+    attn_one = one.block_0.attn
+    seen = {}
+
+    def dense_capture(q, k, v):
+        seen["kv"] = (k, v)
+        seen["o"] = dense_attention(q, k, v)
+        return seen["o"]
+
+    attn_one.attn_fn = dense_capture
+    moe_out = []
+    one.block_0.moe.register_forward_hook(
+        lambda m, i, o: moe_out.append(o))
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (2, 256, 5)).astype(np.float32)).to(card)
+    with torch.no_grad():
+        one(x)
+    ranks, pos = [], []
+    for my in range(4):
+        grid.index = my
+        model = get_model(cfg, input_dim=5, device=card, mesh=grid)
+        model.load_state_dict(state)
+        ranks.append(model)
+        pos.append(model.seq_parallel.positions(256, card))
+    k, v = seen["kv"]
+    grid.kvs = [torch.stack([k[..., p, :], v[..., p, :]]) for p in pos]
+
+    def run():
+        outs, attn = [], []
+        for my, model in enumerate(ranks):
+            grid.index, grid.shifts = my, 0
+            engine = model.block_0.attn.attn_fn
+            model.block_0.attn.attn_fn = (
+                lambda q, k_, v_, e=engine: attn.append(e(q, k_, v_))
+                or attn[-1])
+            hook = model.block_0.moe.register_forward_hook(
+                lambda m, i, o: outs.append(o))
+            with torch.no_grad():
+                model(x)
+            hook.remove()
+            model.block_0.attn.attn_fn = engine
+        torch.cuda.synchronize()
+        return attn, outs
+
+    run()  # the routing counts of each rank
+    gathered["all"] = torch.stack(counts[-4:])[None]
+    fa.reset_launches()
+    attn, outs = run()
+    assert fa.launch_counts()["flash_fwd"] == 4 * 4
+    for p, a, o in zip(pos, attn, outs):
+        assert (a - seen["o"][..., p, :]).abs().max().item() <= 1e-4
+        assert (o - moe_out[0][:, p]).abs().max().item() <= 1e-4
+    dropped = sum(int((o == 0).all(dim=-1).sum()) for o in outs)
+    assert dropped == int((moe_out[0] == 0).all(dim=-1).sum()) > 0

@@ -261,16 +261,28 @@ def test_seq_and_pipe_axes_raise_naming_their_items(monkeypatch, axis, item):
     monkeypatch.setattr(port_mesh, "process_count", lambda: 2)
     cfg = MeshConfig(data=1, **{axis.lower(): 2})
     if axis == "SEQ":
-        # Item 16 ported the seq axis: the job and the grid take it, and
-        # what it still refuses (the MoE, the GRU, ZeRO-1/FSDP under seq)
-        # names item 16b.
+        # Items 16 and 16b ported the seq axis: the job and the grid take
+        # it, and both families that item 16b refused build on it (the
+        # MoE's attention the axis's engine, its routing over data x seq;
+        # the GRU replicated). What the seq axis still cannot run on the
+        # card (a ragged shard) names item 16b.
+        from dct_tpu_torch.ops.attention import (
+            SequenceParallelAttention,
+            ring_flash,
+        )
+
         refuse_unported_env({"DCT_MESH_SEQ": "2"})
         mesh = port_mesh.make_mesh(cfg)
         assert mesh.shape["seq"] == 2 and mesh.seq_shard().size == 2
-        for name in ("weather_moe", "weather_gru"):
-            with pytest.raises(NotImplementedError, match=f"item {item}b"):
-                get_model(ModelConfig(name=name, seq_len=8), input_dim=5,
-                          device="cpu", mesh=mesh)
+        moe = get_model(ModelConfig(name="weather_moe", seq_len=8),
+                        input_dim=5, device="cpu", mesh=mesh)
+        assert isinstance(moe.seq_parallel, SequenceParallelAttention)
+        assert all(b.moe.seq_size == 2 for b in moe.blocks())
+        gru = get_model(ModelConfig(name="weather_gru", seq_len=8),
+                        input_dim=5, device="cpu", mesh=mesh)
+        assert gru.seq_len == 8
+        with pytest.raises(ValueError, match=f"item {item}b"):
+            ring_flash(192, striped=False, window=None, device="cuda")
     else:
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             refuse_unported_env({f"DCT_MESH_{axis}": "2"})

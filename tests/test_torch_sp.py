@@ -17,7 +17,8 @@ multi-device mesh.
   ``weather_transformer_causal`` on a seq grid equal the reference's mesh
   run (``tests/test_transformer.py:149``, ``tests/test_causal_family.py
   :123``): every loss within 1e-5, the parameters within 1e-5.
-- ``train_job`` takes ``DCT_MESH_SEQ`` and refuses what item 16b ports.
+- ``train_job`` takes ``DCT_MESH_SEQ``: the transformers, the MoE and
+  ZeRO-1 on a seq axis end on one process's val_loss.
 
 The worlds are few, each serves several tests, and every subprocess has a
 bound that holds on a loaded machine.
@@ -468,8 +469,8 @@ def _fit_line(out):
 @pytest.fixture(scope="module")
 def sp_fits(tmp_path_factory):
     """train_job at W=1 and at ``seq=2`` (the causal family on the striped
-    ring, the pooled family on the all-to-all engine), dropout 0.2, and
-    the refusals item 16b ports, all started at once."""
+    ring, the pooled family on the all-to-all engine, the MoE and ZeRO-1
+    on the ring), dropout 0.2, all started at once."""
     from dct_tpu_torch.data.synthetic import generate_weather_csv
     from dct_tpu_torch.etl.preprocess import preprocess_csv_to_parquet
 
@@ -487,6 +488,8 @@ def sp_fits(tmp_path_factory):
         "pooled2": _train_job(processed, tmp, "pooled2", world=2,
                               DCT_MESH_SEQ="2", DCT_SP_ENGINE="a2a",
                               **pooled),
+        "moe1": _train_job(processed, tmp, "moe1", world=1,
+                           DCT_MODEL="weather_moe", DCT_N_EXPERTS="2"),
         "moe": _train_job(processed, tmp, "moe", world=2, DCT_MESH_SEQ="2",
                           DCT_MODEL="weather_moe", DCT_N_EXPERTS="2"),
         "zero1": _train_job(processed, tmp, "zero1", world=2,
@@ -510,11 +513,18 @@ def test_train_job_on_a_seq_axis_equals_one_process(sp_fits, family):
         assert fit["val_loss"] == pytest.approx(one["val_loss"], abs=1e-5)
 
 
-@pytest.mark.parametrize("run", ["moe", "zero1"])
-def test_train_job_refuses_what_item_16b_ports(sp_fits, run):
-    """The MoE and ZeRO-1 on a seq axis stop every rank, naming 16b."""
-    for rc, _, err in sp_fits[run]:
-        assert rc != 0 and "item 16b" in err, err[-2000:]
+@pytest.mark.parametrize("run,one", [("moe", "moe1"), ("zero1", "pooled1")])
+def test_train_job_refuses_what_item_16b_ports(sp_fits, run, one):
+    """What item 16b refused until it was ported, the MoE and ZeRO-1 on a
+    seq axis, now trains: every rank ends on the W=1 run's val_loss."""
+    (rc1, out1, err1), = sp_fits[one]
+    assert rc1 == 0, err1[-2000:]
+    want = _fit_line(out1)["val_loss"]
+    for rc, out, err in sp_fits[run]:
+        assert rc == 0, err[-3000:]
+        fit = _fit_line(out)
+        assert fit["mesh"] == {"data": 1, "model": 1, "seq": 2, "pipe": 1}
+        assert fit["val_loss"] == pytest.approx(want, abs=1e-5)
 
 
 @pytest.mark.parametrize("t_local,striped,window,cpu,card", [
