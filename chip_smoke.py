@@ -381,19 +381,64 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
        rank ends within 1e-5 of W=1's val_loss (f32; 5e-3 bf16) and
        launched W=1's kernels times its calls per layer (the GRU none).
 
+(o) The engines on a mesh, the re-map of a shard-saved resume, per-layer
+   FSDP and rule layouts outside the family tables
+   (``mesh_engines_phase``; ``--phase o`` runs only the kernel build and
+   (o)), on (m)'s rows (1600 windows of 1024) and a random bench-width
+   transformer checkpoint (seed 15):
+   (o0) on any count of cards: flash_fwd, f32 and bf16, against its plain
+       version at the per-rank shapes of (o2)'s worlds (chunks of
+       PREDICT_CHUNK: one card ``[256, 8]``, data=4 ``[64, 8]``, data=2
+       model=2 ``[128, 4]``, a data=2 seq=2 ring step ``[128, 8]`` over
+       512 of 512 positions; FWD_TOL on o, 1e-4 on the lse), then
+       ``predict_job`` on one card in f32 and in bf16
+       (``DCT_PREDICT_DTYPE``), bf16 within 2e-2 of f32, each with its
+       windows/s (the loop's, and after the first chunk), its set-up
+       seconds and 4 forward launches a chunk. In the whole script it
+       runs at the end of the (f) chain;
+   (o1) on four cards, ``train_job`` on (m)'s schedule (f32, ZeRO-1): one
+       epoch at ``data=2, model=2`` resumed for a second at ``data=4``, and
+       one epoch by 2 processes at ``data=2`` resumed by 4 (the new ranks
+       from their siblings' files). Each saved state restored by one CPU
+       process on model=1 equals the dense value tiled from the ranks'
+       files leaf for leaf; every rank of a pivoted run logs
+       ``shard.topology_remap`` (its leaf count printed) and ends within
+       1e-5 of the val_loss of the control continuation on the saving
+       grid;
+   (o2) on four cards, ``predict_job`` at ``data=4``, ``data=2 model=2``
+       and ``data=2 seq=2`` (the ring), f32 within 1e-5 and bf16 within
+       2e-2 of one card's f32 probabilities, only the coordinator writing;
+       every rank launches one card's chunks times 4 layers times its
+       calls per layer (the ring 2); the windows/s of each (the loop's,
+       and after the first chunk) and its set-up seconds beside one
+       card's;
+   (o3) on four cards, one epoch each: FSDP at ``data=4`` (the units
+       replicated by rules, so every leaf splits) against DP (1e-5), each
+       rank's peak of gathered parameter bytes at most its largest unit's
+       beside the small units' held for the step, and below the whole
+       model's; the three clauses
+       ``qkv_proj.*/kernel$=``, ``head/kernel$=-,model`` and
+       ``in_proj/kernel$=seq`` in one world at ``data=2, model=2``
+       within 1e-5 of W=1, and ``in_proj/kernel$=-,seq`` at ``data=2
+       seq=2`` within 1e-4 (the ring); step ms, samples/s and peak
+       memory per rank printed.
+   Then ``[smoke] (o) summary`` and ``phase_o.json``; on fewer than four
+   cards one line, ``{"phase": "o", "ran": false, "cards": 1}``.
+
 After (g), four chains share the card: (h1) then (k) in this thread,
 (l) beside them (the two hold one lock around every part that reads
-this process's launch counts), (i) then (j1), and (f), (h0) then (h2);
-(l) runs over its own LOOP_ROWS rows (those of (h1)'s first cycle).
-(i2), (j2)/(j3), (m) and (n) follow once all four have ended. Each phase
-prints its wall on a ``[smoke] wall`` line, and all of them, with the
-total, on ``[smoke] walls``.
+this process's launch counts), (i) then (j1), and (f), (h0), (h2) then
+(o0); (l) runs over its own LOOP_ROWS rows (those of (h1)'s first
+cycle). (i2), (j2)/(j3), (m), (n) and (o)'s worlds follow once all four
+have ended. Each phase prints its wall on a ``[smoke] wall`` line, and
+all of them, with the total, on ``[smoke] walls``.
 
 Prints the ``kernels`` JSON line (each kernel with its f32 numbers at the
 top level, as earlier slices did, a ``bf16`` summary beside them, its
 ``tensor_core_instructions`` by dtype and (n0)'s ``sp_variants``;
 ``launches_by_path`` gains ``serve_k``, ``predict``, ``knobs``,
-``families``, ``model_axis`` and ``sequence_parallel``),
+``families``, ``model_axis``, ``sequence_parallel`` and (o)'s
+``predict_mesh``, ``fsdp_layers`` and ``remap``),
 then the card line,
 then, last, ``{"ok": true, "device": {...}}``. Any failure raises.
 """
@@ -402,6 +447,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import shutil
@@ -3093,6 +3139,22 @@ def k_endpoint_phase(fa, root: str) -> dict:
     return out
 
 
+
+def _predict_line(line: str) -> dict:
+    """``predict_job``'s ``scored`` line: windows, the scoring loop's
+    seconds (``score_s``), the set-up's (``build_s``: the model built and
+    its weights loaded), the first chunk's, the windows a second of the
+    chunks after it, and the flash launches."""
+    m = re.match(r"\[predict_job\] scored (\d+) in ([0-9.]+) s \(build "
+                 r"([0-9.]+) s, first chunk ([0-9.]+) s, ([0-9.]+) windows/s "
+                 r"after it; .*launches (\{.*\})", line)
+    if not m:
+        raise AssertionError(f"predict_job line not understood: {line}")
+    return {"windows": int(m.group(1)), "score_s": float(m.group(2)),
+            "build_s": float(m.group(3)), "first_chunk_s": float(m.group(4)),
+            "steady_windows_per_s": float(m.group(5)),
+            "launches": json.loads(m.group(6))}
+
 def k_predict_phase(root: str, ckpt: str, processed: str) -> dict:
     """(k6) ``python -m dct_tpu_torch.predict_job`` on the card over (h)'s
     processed rows with (g)'s checkpoint, chunks of ``PREDICT_CHUNK``;
@@ -3114,10 +3176,8 @@ def k_predict_phase(root: str, ckpt: str, processed: str) -> dict:
             if x.startswith("[predict_job] scored ")]
     if r.returncode != 0 or not line:
         raise AssertionError(f"(k6) exit {r.returncode}: {r.stderr[-2000:]}")
-    m = re.match(r"\[predict_job\] scored (\d+) in ([0-9.]+) s .*launches "
-                 r"(\{.*\})", line[-1])
-    n, seconds = int(m.group(1)), float(m.group(2))
-    launches = json.loads(m.group(3).replace("'", '"'))
+    job = _predict_line(line[-1])
+    n, seconds, launches = job["windows"], job["score_s"], job["launches"]
     chunks = -(-n // PREDICT_CHUNK)
     table = read_table(out_path)
     probs = np.stack([table["prob_0"], table["prob_1"]], axis=1)
@@ -3135,7 +3195,9 @@ def k_predict_phase(root: str, ckpt: str, processed: str) -> dict:
         raise AssertionError(f"(k6) launches {launches} (want {want}), rows "
                              f"{len(table['row'])} of {n}, numpy err {err}")
     out = {"windows": n, "chunk": PREDICT_CHUNK, "chunks": chunks,
-           "score_s": seconds, "windows_per_s": n / seconds,
+           "build_s": job["build_s"], "score_s": seconds,
+           "windows_per_s": n / seconds,
+           "steady_windows_per_s": job["steady_windows_per_s"],
            "launches": launches, "launches_per_chunk": launches["flash_fwd"]
            / chunks, "torch_vs_numpy_first16_max_abs": err,
            "columns": sorted(table)}
@@ -3606,10 +3668,8 @@ def family_predict(family: str, ckpt: str, processed: str,
     if r.returncode != 0 or not line:
         raise AssertionError(f"(l2) {family} predict exit {r.returncode}: "
                              f"{r.stderr[-2000:]}")
-    m = re.match(r"\[predict_job\] scored (\d+) in ([0-9.]+) s .*launches "
-                 r"(\{.*\})", line[-1])
-    n, seconds = int(m.group(1)), float(m.group(2))
-    launches = json.loads(m.group(3).replace("'", '"'))
+    job = _predict_line(line[-1])
+    n, seconds, launches = job["windows"], job["score_s"], job["launches"]
     chunks = -(-n // PREDICT_CHUNK)
     table = read_table(out_path)
     probs = np.stack([table["prob_0"], table["prob_1"]], axis=1)
@@ -3635,7 +3695,9 @@ def family_predict(family: str, ckpt: str, processed: str,
                              f"{n}, numpy err {err}")
     out = {"family": family, "windows": n, "chunk": PREDICT_CHUNK,
            "chunks": chunks, "full_chunks_checked": full // PREDICT_CHUNK,
-           "score_s": seconds, "windows_per_s": n / seconds,
+           "build_s": job["build_s"], "score_s": seconds,
+           "windows_per_s": n / seconds,
+           "steady_windows_per_s": job["steady_windows_per_s"],
            "launches": launches, "numpy_max_abs_err": err,
            "worst_row": worst_row}
     print(f"[smoke] (l2) predict job {out}", flush=True)
@@ -3835,7 +3897,7 @@ def _mesh_summary(run: dict, base: dict | None = None) -> dict:
 
 
 def _check_mesh_run(run: dict, base: dict, tol: float, *, heads=None,
-                    where: str) -> dict:
+                    where: str, tag: str = "(m)") -> dict:
     """Every rank ends on the same val_loss, within ``tol`` of the W=1 run
     at the same global batch; every rank launched the W=1 run's kernels
     (the same steps and eval batches, each layer once), at ``heads``."""
@@ -3843,18 +3905,18 @@ def _check_mesh_run(run: dict, base: dict, tol: float, *, heads=None,
     losses = {r["val_loss"] for r in run["ranks"]}
     want = base["ranks"][0]["launches"]
     if DEVICE == "cuda" and not all(want.values()):
-        raise AssertionError(f"(m) {where}: the W=1 run launched {want}")
+        raise AssertionError(f"{tag} {where}: the W=1 run launched {want}")
     bad = [r["launches"] for r in run["ranks"] if r["launches"] != want]
     if len(losses) != 1 or summary["val_loss_diff"] > tol or bad:
-        raise AssertionError(f"(m) {where}: val_losses {losses} against "
+        raise AssertionError(f"{tag} {where}: val_losses {losses} against "
                              f"{base['ranks'][0]['val_loss']} (tol {tol}), "
                              f"launches {bad} against {want}")
     if heads is not None and any(r["local_heads"] != heads
                                  for r in run["ranks"]):
-        raise AssertionError(f"(m) {where}: local heads "
+        raise AssertionError(f"{tag} {where}: local heads "
                              f"{[r['local_heads'] for r in run['ranks']]}"
                              f" against {heads}")
-    print(f"[smoke] (m) {where}: {json.dumps(summary)}", flush=True)
+    print(f"[smoke] {tag} {where}: {json.dumps(summary)}", flush=True)
     return summary
 
 
@@ -4313,7 +4375,7 @@ def sp_forward_calls(layout: str, my: int, s: int, n_steps: int) -> int:
 
 
 def _check_sp_run(run: dict, base: dict, tol: float, *, layout: str,
-                  n_steps: int = 1, where: str) -> dict:
+                  n_steps: int = 1, where: str, tag: str = "(n)") -> dict:
     """Every rank ends on the same val_loss, within ``tol`` of W=1's; each
     rank launched W=1's kernels times its forward calls per layer
     (:func:`sp_forward_calls`; rank r sits at seq index r % S), none
@@ -4322,7 +4384,7 @@ def _check_sp_run(run: dict, base: dict, tol: float, *, layout: str,
     losses = {r["val_loss"] for r in run["ranks"]}
     want1 = base["ranks"][0]["launches"]
     if DEVICE == "cuda" and (layout is None) == all(want1.values()):
-        raise AssertionError(f"(n) {where}: the W=1 run launched {want1}")
+        raise AssertionError(f"{tag} {where}: the W=1 run launched {want1}")
     s, bad, per_rank = run["seq"], [], []
     for r, rank in enumerate(run["ranks"]):
         calls = (0 if layout is None
@@ -4333,10 +4395,10 @@ def _check_sp_run(run: dict, base: dict, tol: float, *, layout: str,
             bad.append((r, rank["launches"], want))
     summary["forward_calls_per_layer"] = per_rank
     if len(losses) != 1 or summary["val_loss_diff"] > tol or bad:
-        raise AssertionError(f"(n) {where}: val_losses {losses} against "
+        raise AssertionError(f"{tag} {where}: val_losses {losses} against "
                              f"{base['ranks'][0]['val_loss']} (tol {tol}), "
                              f"launches (rank, got, want) {bad}")
-    print(f"[smoke] (n) {where}: {json.dumps(summary)}", flush=True)
+    print(f"[smoke] {tag} {where}: {json.dumps(summary)}", flush=True)
     return summary
 
 
@@ -4474,11 +4536,401 @@ def n12_phase(root: str, processed: str, cards: int, out: dict,
             n_steps=steps, where=f"n2 {where}")
 
 
+# (o) the engines on a mesh, the re-map of a shard-saved resume, per-layer
+# FSDP and rule layouts outside the family tables, on (m)'s rows.
+O_PREDICT_MESHES = {"data4": {"data": 4},
+                    "data2_model2": {"data": 2, "model": 2},
+                    "data2_seq2": {"data": 2, "seq": 2}}
+O_PREDICT_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # against W=1 f32
+# The three clauses outside the family tables, in one world at data=2,
+# model=2 (seq is one process there), and a seq placement the processed
+# rows' five input features allow (in_proj's output dim) at data=2 seq=2.
+O_RULES = "qkv_proj.*/kernel$=;head/kernel$=-,model;in_proj/kernel$=seq"
+O_SEQ_RULE = "in_proj/kernel$=-,seq"
+
+
+def _fwd_rank_row(fa, gen, shape, dtype, *, where: str) -> dict:
+    """flash_fwd against its plain version at one per-rank shape ``[B, H,
+    Tq, Tk, D]`` (q and k/v alike, not causal), FWD_TOL on o and 1e-4 on
+    the lse; the plain version in row blocks of 32 (its scores are
+    ``B H Tq Tk`` floats)."""
+    b, h, tq, tk, d = shape
+    q = torch.randn(b, h, tq, d, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(b, h, tk, d, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    o, lse = fa.flash_attention(q, k, v, causal=False, return_lse=True)
+    torch.cuda.synchronize()
+    parts = [fa.flash_attention_plain(q[i:i + 32], k[i:i + 32], v[i:i + 32],
+                                      causal=False) for i in range(0, b, 32)]
+    po = torch.cat([p[0] for p in parts])
+    plse = torch.cat([p[1] for p in parts])
+    row = {"shape": [b, h, tq, tk, d],
+           "dtype": str(dtype).replace("torch.", ""),
+           "o_max_abs_err": abs_rel_err(o, po)[0],
+           "lse_max_abs_err": (lse - plse).abs().max().item()}
+    if (not row["o_max_abs_err"] <= FWD_TOL[dtype]
+            or not row["lse_max_abs_err"] <= 1e-4):
+        raise AssertionError(f"{where} flash_fwd at the per-rank shape: "
+                             f"{row} (tol {FWD_TOL[dtype]} on o, 1e-4 on "
+                             "the lse)")
+    print(f"[smoke] {where} rank shape {json.dumps(row)}", flush=True)
+    return row
+
+
+def check_o_rank_shapes(fa) -> list[dict]:
+    """(o0) flash_fwd, f32 and bf16, at the per-rank shapes of (o2)'s
+    predict worlds (chunks of PREDICT_CHUNK windows, T=1024, D=64): one
+    card ``[256, 8]``, data=4 ``[64, 8]``, data=2 model=2 ``[128, 4]`` and
+    a data=2 seq=2 ring step ``[128, 8]`` over 512 of 512 positions."""
+    h, t = MESH_CFG["n_heads"], MESH_CFG["seq_len"]
+    d, c = MESH_CFG["d_model"] // h, PREDICT_CHUNK
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    return [_fwd_rank_row(fa, gen, shape, dtype, where="(o0)")
+            for shape in ((c, h, t, t, d), (c // 4, h, t, t, d),
+                          (c // 2, h // 2, t, t, d),
+                          (c // 2, h, t // 2, t // 2, d))
+            for dtype in (torch.float32, torch.bfloat16)]
+
+
+def o_inputs(root: str) -> tuple[str, str]:
+    """(o)'s inputs: (m)'s rows (MESH_ROWS, seed 12: 1600 windows of 1024)
+    and a random bench-width transformer checkpoint (seed 15)."""
+    from dct_tpu_torch.checkpoint.manager import save_checkpoint
+    from dct_tpu_torch.data.synthetic import generate_weather_csv
+    from dct_tpu_torch.etl.preprocess import preprocess_csv_to_parquet
+    from dct_tpu_torch.models.registry import config_from_meta, get_model
+
+    shutil.rmtree(root, ignore_errors=True)
+    raw = os.path.join(root, "raw", "weather.csv")
+    generate_weather_csv(raw, rows=MESH_ROWS, seed=12)
+    processed = os.path.join(root, "processed")
+    preprocess_csv_to_parquet(raw, processed)
+    torch.manual_seed(15)
+    ckpt = save_checkpoint(os.path.join(root, "ckpt", "last.ckpt"),
+                           get_model(config_from_meta(K_META), device="cpu"),
+                           K_META)
+    return ckpt, processed
+
+
+def _start_predict(root: str, name: str, ckpt: str, processed: str, *,
+                   mesh: dict, dtype: str, first_card: int = 0) -> dict:
+    """One world of ``predict_job`` ranks (rank r on the r-th of its
+    cards, NCCL; one process without a world) over ``processed``."""
+    world = math.prod(mesh.values())
+    port = _free_port()
+    procs = []
+    for r in range(world):
+        env = _child_env(
+            DCT_CKPT=ckpt, DCT_PROCESSED_DIR=processed,
+            DCT_PREDICTIONS=os.path.join(root, f"{name}.{r}.parquet"),
+            DCT_PREDICT_CHUNK=str(PREDICT_CHUNK), DCT_PREDICT_DTYPE=dtype,
+            CUDA_VISIBLE_DEVICES=",".join(
+                str(first_card + i) for i in range(world)),
+            **{f"DCT_MESH_{a.upper()}": str(n) for a, n in mesh.items()})
+        if world > 1:
+            env.update(WORLD_SIZE=str(world), NODE_RANK=str(r),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "dct_tpu_torch.predict_job"], env=env,
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    return {"name": name, "procs": procs, "mesh": mesh, "dtype": dtype,
+            "root": root}
+
+
+def _finish_predict(started: dict) -> dict:
+    """Each rank's windows, seconds and launches, and the coordinator's
+    probabilities (no other rank writes)."""
+    from dct_tpu_torch.etl.parquet import read_table
+
+    procs, name, root = started["procs"], started["name"], started["root"]
+    ranks = []
+    try:
+        for r, p in enumerate(procs):
+            out, err = p.communicate(timeout=600)
+            line = [x for x in out.splitlines()
+                    if x.startswith("[predict_job] scored ")]
+            if p.returncode != 0 or not line:
+                raise AssertionError(f"(o) predict {name} rank {r} exit "
+                                     f"{p.returncode}: {err[-3000:]}")
+            ranks.append(_predict_line(line[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(os.path.exists(os.path.join(root, f"{name}.{r}.parquet"))
+           for r in range(1, len(procs))):
+        raise AssertionError(f"(o) predict {name}: a rank other than the "
+                             "coordinator wrote predictions")
+    table = read_table(os.path.join(root, f"{name}.0.parquet"))
+    probs = np.stack([table["prob_0"], table["prob_1"]], axis=1)
+    n = ranks[0]["windows"]
+    if len(probs) != n or not np.isfinite(probs).all():
+        raise AssertionError(f"(o) predict {name}: {len(probs)} rows of {n}")
+    return {"name": name, "mesh": started["mesh"],
+            "dtype": started["dtype"], "probs": probs, "ranks": ranks,
+            "windows": n, "windows_per_s": n / max(r["score_s"]
+                                                  for r in ranks),
+            "steady_windows_per_s": min(r["steady_windows_per_s"]
+                                        for r in ranks)}
+
+
+def _predict_summary(run: dict, base: dict, calls_per_layer: int) -> dict:
+    """``run`` against one card's f32 probabilities (O_PREDICT_TOL of its
+    dtype); every rank's forward launches one card's chunks times the
+    layers times ``calls_per_layer``."""
+    chunks = -(-run["windows"] // PREDICT_CHUNK)
+    want = {"flash_fwd": chunks * MESH_CFG["n_layers"] * calls_per_layer,
+            "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    err = float(np.abs(run["probs"] - base["probs"]).max())
+    out = {"mesh": run["mesh"], "dtype": run["dtype"],
+           "windows": run["windows"], "windows_per_s": run["windows_per_s"],
+           "steady_windows_per_s": run["steady_windows_per_s"],
+           "build_s": [r["build_s"] for r in run["ranks"]],
+           "score_s": [r["score_s"] for r in run["ranks"]],
+           "launches": [r["launches"] for r in run["ranks"]],
+           "max_abs_err_vs_one_card_f32": err}
+    bad = [r["launches"] for r in run["ranks"] if r["launches"] != want]
+    if DEVICE == "cuda" and bad or not err <= O_PREDICT_TOL[run["dtype"]]:
+        raise AssertionError(f"(o) predict {run['name']}: {out} (launches "
+                             f"want {want}, tol {O_PREDICT_TOL[run['dtype']]}"
+                             ")")
+    print(f"[smoke] (o) predict {run['name']}: {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def o_one_card(fa, root: str, counted=None) -> dict:
+    """(o0) on any count of cards (module docstring); ``counted`` is held
+    around the kernel checks, which launch in this process. ``root`` is
+    emptied first."""
+    with counted or contextlib.nullcontext():
+        rank_shapes = check_o_rank_shapes(fa)
+    ckpt, processed = o_inputs(root)
+    runs = {dtype: _finish_predict(_start_predict(
+        root, f"o0-{dtype}", ckpt, processed, mesh={"data": 1},
+        dtype=dtype)) for dtype in ("float32", "bfloat16")}
+    base = runs["float32"]
+    out = {"rank_shapes": rank_shapes, "ckpt": ckpt, "processed": processed,
+           "base": base,
+           "predict": {d: _predict_summary(r, base, 1)
+                       for d, r in runs.items()}}
+    out["launches"] = {k: sum(r["launches"][k] for run in runs.values()
+                              for r in run["ranks"])
+                       for k in ("flash_fwd", "flash_bwd_dkdv",
+                                 "flash_bwd_dq")}
+    print(f"[smoke] (o0) {json.dumps(out['predict'])}", flush=True)
+    return out
+
+
+def _remap_check(models: str, ranks: int) -> dict:
+    """Rank 0's shard-saved state of ``models`` restored by one CPU
+    process on model=1 from its siblings' files: every leaf equal to the
+    dense value tiled from the ``ranks`` files (``np.array_equal``)."""
+    from dct_tpu_torch.checkpoint.manager import (
+        TrainStateCheckpointer,
+        state_leaves,
+    )
+    from dct_tpu_torch.models.registry import config_from_meta, get_model
+    from dct_tpu_torch.parallel.mesh import ProcessMesh
+    from dct_tpu_torch.train.state import create_train_state
+
+    files = []
+    for r in range(ranks):
+        with np.load(os.path.join(models, "train_state", f"p{r}", "state",
+                                  "state.npz")) as npz:
+            files.append({k: npz[k] for k in npz.files})
+    model = get_model(config_from_meta(K_META), device="cpu")
+    st = create_train_state(model, input_dim=K_META["input_dim"],
+                            lr=MESH_LR, seed=0, optimizer="sgd",
+                            momentum=MESH_MOMENTUM,
+                            mesh=ProcessMesh(1, 1, rank=0, world=1),
+                            family=K_META["model"])
+    ck = TrainStateCheckpointer(os.path.join(models, "train_state", "p0"))
+    ck.restore(st)
+    unequal = []
+    for n, leaf in enumerate(state_leaves(st)):
+        dense = np.zeros(np.shape(leaf), np.asarray(leaf).dtype)
+        for entries in files:
+            for k, v in entries.items():
+                if k == str(n):
+                    dense[...] = v
+                elif k.startswith(f"{n}_s"):
+                    off = [int(o) for o in k[len(f"{n}_s"):].split("x")]
+                    dense[tuple(slice(o, o + s)
+                                for o, s in zip(off, v.shape))] = v
+        if not np.array_equal(np.asarray(leaf), dense):
+            unequal.append(n)
+    if unequal or not ck.last_remap:
+        raise AssertionError(f"(o1) {models}: leaves {unequal} restored "
+                             f"apart from the saved state ({ck.last_remap})")
+    return {"leaves_remapped_on_model1": ck.last_remap["leaves"],
+            "leaves_bitwise": len(state_leaves(st))}
+
+
+def _remap_events(models: str) -> list[dict]:
+    with open(os.path.join(models, "events", "events.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return [r for r in recs if r["event"] == "shard.topology_remap"]
+
+
+def o1_remap(root: str, processed: str, out: dict, runs: list) -> None:
+    """(o1) one epoch at data=2 model=2 (ZeRO-1) resumed for a second at
+    data=4, and one epoch by 2 processes at data=2 resumed by 4, each
+    against the control continuation on its saving grid."""
+    tf = "weather_transformer"
+    for name in ("grid", "two", "pivot", "grown"):
+        shutil.rmtree(os.path.join(root, f"models-o1-{name}"),
+                      ignore_errors=True)
+
+    def world(name, data, model, size=None, **extra):
+        run = _mesh_world(root, name, processed, family=tf, bf16=False,
+                          data=data, model=model, world=size,
+                          batch=MESH_BATCH // data, epochs=1,
+                          DCT_SHARD_OPT_STATE="1",
+                          DCT_EVENTS_DIR=os.path.join(
+                              root, f"models-{name}", "events"), **extra)
+        runs.append(run)
+        return run
+
+    world("o1-grid", 2, 2)
+    world("o1-two", 2, 1)
+    bitwise = {}
+    for src, dst, ranks in (("grid", "pivot", 4), ("two", "grown", 2)):
+        shutil.copytree(os.path.join(root, f"models-o1-{src}"),
+                        os.path.join(root, f"models-o1-{dst}"))
+        bitwise[dst] = _remap_check(os.path.join(root, f"models-o1-{dst}"),
+                                    ranks)
+    pairs = {"pivot": (world("o1-grid", 2, 2, DCT_RESUME="1"),
+                       world("o1-pivot", 4, 1, DCT_RESUME="1")),
+             "grown": (world("o1-two", 2, 1, DCT_RESUME="1"),
+                       world("o1-grown", 4, 1, DCT_RESUME="1"))}
+    for name, (control, pivot) in pairs.items():
+        s = _mesh_summary(pivot, control)
+        remaps = [r for r in _remap_events(pivot["models"])
+                  if r.get("to_processes") == 4]
+        s.update(bitwise[name], remapped_leaves_by_rank={
+            r["rank"]: r["leaves"] for r in remaps},
+            from_mesh=remaps[0]["from_mesh"] if remaps else None)
+        losses = {r["val_loss"] for r in pivot["ranks"]}
+        if (len(losses) != 1 or s["val_loss_diff"] > 1e-5
+                or sorted(s["remapped_leaves_by_rank"]) != [0, 1, 2, 3]):
+            raise AssertionError(f"(o1) {name}: {s} (val_losses {losses}, "
+                                 "tol 1e-5)")
+        print(f"[smoke] (o1) {name}: shard.topology_remap leaves "
+              f"{s['remapped_leaves_by_rank']}; {json.dumps(s)}", flush=True)
+        out["o1"][name] = s
+
+
+def o2_predict(root: str, ckpt: str, processed: str, base: dict, out: dict,
+               counts: dict) -> None:
+    """(o2) predict_job on the three grids, f32 and bf16, against one
+    card's f32 probabilities."""
+    for name, mesh in O_PREDICT_MESHES.items():
+        calls = sp_forward_calls("ring", 0, mesh.get("seq", 1), 1)
+        for dtype in ("float32", "bfloat16"):
+            tag = f"{name}_{dtype}"
+            run = _finish_predict(_start_predict(
+                root, f"o2-{tag}", ckpt, processed, mesh=mesh, dtype=dtype))
+            out["o2"][tag] = s = _predict_summary(run, base, calls)
+            s["windows_per_s_one_card_f32"] = base["windows_per_s"]
+            for launches in s["launches"]:
+                for k, v in launches.items():
+                    counts[k] += v
+
+
+def o3_fsdp_and_rules(root: str, processed: str, out: dict,
+                      runs: list) -> None:
+    """(o3) per-layer FSDP at data=4 against DP; the rule layouts at
+    data=2 model=2 and data=2 seq=2 against W=1; one epoch each."""
+    tf = "weather_transformer"
+
+    def world(name, data=1, model=1, seq=1, **extra):
+        shutil.rmtree(os.path.join(root, f"models-{name}"),
+                      ignore_errors=True)
+        run = _mesh_world(root, name, processed, family=tf, bf16=False,
+                          data=data, model=model, world=data * model * seq,
+                          batch=MESH_BATCH // data, epochs=1,
+                          DCT_MESH_SEQ=str(seq), **extra)
+        run["seq"] = seq
+        runs.append(run)
+        return run
+
+    dp = world("o3-dp", data=4)
+    # The units replicated by rules, so every leaf whose leading dim
+    # divides is FSDP's (under the tables the projections keep their
+    # trivial model placement).
+    fsdp = world("o3-fsdp", data=4, DCT_SHARD_PARAMS="1",
+                 DCT_SHARD_RULES=MESH_REPLICATE_UNITS)
+    s = _check_mesh_run(fsdp, dp, 1e-5, where="fsdp data=4", tag="(o3)")
+    s["gathered"] = [{k: r[k] for k in (
+        "gathered_peak_bytes", "unit_bytes_max", "unit_bytes_sum",
+        "step_unit_bytes")} for r in fsdp["ranks"]]
+    for g in s["gathered"]:
+        # One unit at a time (no prefetch) beside the small units held for
+        # the step; the whole model's FSDP leaves are what one gather held
+        # before.
+        if not 0 < g["gathered_peak_bytes"] <= g["unit_bytes_max"] + g[
+                "step_unit_bytes"] < g["unit_bytes_sum"]:
+            raise AssertionError(f"(o3) fsdp gathered {g}")
+    out["o3"]["fsdp"] = s
+    out["o3"]["dp"] = _mesh_summary(dp)
+    print(f"[smoke] (o3) fsdp gathered bytes per rank {s['gathered']}",
+          flush=True)
+    base = world("o3-w1")
+    out["o3"]["w1"] = _mesh_summary(base)
+    rules = world("o3-rules", data=2, model=2, DCT_SHARD_RULES=O_RULES)
+    out["o3"]["rules_data2_model2"] = _check_mesh_run(
+        rules, base, 1e-5, where="rules data=2 model=2", tag="(o3)")
+    seq = world("o3-seq-rule", data=2, seq=2, DCT_SHARD_RULES=O_SEQ_RULE)
+    out["o3"]["seq_rule_data2_seq2"] = _check_sp_run(
+        seq, base, SP_TOL["0"], layout="ring", where="seq rule data=2 seq=2",
+        tag="(o3)")
+
+
+def mesh_engines_phase(fa, root: str, card: str, o0: dict | None = None
+                       ) -> dict:
+    """(o) (module docstring): (o0) on any count of cards (unless given),
+    (o1)-(o3) on four; one line saying they did not run on fewer."""
+    t_phase = time.perf_counter()
+    if o0 is None:
+        o0 = o_one_card(fa, os.path.join(root, "o0"))
+    cards = torch.cuda.device_count()
+    zero = {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    out = {"o0": {k: o0[k] for k in ("rank_shapes", "predict")},
+           "predict_launches": o0["launches"], "fsdp_launches": dict(zero),
+           "remap_launches": dict(zero)}
+    if cards < 4:
+        print(json.dumps({"phase": "o", "ran": False, "cards": cards}),
+              flush=True)
+        return out
+    out.update(ran=True, cards=cards, card=card, o1={}, o2={}, o3={})
+    runs, fsdp_runs = [], []
+    o1_remap(root, o0["processed"], out, runs)
+    counts = dict(out["predict_launches"])
+    o2_predict(root, o0["ckpt"], o0["processed"], o0["base"], out, counts)
+    out["predict_launches"] = counts
+    o3_fsdp_and_rules(root, o0["processed"], out, fsdp_runs)
+    out["fsdp_launches"] = {k: sum(r["launches"][k] for run in fsdp_runs
+                                   for r in run["ranks"]) for k in zero}
+    out["remap_launches"] = {k: sum(r["launches"][k] for run in runs
+                                    for r in run["ranks"]) for k in zero}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[smoke] (o) engines on {cards} cards, phase "
+          f"{out['phase_s']:.1f} s on {card}", flush=True)
+    print(f"[smoke] (o) summary {json.dumps(out)}", flush=True)
+    with open(os.path.join(root, "phase_o.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("all", "k", "l", "m", "n", "n3"),
+    ap.add_argument("--phase",
+                    choices=("all", "k", "l", "m", "n", "n3", "o"),
                     default="all",
                     help="k: build the kernels and run only (k), over a "
                          "random full-width checkpoint and synthetic rows; "
@@ -4486,7 +4938,9 @@ def main(argv=None) -> int:
                          "the model axis, on two or more cards; n: only "
                          "(n), the seq axis (its worlds on two or more "
                          "cards); n3: only (n3), the MoE, the GRU and "
-                         "ZeRO-1/FSDP on the seq axis")
+                         "ZeRO-1/FSDP on the seq axis; o: only (o), the "
+                         "engines on a mesh, the re-map and per-layer FSDP "
+                         "(its worlds on four cards)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     walls: dict = {}
@@ -4533,10 +4987,13 @@ def main(argv=None) -> int:
     tc_counts = tensor_core_instructions(build)
     print(f"[smoke] tensor-core instructions: {tc_counts}", flush=True)
 
-    if args.phase in ("m", "n", "n3"):
+    engines_root = os.path.join(HERE, "build", "chip_smoke_engines")
+    if args.phase in ("m", "n", "n3", "o"):
         if args.phase == "m":
             model_axis_phase(os.path.join(HERE, "build", "chip_smoke_mesh"),
                              card)
+        elif args.phase == "o":
+            walled("engines", mesh_engines_phase, fa, engines_root, card)
         else:
             sequence_phase(os.path.join(HERE, "build", "chip_smoke_seq"),
                            card, n3_only=args.phase == "n3")
@@ -4625,6 +5082,8 @@ def main(argv=None) -> int:
         walled("etl", etl_phase, os.path.join(loop_root, "etl"), card)
         walled("loop_job", loop_job_phase,
                os.path.join(loop_root, "loop_job"), card)
+        return walled("o0", o_one_card, fa,
+                      os.path.join(engines_root, "o0"), counted)
 
     def families():
         rows = synthetic_rows(os.path.join(fam_root, "rows"))
@@ -4647,7 +5106,7 @@ def main(argv=None) -> int:
         k_counts = served_k["launches"]
         l_counts = chain_l.result()["launches"]
         supervised, quota = chain_i.result()
-        chain_f.result()
+        o0 = chain_f.result()
     torch.cuda.empty_cache()  # the drills below read the card alone
     hang = walled("hang_drill", hang_drill, sup_root, card,
                   supervised["clean_env"], supervised["per_epoch"])
@@ -4663,6 +5122,10 @@ def main(argv=None) -> int:
     seq = walled("seq_axis", sequence_phase,
                  os.path.join(HERE, "build", "chip_smoke_seq"), card)
     n_counts = seq["launches"]
+    engines = walled("engines", mesh_engines_phase, fa, engines_root, card,
+                     o0)
+    o_predict, o_fsdp = engines["predict_launches"], engines["fsdp_launches"]
+    o_remap = engines["remap_launches"]
 
     def bf16_summary(rows):
         row = [r for r in rows
@@ -4689,7 +5152,8 @@ def main(argv=None) -> int:
                      + k_counts["serve_k"] + k_counts["predict"]
                      + k_counts["knobs"]["flash_fwd"]
                      + l_counts["flash_fwd"] + m_counts["flash_fwd"]
-                     + n_counts["flash_fwd"]),
+                     + n_counts["flash_fwd"] + o_predict["flash_fwd"]
+                     + o_fsdp["flash_fwd"] + o_remap["flash_fwd"]),
         "launches_by_path": {"serve": launches,
                              "train": train_counts["flash_fwd"],
                              "fit": fit_counts["flash_fwd"],
@@ -4702,7 +5166,10 @@ def main(argv=None) -> int:
                              "knobs": k_counts["knobs"]["flash_fwd"],
                              "families": l_counts["flash_fwd"],
                              "model_axis": m_counts["flash_fwd"],
-                             "sequence_parallel": n_counts["flash_fwd"]},
+                             "sequence_parallel": n_counts["flash_fwd"],
+                             "predict_mesh": o_predict["flash_fwd"],
+                             "fsdp_layers": o_fsdp["flash_fwd"],
+                             "remap": o_remap["flash_fwd"]},
         "gate_launches_per_consult": loop_counts["gate"]["flash_fwd"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -4726,7 +5193,7 @@ def main(argv=None) -> int:
                          + loop_counts["train"][name] + sup_counts[name]
                          + sched_counts[name] + k_counts["knobs"][name]
                          + l_counts[name] + m_counts[name]
-                         + n_counts[name]),
+                         + n_counts[name] + o_fsdp[name] + o_remap[name]),
             "launches_by_path": {"train": train_counts[name],
                                  "fit": fit_counts[name],
                                  "loop_train": loop_counts["train"][name],
@@ -4737,7 +5204,10 @@ def main(argv=None) -> int:
                                  "knobs": k_counts["knobs"][name],
                                  "families": l_counts[name],
                                  "model_axis": m_counts[name],
-                                 "sequence_parallel": n_counts[name]},
+                                 "sequence_parallel": n_counts[name],
+                                 "predict_mesh": o_predict[name],
+                                 "fsdp_layers": o_fsdp[name],
+                                 "remap": o_remap[name]},
             "launches_per_step": train_counts[name] / train_steps,
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],

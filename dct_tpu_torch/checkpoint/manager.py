@@ -19,16 +19,31 @@
    resumes the other's run.
 
    On a mesh, a leaf split across processes (a tensor-parallel slice, a
-   ZeRO-1 moment block, an FSDP parameter block) is saved as this
-   process's block under ``"<i>_s<off0>x<off1>..."``, keyed by its global
-   start offsets in flax layout, as the reference's ``_index_key`` keys
-   its local shards; every other leaf keeps ``"<i>"`` and is saved whole.
-   ``layout.json`` (version 1) records the process index and count, the
-   mesh, the dtype rules and, per leaf, its global ``shape``, declared
-   ``spec`` and ``"saved": "shards" | "whole"``. A restore reads this
-   process's own file on the same topology; where shards are involved and
-   the mesh or the process count changed, it raises (the reference re-maps
-   shards across topologies: ROADMAP Queue A item 15b).
+   ZeRO-1 moment block, an FSDP block, a rule's placement) is saved as
+   this process's block under ``"<i>_s<off0>x<off1>..."``, keyed by its
+   global start offsets in flax layout, as the reference's
+   ``_index_key`` keys its local shards; every other leaf keeps ``"<i>"``
+   and is saved whole. ``layout.json`` (version 1) records the process
+   index and count, the mesh, the dtype rules and, per leaf, its global
+   ``shape``, stored ``spec`` and ``"saved": "shards" | "whole"``.
+
+   A restore reads this process's own file. A leaf whose saved block is
+   the one this run's layout places here (offsets **and** extents)
+   loads as it is; any other is **re-mapped** (the reference's
+   ``_reassemble``, ``dct_tpu/checkpoint/manager.py:577-634``): the
+   dense leaf is assembled from this process's entries and those of its
+   sibling ranks' ``p<rank>/`` directories beside it (a shared
+   filesystem), and this run's block taken from it, so a checkpoint
+   saved on ``data=2, model=2`` resumes on ``data=4`` with the values
+   bit-identical. A rank with no file of its own (a grown world)
+   restores from its siblings alone, and :meth:`TrainStateCheckpointer.
+   exists` and :meth:`~TrainStateCheckpointer.load_meta` answer from
+   them. A sibling whose ``epochs_completed`` differs from this
+   process's (or, without one, the first sibling's) is stale and never
+   merged. Shards that do not tile a leaf (a private disk, a missing or
+   stale sibling) raise with the way out. A re-map puts
+   ``shard.topology_remap`` on the event log and the restore's span and
+   sets :attr:`TrainStateCheckpointer.last_remap`.
 
 The deploy tier is dense whatever the placement: :func:`save_checkpoint`
 takes the gathered tree (:func:`dct_tpu_torch.parallel.sharding_rules.
@@ -216,7 +231,8 @@ def state_leaves(state) -> list[np.ndarray]:
 def restore_state_leaves(state, leaves: list[np.ndarray]):
     """Fill ``state`` (in place) from the reference's leaf list; raises
     ``KeyError`` when the count or a shape does not fit."""
-    return restore_entries(state, {str(i): a for i, a in enumerate(leaves)})
+    restore_entries(state, {str(i): a for i, a in enumerate(leaves)})
+    return state
 
 
 def _leaf_values(state) -> list[tuple[str, int | None, Any]]:
@@ -241,15 +257,19 @@ def _leaf_values(state) -> list[tuple[str, int | None, Any]]:
     return out
 
 
-def _leaf_axis(layout, kind: str, i):
-    """(the layout leaf, the axis that splits this state leaf or None,
-    its declared spec)."""
+def _leaf_spec(layout, kind: str, i):
+    """(the layout leaf, the stored spec of this state leaf) or (None,
+    ())."""
     if layout is None or i is None:
-        return None, None, ()
+        return None, ()
     lf = layout.leaves[i]
-    if kind == "moment":
-        return lf, lf.moment_axis, lf.moment_spec
-    return lf, lf.param_axis, lf.param_spec
+    return lf, lf.moment_spec if kind == "moment" else lf.param_spec
+
+
+def _entry_key(n: int, lf, spec) -> str:
+    if lf is None or not lf.splits(spec):
+        return str(n)
+    return f"{n}_s" + "x".join(str(o) for o in lf.offsets(spec))
 
 
 def state_entries(state) -> tuple[dict, list]:
@@ -263,7 +283,7 @@ def state_entries(state) -> tuple[dict, list]:
     order = {i: tr for i, _, tr in _param_order(state.model)}
     entries, records = {}, []
     for n, (kind, i, value) in enumerate(_leaf_values(state)):
-        lf, axis, spec = _leaf_axis(layout, kind, i)
+        lf, spec = _leaf_spec(layout, kind, i)
         if i is None:
             shape = [int(d) for d in value.shape]
             entries[str(n)] = value
@@ -271,21 +291,55 @@ def state_entries(state) -> tuple[dict, list]:
             a = _to_flax(value, order[i])
             shape = ([int(d) for d in lf.shape] if lf is not None
                      else [int(d) for d in a.shape])
-            if axis is None:
-                entries[str(n)] = a
-            else:
-                off = "x".join(str(o) for o in lf.offsets())
-                entries[f"{n}_s{off}"] = a
+            entries[_entry_key(n, lf, spec)] = a
         records.append({"leaf": n, "shape": shape,
                         "spec": spec_to_json(spec),
-                        "saved": "shards" if axis else "whole"})
+                        "saved": ("shards" if lf is not None
+                                  and lf.splits(spec) else "whole")})
     return entries, records
 
 
-def restore_entries(state, entries: dict):
-    """Fill ``state`` (in place) from ``state.npz`` entries saved on this
-    topology; raises ``KeyError`` when a leaf is missing or its count or
-    shape does not fit."""
+def _parts(entries: dict, n: int) -> dict:
+    """Leaf ``n``'s entries keyed by their global start offsets (a whole
+    entry at the origin)."""
+    out = {}
+    prefix = f"{n}_s"
+    for k, v in entries.items():
+        if k == str(n):
+            out[(0,) * np.ndim(v)] = v
+        elif k.startswith(prefix):
+            rest = k[len(prefix):]
+            out[tuple(int(o) for o in rest.split("x")) if rest else ()] = v
+    return out
+
+
+def _assemble_dense(gshape: tuple, parts: dict):
+    """Offset-keyed blocks -> one dense array, or None when they do not
+    tile ``gshape`` exactly (out of bounds, gaps, overlaps), as the
+    reference's ``_assemble_dense``."""
+    first = next(iter(parts.values()))
+    dense = np.zeros(gshape, dtype=first.dtype)
+    covered = 0
+    for off, arr in parts.items():
+        off = tuple(off) + (0,) * (len(gshape) - len(off))
+        if np.ndim(arr) != len(gshape) or any(
+                o + s > g for o, s, g in zip(off, np.shape(arr), gshape)):
+            return None
+        dense[tuple(slice(o, o + s)
+                    for o, s in zip(off, np.shape(arr)))] = arr
+        covered += np.size(arr)
+    return dense if covered == dense.size else None
+
+
+def restore_entries(state, entries: dict, extra=None) -> list[int]:
+    """Fill ``state`` (in place) from ``state.npz`` entries. A leaf whose
+    entry is this layout's block (its key and extents) loads as it is;
+    any other is re-mapped from the dense leaf assembled from
+    ``entries`` and ``extra(n)`` (leaf ``n``'s blocks in sibling ranks'
+    files, by offsets). Returns the
+    re-mapped leaves; raises ``KeyError`` when the leaf count or a
+    whole leaf's shape does not fit, ``ValueError`` when the blocks do
+    not tile a leaf."""
     layout = getattr(state, "layout", None)
     values = _leaf_values(state)
     groups = {k.split("_s")[0] for k in entries if k[:1].isdigit()}
@@ -305,22 +359,42 @@ def restore_entries(state, entries: dict):
         return torch.tensor(a.T if order[i] and a.ndim == 2 else a).to(
             device=dev, dtype=params[i].dtype).contiguous()
 
-    prepared = []
+    prepared, remapped = [], []
     for n, (kind, i, value) in enumerate(values):
-        lf, axis, _ = _leaf_axis(layout, kind, i)
-        key = str(n)
-        if axis is not None:
-            key = f"{n}_s" + "x".join(str(o) for o in lf.offsets())
-        if key not in entries:
-            raise KeyError(
-                f"leaf {n} ({kind}) has no entry {key!r}; saved "
-                f"{sorted(k for k in entries if k.split('_s')[0] == str(n))}")
-        a = entries[key]
+        lf, spec = _leaf_spec(layout, kind, i)
         want = (tuple(value.shape) if i is None
                 else tuple(_to_flax(value, order[i]).shape))
-        if tuple(np.shape(a)) != want:
-            raise KeyError(f"leaf {n} has shape {tuple(np.shape(a))} on "
-                           f"disk but {want} in the template")
+        key = _entry_key(n, lf, spec)
+        a = entries.get(key)
+        if a is None or tuple(np.shape(a)) != want:
+            gshape = tuple(lf.shape) if lf is not None else want
+            parts = _parts(entries, n)
+            if not parts:
+                raise KeyError(f"leaf {n} ({kind}) has no entry")
+            whole = entries.get(str(n))
+            if whole is not None and tuple(np.shape(whole)) != gshape:
+                raise KeyError(f"leaf {n} has shape {np.shape(whole)} on "
+                               f"disk but {gshape} in the template")
+            for off, arr in (extra(n) if extra else {}).items():
+                parts.setdefault(off, arr)
+            dense = _assemble_dense(gshape, parts)
+            if dense is None:
+                raise ValueError(
+                    f"leaf {n} ({kind}) is saved as blocks at "
+                    f"{sorted(_parts(entries, n))} and this run places "
+                    f"{key!r} here, but the blocks available (this "
+                    "process's file and any sibling p<rank>/ files) do "
+                    f"not tile its shape {gshape}: a topology re-map needs "
+                    "every saving rank's state file on a shared "
+                    "filesystem. Restore with the saving mesh and process "
+                    "count, or clear the train_state dir to restart from "
+                    "the deploy checkpoint.")
+            a = dense
+            if lf is not None:
+                a = np.ascontiguousarray(dense[tuple(
+                    slice(o, o + s) for o, s in
+                    zip(lf.offsets(spec), lf.block_shape(spec)))])
+            remapped.append(n)
         prepared.append(a if i is None else tensor(i, a))
 
     def per_param(it):
@@ -337,13 +411,13 @@ def restore_entries(state, entries: dict):
     with torch.no_grad():
         for (i, _, _), value in zip(rows, prepared[n_opt:-2]):
             if i in state.shards:
-                state.shards[i] = value
+                state.shards[i] = value.requires_grad_(True)
             else:
                 params[i].copy_(value)
     key = np.asarray(key).astype(np.uint64)
     state.rng = int(key[0]) << 32 | int(key[1])
     state.step = step
-    return state
+    return remapped
 
 
 class TrainStateCheckpointer:
@@ -358,6 +432,10 @@ class TrainStateCheckpointer:
         os.makedirs(self.dirpath, exist_ok=True)
         self._pending: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._sibling_cache: dict | None = None
+        #: The last restore's re-map (``leaves``, ``from_mesh``,
+        #: ``from_processes``, ``to_mesh``, ``to_processes``), or None.
+        self.last_remap: dict | None = None
 
     def _dir(self, name: str) -> str:
         return os.path.join(self.dirpath, name)
@@ -473,66 +551,130 @@ class TrainStateCheckpointer:
             epochs_completed=(meta or {}).get("epochs_completed"))
         return live
 
+    def _sibling_candidate_dirs(self) -> list[str]:
+        """The newest restorable rotation of every sibling rank's
+        ``p<rank>/`` directory beside this one (a shared filesystem)."""
+        parent = os.path.dirname(self.dirpath)
+        try:
+            names = sorted(os.listdir(parent))
+        except OSError:
+            return []
+        out = []
+        for n in names:
+            d = os.path.join(parent, n)
+            if (os.path.abspath(d) == self.dirpath
+                    or not (n.startswith("p") and n[1:].isdigit())):
+                continue
+            for rot in (self._LIVE, self._NEXT, self._OLD):
+                cand = os.path.join(d, rot)
+                if os.path.exists(os.path.join(cand, "state.npz")):
+                    out.append(cand)
+                    break
+        return out
+
+    @staticmethod
+    def _dir_json(d: str, name: str) -> dict:
+        try:
+            with open(os.path.join(d, name)) as f:
+                return dict(json.load(f))
+        except (OSError, ValueError):
+            return {}
+
     def exists(self) -> bool:
+        """A checkpoint of this process's own, or sibling ranks' files to
+        restore from (a grown world: the new rank must resume with the
+        others, or the start-epoch check would stop the world)."""
         self.wait()
-        return bool(self._restore_candidates())
+        return bool(self._restore_candidates()
+                    or self._sibling_candidate_dirs())
 
     def load_meta(self) -> dict:
-        """Run facts saved beside the newest checkpoint ({} if none)."""
+        """Run facts saved beside the newest checkpoint, a sibling's when
+        this process has none ({} if none)."""
         self.wait()
-        candidates = self._restore_candidates()
-        path = os.path.join(candidates[0], "meta.json") if candidates else ""
-        if not path or not os.path.exists(path):
-            return {}
-        with open(path) as f:
-            return dict(json.load(f))
+        candidates = (self._restore_candidates()
+                      or self._sibling_candidate_dirs()[:1])
+        return self._dir_json(candidates[0], "meta.json") if candidates else {}
+
+    def load_layout(self) -> dict:
+        """The layout manifest beside the newest checkpoint (this
+        process's, else a sibling's; {} if none)."""
+        self.wait()
+        for d in self._restore_candidates() + self._sibling_candidate_dirs():
+            if os.path.exists(os.path.join(d, "layout.json")):
+                return self._dir_json(d, "layout.json")
+        return {}
+
+    def _sibling_entries(self) -> dict:
+        """The entries of every consistent sibling, merged (the first
+        sibling wins a key), read once a restore. A sibling whose
+        ``epochs_completed`` differs from this process's checkpoint (or,
+        with none, the first sibling's) is stale: its blocks are never
+        tiled beside the others'."""
+        if self._sibling_cache is not None:
+            return self._sibling_cache
+        own = self._restore_candidates()
+        ref = (self._dir_json(own[0], "meta.json").get("epochs_completed")
+               if own else None)
+        merged: dict = {}
+        for i, d in enumerate(self._sibling_candidate_dirs()):
+            epochs = self._dir_json(d, "meta.json").get("epochs_completed")
+            if not own and i == 0:
+                ref = epochs
+            if epochs != ref:
+                continue
+            with np.load(os.path.join(d, "state.npz")) as npz:
+                for k in npz.files:
+                    merged.setdefault(k, npz[k])
+        self._sibling_cache = merged
+        return merged
 
     def restore(self, state):
         """Restore into ``state`` (in place) and return it."""
         self.wait()
         with _spans.get_default().span("checkpoint.restore",
-                                       component="checkpoint"):
-            return self._restore(state)
+                                       component="checkpoint") as sp:
+            state = self._restore(state)
+            if self.last_remap is not None:
+                sp.set(topology_remap=self.last_remap["leaves"])
+            return state
 
     def _restore(self, state):
+        self._sibling_cache = None
+        self.last_remap = None
         candidates = self._restore_candidates()
-        if not candidates:
+        if candidates:
+            source = candidates[0]
+            with np.load(os.path.join(source, "state.npz")) as npz:
+                entries = {k: npz[k] for k in npz.files}
+        elif self._sibling_entries():
+            source, entries = "siblings", dict(self._sibling_entries())
+        else:
             raise FileNotFoundError(
                 f"No train-state checkpoint under {self.dirpath}")
-        with np.load(os.path.join(candidates[0], "state.npz")) as npz:
-            entries = {k: npz[k] for k in npz.files}
-        self._check_topology(state, candidates[0], entries)
         try:
-            return restore_entries(state, entries)
+            remapped = restore_entries(
+                state, entries,
+                extra=lambda n: _parts(self._sibling_entries(), n))
         except KeyError as e:
             raise KeyError(
-                f"Checkpoint {candidates[0]} does not match this run's "
+                f"Checkpoint {source} does not match this run's "
                 f"TrainState: {e.args[0]}. Restore the original setting, "
                 f"or clear {self.dirpath} to restart the trajectory."
             ) from e
+        finally:
+            # The pool holds whole copies of the siblings' arrays.
+            self._sibling_cache = None
+        if remapped:
+            from dct_tpu_torch.parallel.distributed import process_count
 
-    def _check_topology(self, state, where: str, entries: dict) -> None:
-        """Refuse a restore that would have to re-map shards: shard-saved
-        leaves, or a split template, under another mesh or process count
-        than the saving run's."""
-        layout = getattr(state, "layout", None)
-        split_now = layout is not None and layout.sharded
-        shards = any("_s" in k for k in entries)
-        if not (split_now or shards):
-            return
-        try:
-            with open(os.path.join(where, "layout.json")) as f:
-                saved = json.load(f)
-        except (OSError, ValueError):
-            saved = {}
-        now = self._layout(state, [])
-        was = {"mesh": saved.get("mesh"),
-               "process_count": saved.get("process_count")}
-        cur = {"mesh": now["mesh"], "process_count": now["process_count"]}
-        if was != cur:
-            raise RuntimeError(
-                f"Checkpoint {where} was saved on topology {was} and this "
-                f"run is {cur}: a shard-saved resume restores on the saving "
-                "topology only (re-mapping shards onto another mesh is "
-                "ROADMAP Queue A item 15b). Resume with the saving mesh, or "
-                f"clear {self.dirpath} to restart the trajectory.")
+            saved = self.load_layout()
+            now = self._layout(state, [])
+            self.last_remap = {
+                "leaves": len(remapped),
+                "from_mesh": saved.get("mesh"),
+                "from_processes": saved.get("process_count"),
+                "to_mesh": now["mesh"], "to_processes": process_count()}
+            _events.get_default().emit("shard", "shard.topology_remap",
+                                       dir=source, **self.last_remap)
+        return state

@@ -47,3 +47,23 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         dev = torch.device("cuda", torch.cuda.current_device())
     require_kernel_capability(dev)
     return dev
+
+
+def process_device(process_id: int, num_processes: int,
+                   device: str | None = None) -> torch.device:
+    """The device of process ``process_id`` of a world: ``device`` (the
+    ``DCT_DEVICE`` override) when given, else ``cuda:<process_id>``,
+    refused when that process has no card of its own (two ranks never
+    share one) or CUDA is absent. A CUDA device is made current."""
+    if device is None:
+        n = torch.cuda.device_count()
+        if n and process_id >= n:
+            raise RuntimeError(
+                f"process {process_id} has no card of its own: {n} CUDA "
+                f"device(s) for {num_processes} processes. Start one "
+                "process per card, or set DCT_DEVICE.")
+        device = f"cuda:{process_id}" if n else "cuda"
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev

@@ -175,45 +175,23 @@ def batched_probs(
 def _batched_probs_torch(
     weights: dict, meta: dict, x: np.ndarray, batch_size: int, device
 ) -> np.ndarray:
-    """The accelerator engine: the registry model rebuilt from the meta
-    (f32 parameters and compute) on ``device``, the package's weights
-    loaded, and one ``no_grad`` forward per chunk of ``batch_size``
-    examples. Quantized packages are dequantized to dense f32 on the host
-    first. On the card, matmuls run in full f32 (TF32 off, process-wide,
-    as the port's serving scorer does). An MoE's partial last chunk is
-    padded as the reference's jax engine pads it
-    (:func:`dct_tpu_torch.predict_job.score_in_chunks`)."""
-    import torch
-
-    from dct_tpu_torch.convert import load_flax_weights
+    """The accelerator engine, the reference's ``_batched_probs_jax``
+    (``dct_tpu/evaluation/harness.py:178-256``) on the process grid
+    :func:`~dct_tpu_torch.parallel.mesh.get_mesh` gives (one process, or
+    every process of a world calling this): the registry model rebuilt
+    from the meta on ``device``, the package's weights loaded (quantized
+    ones dequantized to dense f32 on the host) and placed by the family
+    rules (:func:`dct_tpu_torch.serving.batching.mesh_scorer`, f32
+    compute, TF32 off on the card), each chunk of ``batch_size`` examples
+    split over ``data`` and its last chunk padded as the reference pads
+    it (:func:`~dct_tpu_torch.parallel.mesh.score_split`)."""
     from dct_tpu_torch.device import resolve_device
-    from dct_tpu_torch.models.registry import (
-        config_from_meta,
-        get_model,
-        is_causal_model,
-    )
-    from dct_tpu_torch.predict_job import score_in_chunks
+    from dct_tpu_torch.parallel.mesh import get_mesh, score_split
+    from dct_tpu_torch.serving.batching import mesh_scorer
 
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-    family = meta.get("model", "weather_mlp")
-    model = get_model(config_from_meta(meta), device=dev,
-                      dtype=torch.float32)
-    load_flax_weights(model, flax_keyed(dense_weights(weights), family))
-    model.eval()
-    causal = is_causal_model(family)
-
-    def probs(piece: np.ndarray) -> np.ndarray:
-        with torch.no_grad():
-            logits = model(torch.from_numpy(piece).to(dev))
-        if causal:
-            logits = logits[:, -1]
-        return torch.softmax(logits.float(), dim=-1).cpu().numpy()
-
-    return score_in_chunks(
-        probs, x, batch_size,
-        pad_last=getattr(model, "routing_depends_on_batch", False))
+    mesh = get_mesh()
+    return score_split(mesh_scorer(weights, meta, resolve_device(device),
+                                   mesh), x, batch_size, mesh)
 
 
 def dense_weights(weights: dict) -> dict:

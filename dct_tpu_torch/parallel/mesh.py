@@ -56,6 +56,7 @@ the backward's collectives run in one order on every rank.
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 
 import torch
@@ -167,6 +168,17 @@ class ProcessMesh:
             self.grad_group = self.seq_group
         else:
             self.grad_group = build((0, 2))
+
+    def axis_index(self, axis: str) -> int:
+        """This process's index on ``axis``."""
+        return {"data": self.data_index, "model": self.model_index,
+                "seq": self.seq_index, "pipe": 0}[axis]
+
+    def axis_group(self, axis: str):
+        """The process group of ``axis`` (None: the default group, or an
+        axis of one process, which no collective runs over)."""
+        return {"data": self.data_group, "model": self.model_group,
+                "seq": self.seq_group}[axis]
 
     def model_shard(self) -> ModelShard | None:
         """This process's :class:`ModelShard`, or None when the model axis
@@ -315,6 +327,47 @@ def all_gather_grad(tensor: torch.Tensor) -> torch.Tensor:
                                 group=mesh.grad_group)
     # The group's ranks ascend, so data row major, then seq index.
     return out.view(mesh.data_size, mesh.seq_size, *tensor.shape)
+
+
+def score_split(fn, x, chunk: int, mesh: ProcessMesh | None = None,
+                times: list | None = None):
+    """``fn`` (a data rank's rows -> their probabilities, a tensor on its
+    device) over the host array ``x`` in chunks split over the ``data``
+    axis, as the reference's accelerator engines split theirs
+    (``jobs/predict.py:116-133``): the chunk rounded up to a multiple of
+    ``data``; a partial last chunk padded with repeats of its last row to
+    the whole chunk when ``x`` spans more than one (an MoE's routing
+    depends on the rows scored together), else to a multiple of
+    ``data``; data rank ``r`` scoring the ``r``-th of ``data`` equal
+    blocks of each chunk, the blocks all-gathered back over the data
+    group in row order. Every process of the grid calls it (the model and
+    seq ranks of a data row score the same block) and gets every row's
+    probabilities, as a host array. ``times``, when given, gets each
+    chunk's real rows and its seconds, the probabilities on the host."""
+    import numpy as np
+
+    mesh = mesh or get_mesh()
+    dp = mesh.data_size
+    chunk = max(dp, -(-chunk // dp) * dp)
+    parts = []
+    for start in range(0, len(x), chunk):
+        t0 = time.perf_counter()
+        piece = np.ascontiguousarray(x[start:start + chunk], np.float32)
+        real = len(piece)
+        pad = (chunk - real) if len(x) > chunk else (-real) % dp
+        if pad:
+            piece = np.concatenate([piece, np.repeat(piece[-1:], pad,
+                                                     axis=0)])
+        n = len(piece) // dp
+        out = fn(piece[mesh.data_index * n:(mesh.data_index + 1) * n])
+        if dp > 1:
+            mine = out.contiguous()
+            out = mine.new_empty((dp * n, *mine.shape[1:]))
+            dist.all_gather_into_tensor(out, mine, group=mesh.data_group)
+        parts.append(out[:real].cpu().numpy())
+        if times is not None:
+            times.append((real, time.perf_counter() - t0))
+    return np.concatenate(parts, axis=0)
 
 
 # ------------------------------------------------- model-axis autograd

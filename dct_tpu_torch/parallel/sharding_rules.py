@@ -17,24 +17,37 @@ select the same leaves. ``DCT_SHARD_RULES`` prepends operator clauses
 
 Where the reference hands its specs to GSPMD, which inserts the
 collectives and reshards whatever it is given, the port computes the
-placements itself (:func:`shard_state_with_rules`):
+placements itself (:func:`shard_state_with_rules`). Each leaf has two:
 
-- the family tables' tensor parallelism: each unit (an attention's
+- its **stored** specs, where the parameter and its moments live
+  between steps: any rule's spec over ``data``, ``model`` and ``seq``,
+  one axis a dim (the moments' by the clauses matching their
+  ``opt_state`` paths, alike for every moment of a leaf), with ZeRO-1
+  (``shard_opt``: the moments of an otherwise replicated leaf split
+  their leading dim over ``data``) and FSDP (``shard_params``: the
+  parameter as well), the reference's per-leaf rule
+  (:func:`_data_shard_spec`). Moments stored apart from their parameter
+  are updated in their own placement, the parameter's block brought
+  there and back (:func:`respec`);
+- its **compute** spec, what its module computes with: the family
+  table's tensor-parallel slice where its unit (an attention's
   ``qkv_proj``/``o_proj``, a block's ``ffn_in``/``ffn_out``, an MoE's
-  expert stacks) keeps its slice of ``model``, and its module runs the
-  collectives (:mod:`dct_tpu_torch.parallel.mesh`); the sizes must divide
-  (whole KV groups, ``d_ff``, the experts) or the placement raises;
-- full replication (a unit whose leaves all resolve to ``()``);
-- the data axis on the leading dim: ZeRO-1 (``shard_opt``: the optimizer
-  moments of an otherwise replicated leaf whose leading dim divides over
-  ``data``) and FSDP (``shard_params``: the parameter as well), the
-  reference's per-leaf rule (:func:`_data_shard_spec`).
+  expert stacks) is split over ``model`` (any of the unit's leaves stored
+  over ``model``), else the whole leaf. The split units' modules run the
+  collectives (:mod:`dct_tpu_torch.parallel.mesh`); the sizes must
+  divide (whole KV groups, ``d_ff``, the experts) or the placement
+  raises.
 
-A rule that asks any other placement of a leaf raises, naming its clause
-and ROADMAP Queue A item 15b. The gather half (:func:`gather_leaf`,
-:func:`gather_tree`, :func:`make_shard_and_gather_fns`) brings a leaf back
-dense: a collective every process runs, which the publish path (deploy
-checkpoints, packages) calls before the coordinator writes.
+A leaf whose two specs differ is **resharded** at its use
+(:mod:`dct_tpu_torch.parallel.reshard`): its stored block is all-gathered
+over its axes and narrowed to the compute slice when its unit runs, and
+its gradient goes back to the stored block. A rule raises, naming its
+clause, only for a dim its axis does not divide, a ``pipe`` axis (ROADMAP
+Queue A item 17) or a spec the leaf cannot take (longer than its rank,
+or one axis on two dims). The gather half (:func:`gather_leaf`,
+:func:`gather_tree`, :func:`make_shard_and_gather_fns`) brings a stored
+leaf back dense: a collective every process runs, which the publish path
+(deploy checkpoints, packages) calls before the coordinator writes.
 
 **Dtype rules.** ``DCT_DTYPE_RULES='pattern=dtype[;pattern=dtype...]'``
 selects parameters by a regex over their flax path and casts the matching
@@ -344,10 +357,9 @@ def _global_shapes(model: nn.Module) -> list[tuple]:
 @dataclass
 class Leaf:
     """One parameter's layout, in flax coordinates: its global ``shape``,
-    the declared specs of the parameter and of its moments, and which axis
-    (``"model"``, ``"data"`` or None) splits the stored parameter and the
-    moments, along flax dim ``dim`` into ``parts`` blocks, this process
-    holding block ``index``."""
+    the stored specs of the parameter and of its moments, the spec its
+    module computes with (module docstring), and the ``mesh`` that places
+    this process. An axis of one process splits nothing."""
 
     name: str
     key: str
@@ -355,29 +367,65 @@ class Leaf:
     shape: tuple
     param_spec: tuple
     moment_spec: tuple
-    param_axis: str | None = None
-    moment_axis: str | None = None
-    dim: int = 0
-    parts: int = 1
-    index: int = 0
-    group: object = None
+    compute_spec: tuple = ()
+    mesh: object = None
+
+    def splits(self, spec) -> list[tuple[int, str]]:
+        """``(flax dim, axis)`` of every dim ``spec`` splits over more
+        than one process."""
+        if self.mesh is None:
+            return []
+        return [(d, a) for d, a in enumerate(spec)
+                if a is not None and self.mesh.shape[a] > 1]
+
+    def axes(self, spec) -> tuple:
+        return tuple(a for _, a in self.splits(spec))
 
     @property
-    def torch_dim(self) -> int:
-        return 1 - self.dim if self.transposed else self.dim
+    def resharded(self) -> bool:
+        """Stored apart from how it is computed: gathered at its use."""
+        return self.splits(self.param_spec) != self.splits(self.compute_spec)
 
-    def block(self) -> int:
-        return self.shape[self.dim] // self.parts
+    @property
+    def apart(self) -> bool:
+        """Moments stored apart from the parameter: updated in their
+        placement (:meth:`~dct_tpu_torch.train.state.TrainState.
+        update_params`)."""
+        return self.splits(self.moment_spec) != self.splits(self.param_spec)
 
-    def offsets(self) -> tuple:
-        """Global start offsets of this process's block (flax layout)."""
-        return tuple(self.index * self.block() if d == self.dim else 0
-                     for d in range(len(self.shape)))
+    @property
+    def zero1(self) -> bool:
+        """ZeRO-1's placement: moments split over ``data`` on the leading
+        dim where the parameter is replicated."""
+        return (self.apart and not self.splits(self.param_spec)
+                and self.splits(self.moment_spec) == [(0, "data")])
 
-    def local(self, t: torch.Tensor) -> torch.Tensor:
-        """This process's block of a full torch-layout tensor (a view)."""
-        n = self.block()
-        return t.narrow(self.torch_dim, self.index * n, n)
+    def tdim(self, d: int) -> int:
+        """Flax dim ``d`` in torch layout (a dense kernel is transposed)."""
+        return 1 - d if self.transposed and len(self.shape) == 2 else d
+
+    def block_shape(self, spec) -> tuple:
+        out = list(self.shape)
+        for d, a in self.splits(spec):
+            out[d] //= self.mesh.shape[a]
+        return tuple(out)
+
+    def offsets(self, spec) -> tuple:
+        """Global start offsets (flax layout) of this process's block
+        under ``spec``."""
+        blk = self.block_shape(spec)
+        off = [0] * len(self.shape)
+        for d, a in self.splits(spec):
+            off[d] = self.mesh.axis_index(a) * blk[d]
+        return tuple(off)
+
+    def local(self, t: torch.Tensor, spec) -> torch.Tensor:
+        """This process's block under ``spec`` of a full torch-layout
+        tensor (a view)."""
+        blk, off = self.block_shape(spec), self.offsets(spec)
+        for d, _ in self.splits(spec):
+            t = t.narrow(self.tdim(d), off[d], blk[d])
+        return t
 
 
 class StateLayout:
@@ -389,29 +437,48 @@ class StateLayout:
 
     @property
     def sharded(self) -> bool:
-        return any(lf.param_axis or lf.moment_axis for lf in self.leaves)
+        return any(lf.splits(lf.param_spec) or lf.splits(lf.moment_spec)
+                   for lf in self.leaves)
 
-    def data_split(self) -> list[int]:
-        """Parameters whose moments (ZeRO-1) or whole state (FSDP) split
-        over ``data``."""
-        return [i for i, lf in enumerate(self.leaves)
-                if lf.moment_axis == "data"]
+    def resharded(self) -> list[int]:
+        """Parameters stored apart from how they are computed."""
+        return [i for i, lf in enumerate(self.leaves) if lf.resharded]
 
-    def fsdp(self) -> list[int]:
+    def zero1(self) -> list[int]:
+        """Parameters whose moments alone split over ``data`` (ZeRO-1)."""
+        return [i for i, lf in enumerate(self.leaves) if lf.zero1]
+
+    def apart(self) -> list[int]:
+        """Parameters whose moments are stored apart otherwise."""
         return [i for i, lf in enumerate(self.leaves)
-                if lf.param_axis == "data"]
+                if lf.apart and not lf.zero1]
 
 
 def _unit_error(name, spec, clause, why) -> ValueError:
     where = (f"DCT_SHARD_RULES clause {clause!r}" if clause
              else "the family rule table")
-    return ValueError(
-        f"{where} asks for {spec_to_json(spec)} on {name} ({why}); the port "
-        "places a leaf only as the family tables do, fully replicated, or "
-        "by its leading dim over data: ROADMAP Queue A item 15b")
+    return ValueError(f"{where} asks for {spec_to_json(spec)} on {name}: "
+                      f"{why}")
 
 
-def _leaf_specs(key: str, moment_paths, shape, family):
+def _check_spec(name, shape, spec, clause, mesh) -> None:
+    """The three placements the port refuses (module docstring)."""
+    if "pipe" in spec:
+        raise _unit_error(name, spec, clause, "the pipe axis is not ported "
+                          "(ROADMAP Queue A item 17)")
+    named = [a for a in spec if a is not None]
+    if len(spec) > len(shape) or len(set(named)) != len(named):
+        raise _unit_error(name, spec, clause, f"a leaf of shape "
+                          f"{tuple(shape)} cannot take it (longer than its "
+                          "rank, or one axis on two dims)")
+    for d, a in enumerate(spec):
+        # The family tables' units check their own sizes, naming them.
+        if clause and a is not None and shape[d] % mesh.shape[a]:
+            raise _unit_error(name, spec, clause, f"dim {d} ({shape[d]}) "
+                              f"does not divide over {a}={mesh.shape[a]}")
+
+
+def _leaf_specs(key: str, moment_paths, family):
     """(param spec, its clause, moment spec, its clause) of the leaf at
     flax ``key``; every moment mirror must resolve like the first."""
     pname = path_str(("params", "params", *key.split("/")))
@@ -423,9 +490,35 @@ def _leaf_specs(key: str, moment_paths, shape, family):
         if i == 0:
             mspec, mclause = spec, clause
         elif spec != mspec:
-            raise _unit_error(name, spec, clause,
-                              "the moments of one parameter differ")
+            raise ValueError(
+                f"DCT_SHARD_RULES clause {clause!r} places the moments of "
+                f"{key} apart from each other ({spec_to_json(spec)} and "
+                f"{spec_to_json(mspec)}); the port stores a parameter's "
+                "moments alike")
     return pspec, pclause, mspec, mclause
+
+
+def split_units(model: nn.Module, mesh, spec_of) -> dict:
+    """Split the tensor-parallel units of ``model`` over ``model``: a unit
+    computes its table's slice when the model axis has more than one
+    process and ``spec_of(key)`` (a leaf's stored spec) puts any of its
+    leaves on ``model``, else it stays whole. Returns ``{flax key: the
+    table spec}`` of every leaf of a split unit."""
+    m = mesh.shape["model"]
+    shard = mesh.model_shard()
+    out = {}
+    for prefix, mod in model.named_modules():
+        want = getattr(mod, "tp_leaves", None)
+        if want is None:
+            continue
+        base = prefix.replace(".", "/")
+        keys = {f"{base}/{rel}" if base else rel: spec
+                for rel, spec in want.items()}
+        split = m > 1 and any("model" in spec_of(k) for k in keys)
+        mod.shard_model_axis(shard, split=split)
+        if split:
+            out.update(keys)
+    return out
 
 
 def shard_state_with_rules(state, mesh, *, shard_opt: bool = False,
@@ -433,12 +526,14 @@ def shard_state_with_rules(state, mesh, *, shard_opt: bool = False,
                            family: str | None = None):
     """Place a fresh train state on ``mesh`` by the rules (module
     docstring): split the tensor-parallel units of the model over
-    ``model``, keep FSDP parameters as their data blocks, and set up the
-    optimizer state over what each process updates. Returns the state,
-    its :class:`StateLayout` in ``state.layout`` (and
+    ``model``, keep each resharded parameter as its stored block (the
+    module's parameter emptied, its unit gathering it at use), and set up
+    the optimizer state over what each process updates. Returns the
+    state, its :class:`StateLayout` in ``state.layout`` (and
     ``state.model.dct_layout``)."""
     from dct_tpu_torch.checkpoint.manager import _param_order
     from dct_tpu_torch.convert import flax_names
+    from dct_tpu_torch.parallel import reshard
 
     model = state.model
     names = flax_names(model)
@@ -449,101 +544,54 @@ def shard_state_with_rules(state, mesh, *, shard_opt: bool = False,
     if not moment_paths:
         moment_paths = [("opt_state",)]
     key_of = {i: key for i, key, _ in _param_order(model)}
-    pnames = [n for n, _ in model.named_parameters()]
-    d, m = mesh.shape["data"], mesh.shape["model"]
-    shard = mesh.model_shard()
+    # The full tensors, before any unit keeps its slice.
+    full = [p.detach() for p in model.parameters()]
     leaves: list[Leaf] = []
-    specs = {}
-    for i, name in enumerate(pnames):
-        key = key_of[i]
-        pspec, pc, mspec, mc = _leaf_specs(key, moment_paths, shapes[i],
-                                           family)
-        specs[key] = (pspec, pc, mspec, mc)
-        leaves.append(Leaf(name=name, key=key, transposed=names[name][1],
-                           shape=tuple(shapes[i]), param_spec=pspec,
-                           moment_spec=mspec))
-    by_key = {lf.key: (i, lf) for i, lf in enumerate(leaves)}
-
-    # Tensor-parallel units: every leaf at its table spec, or every leaf
-    # replicated.
-    unit_keys = set()
-    for prefix, mod in model.named_modules():
-        want = getattr(mod, "tp_leaves", None)
-        if want is None:
-            continue
-        base = prefix.replace(".", "/")
-        keys = {f"{base}/{rel}" if base else rel: spec
-                for rel, spec in want.items()}
-        unit_keys |= set(keys)
-        got = {k: specs[k] for k in keys}
-        tp = all(got[k][0] == s and got[k][2] == s for k, s in keys.items())
-        rep = all(g[0] == P() and g[2] == P() for g in got.values())
-        if not (tp or rep):
-            # Name an operator clause where one is involved.
-            k = next((k for k in keys if got[k][1] or got[k][3]),
-                     next(iter(keys)))
-            spec, clause = ((got[k][0], got[k][1]) if got[k][1]
-                            else (got[k][2], got[k][3]))
-            raise _unit_error(k, spec, clause, "a tensor-parallel unit "
-                              "must be wholly at its table spec or wholly "
-                              "replicated")
-        split = tp and m > 1
-        mod.shard_model_axis(shard, split=split)
-        if split:
-            for k, s in keys.items():
-                i, lf = by_key[k]
-                if "model" in s:
-                    lf.param_axis = lf.moment_axis = "model"
-                    lf.dim = s.index("model")
-                    lf.parts, lf.index = m, shard.index
-                    lf.group = shard.group
-
-    # Every leaf not split over model: replicated, or its leading dim over
-    # data (the tables' row-parallel biases included, as the reference's
-    # rule takes every leaf whose spec is ``()``).
-    for lf in leaves:
-        if lf.param_axis == "model":
-            continue
-        for spec, clause, what in ((lf.param_spec, specs[lf.key][1],
-                                    "param"),
-                                   (lf.moment_spec, specs[lf.key][3],
-                                    "moment")):
-            if all(a is None for a in spec) or lf.key in unit_keys:
-                continue
-            if spec[0] == "data" and all(a is None for a in spec[1:]):
-                if len(spec) > len(lf.shape) or lf.shape[0] % d:
-                    raise _unit_error(lf.key, spec, clause,
-                                      f"leading dim {lf.shape[0]} does not "
-                                      f"divide over data={d}")
-                continue
-            raise _unit_error(lf.key, spec, clause, f"the {what}")
-        pdata = lf.param_spec[:1] == ("data",)
-        mdata = lf.moment_spec[:1] == ("data",)
-        if lf.param_spec == P() and shard_params:
-            ds = _data_shard_spec(lf.shape, mesh)
-            if ds is not None:
-                lf.param_spec = lf.moment_spec = ds
-                pdata = mdata = True
-        if lf.moment_spec == P() and (shard_opt or shard_params):
-            ds = _data_shard_spec(lf.shape, mesh)
-            if ds is not None:
-                lf.moment_spec, mdata = ds, True
-        if pdata and not mdata:
-            raise _unit_error(lf.key, lf.param_spec, specs[lf.key][1],
-                              "a data-split parameter with replicated "
-                              "moments")
-        if d > 1 and (pdata or mdata):
-            lf.param_axis = "data" if pdata else None
-            lf.moment_axis = "data"
-            lf.dim, lf.parts, lf.index = 0, d, mesh.data_index
-            lf.group = mesh.data_group
+    for i, name in enumerate(n for n, _ in model.named_parameters()):
+        key, shape = key_of[i], tuple(shapes[i])
+        pspec, pc, mspec, mc = _leaf_specs(key, moment_paths, family)
+        _check_spec(key, shape, pspec, pc, mesh)
+        _check_spec(key, shape, mspec, mc, mesh)
+        lf = Leaf(name=name, key=key, transposed=names[name][1],
+                  shape=shape, param_spec=pspec, moment_spec=mspec,
+                  mesh=mesh)
+        ds = _data_shard_spec(shape, mesh)
+        if ds is not None and pspec == P() and shard_params:
+            lf.param_spec = lf.moment_spec = ds
+        if ds is not None and lf.moment_spec == P() and (shard_opt
+                                                          or shard_params):
+            lf.moment_spec = ds
+        leaves.append(lf)
+    by_key = {lf.key: lf for lf in leaves}
+    for key, spec in split_units(
+            model, mesh, lambda k: by_key[k].param_spec).items():
+        by_key[key].compute_spec = spec
 
     layout = StateLayout(mesh, leaves)
     model.dct_layout = layout
     state.layout = layout
-    state.place_params()
-    state.opt_state = state.tx.init(state.update_params())
+    state.place_params(full)
+    # The update space (moments alike), from the full tensors.
+    state.opt_state = state.tx.init([
+        lf.local(full[i], lf.moment_spec) if lf.apart
+        else state.stored_param(i) for i, lf in enumerate(leaves)])
+    reshard.install_units(state)
     return state
+
+
+def place_for_inference(model: nn.Module, mesh, family: str | None = None):
+    """Split ``model``'s tensor-parallel units over ``mesh``'s model axis
+    by the rules, as a trained state's compute placement
+    (:func:`shard_state_with_rules`), for a forward that needs no stored
+    placement: the scoring engines on a world. Returns the model."""
+    from dct_tpu_torch.convert import flax_names
+
+    names = flax_names(model)
+    spec = {names[n][0]: _resolve(
+        path_str(("params", "params", *names[n][0].split("/"))), family)[0]
+        for n, _ in model.named_parameters()}
+    split_units(model, mesh, spec.__getitem__)
+    return model
 
 
 # ------------------------------------------------------------- gather
@@ -555,20 +603,20 @@ def flax_layout(t: torch.Tensor, transposed: bool) -> torch.Tensor:
     return t.t() if transposed and t.ndim == 2 else t
 
 
-def gather_leaf(t: torch.Tensor, leaf: Leaf | None = None, *,
-                axis: str | None = None) -> np.ndarray:
+def gather_leaf(t: torch.Tensor, leaf: Leaf | None = None,
+                spec=()) -> np.ndarray:
     """One stored block (torch layout) -> the dense flax-layout host
-    array. A leaf split across processes is all-gathered over the group
-    that splits it: a collective every process of that group runs."""
+    array. A leaf that ``spec`` splits across processes is all-gathered
+    over the group of each axis that splits it: a collective every
+    process of those groups runs."""
+    from dct_tpu_torch.parallel.reshard import all_gather_dims
+
+    a = t.detach().float()
+    if leaf is not None:
+        for d, axis in leaf.splits(spec):
+            (a,) = all_gather_dims([a], [leaf.tdim(d)], leaf.mesh, axis)
     transposed = leaf is not None and leaf.transposed
-    if leaf is None or axis is None:
-        return np.array(flax_layout(t.detach(), transposed).float().cpu()
-                        .numpy(), order="C")
-    a = flax_layout(t.detach(), transposed).float()
-    a = a.movedim(leaf.dim, 0).contiguous()
-    out = a.new_empty((leaf.parts * a.shape[0], *a.shape[1:]))
-    dist.all_gather_into_tensor(out, a, group=leaf.group)
-    return np.array(out.movedim(0, leaf.dim).cpu().numpy(), order="C")
+    return np.array(flax_layout(a, transposed).cpu().numpy(), order="C")
 
 
 def gather_tree(state) -> dict:
@@ -591,7 +639,7 @@ def gather_tree(state) -> dict:
         else:
             lf = layout.leaves[i]
             stored = state.stored_param(i)
-            value = gather_leaf(stored, lf, axis=lf.param_axis)
+            value = gather_leaf(stored, lf, lf.param_spec)
             key = lf.key
         node = tree
         *path, last = key.split("/")
@@ -601,6 +649,17 @@ def gather_tree(state) -> dict:
     return {"params": tree}
 
 
+def respec(t: torch.Tensor, leaf: Leaf, src, dst) -> torch.Tensor:
+    """This process's block under ``dst`` of the leaf whose block under
+    ``src`` is ``t`` (torch layout): all-gathered over each axis ``src``
+    splits (a collective of that axis's group), then narrowed."""
+    from dct_tpu_torch.parallel.reshard import all_gather_dims
+
+    for d, axis in leaf.splits(src):
+        (t,) = all_gather_dims([t], [leaf.tdim(d)], leaf.mesh, axis)
+    return leaf.local(t, dst).contiguous()
+
+
 def make_shard_and_gather_fns(layout: StateLayout, *, moments=False):
     """(shard_fns, gather_fns), one pair per parameter (``moments``: of
     its optimizer moments): ``shard_fn(dense flax array)`` -> the torch
@@ -608,16 +667,16 @@ def make_shard_and_gather_fns(layout: StateLayout, *, moments=False):
     flax host array (a collective when the leaf is split)."""
 
     def pair(lf: Leaf):
-        axis = lf.moment_axis if moments else lf.param_axis
+        spec = lf.moment_spec if moments else lf.param_spec
 
         def shard_fn(a):
             t = torch.as_tensor(np.asarray(a, np.float32))
             if lf.transposed and t.ndim == 2:
                 t = t.t()
-            return (lf.local(t) if axis else t).contiguous()
+            return lf.local(t, spec).contiguous()
 
         def gather_fn(t):
-            return gather_leaf(t, lf, axis=axis)
+            return gather_leaf(t, lf, spec)
 
         return shard_fn, gather_fn
 
@@ -736,19 +795,24 @@ def cast_params_by_rules(model: nn.Module) -> dict[str, torch.Tensor] | None:
     casts are differentiable, so gradients reach the f32 masters."""
     from dct_tpu_torch.convert import flax_names
 
-    rules = dtype_rules()
-    if not rules:
+    if not dtype_rules():
         return None
     names = flax_names(model)
     out = {}
     for name, p in model.named_parameters():
-        path = "params/" + names[name][0]
-        for pattern, dname in rules:
-            if re.search(pattern, path):
-                p = p.to(getattr(torch, dname))
-                break
-        out[name] = p
+        dtype = rule_dtype(names[name][0])
+        out[name] = p if dtype is None else p.to(dtype)
     return out
+
+
+def rule_dtype(key: str):
+    """The ``DCT_DTYPE_RULES`` dtype of the parameter at flax ``key``
+    (first match wins), or None."""
+    path = "params/" + key
+    for pattern, dname in dtype_rules():
+        if re.search(pattern, path):
+            return getattr(torch, dname)
+    return None
 
 
 def dtype_rules_digest() -> str:

@@ -189,6 +189,53 @@ class TorchScorer:
         return time.perf_counter() - t0
 
 
+def mesh_scorer(weights: dict, meta: dict, device, mesh,
+                compute_dtype=None):
+    """The batch engines' scorer (``predict_job``, the gate's accelerator
+    engine), on one card or a world: the registry model built with
+    ``mesh``'s attention engines, f32 parameters computing in
+    ``compute_dtype`` (default f32; on a CUDA device TF32 off for
+    matmuls, process-wide), the dense weights loaded (a quantized
+    package's dequantized on the host), its tensor-parallel units split
+    by the family rules
+    (:func:`~dct_tpu_torch.parallel.sharding_rules.place_for_inference`)
+    and its data block set (an MoE routes over the whole chunk), in eval
+    mode. Returns ``rows -> probabilities`` (a tensor on ``device``;
+    ``[N, C]``, or ``[N, H, C]`` for a multi-horizon causal model), to be
+    driven by :func:`~dct_tpu_torch.parallel.mesh.score_split`."""
+    from dct_tpu_torch.convert import load_flax_weights
+    from dct_tpu_torch.evaluation.harness import dense_weights, flax_keyed
+    from dct_tpu_torch.models.mlp import set_data_block
+    from dct_tpu_torch.models.registry import (
+        config_from_meta,
+        get_model,
+        is_causal_model,
+    )
+    from dct_tpu_torch.parallel.sharding_rules import place_for_inference
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    family = meta.get("model", "weather_mlp")
+    model = get_model(config_from_meta(meta), device=dev,
+                      dtype=torch.float32, compute_dtype=compute_dtype,
+                      mesh=mesh)
+    load_flax_weights(model, flax_keyed(dense_weights(weights), family))
+    place_for_inference(model, mesh, family)
+    set_data_block(model, mesh.data_size, mesh.data_index)
+    model.eval().requires_grad_(False)
+    causal = is_causal_model(family)
+
+    def probs(piece: np.ndarray) -> torch.Tensor:
+        with torch.no_grad():
+            logits = model(torch.from_numpy(piece).to(dev))
+        if causal:
+            logits = logits[:, -1]
+        return torch.softmax(logits.float(), dim=-1)
+
+    return probs
+
+
 class _Request:
     """One logical request in flight through the batcher."""
 

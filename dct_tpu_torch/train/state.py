@@ -17,30 +17,34 @@ parameter per step.
 
 On a mesh (:func:`dct_tpu_torch.parallel.sharding_rules.
 shard_state_with_rules`) the state carries a layout, and the optimizer
-works on what each process owns, its **update space**: a tensor-parallel
-parameter's slice (the model holds only that), a replicated parameter
-whole, and, for a leaf split over ``data``, its block along the leading
-flax dim: under ZeRO-1 a view of the replicated parameter, whose updated
-blocks are all-gathered back after the step; under FSDP the stored block
-itself, the full parameter existing only inside :meth:`TrainState.
-full_params` (all-gathered over the data group for a forward, backward
-or eval pass, then released). The seq ranks of a data row hold the same
-blocks, as the reference replicates a data-split leaf over ``seq``.
-:meth:`TrainState.reduce_gradients` brings the raw gradients into the
-update space (one flat all-reduce over the gradient group, data x seq;
-for the data-split leaves one flat reduce-scatter over the data group,
-then under ``seq`` one all-reduce of the blocks over the seq group), and
-:meth:`TrainState.
-grad_norm` is the norm over the logical arrays: each split leaf's squares
-summed over the group that splits it, each replicated leaf counted once.
-The numbers equal data parallelism's; what changes is the memory each
+works on what each process owns, its **update space**: a parameter's
+stored block (a tensor-parallel slice, which the model holds; a resharded
+leaf's block, an FSDP block over ``data`` or a rule's placement, which
+only ``shards`` holds and its unit gathers at use,
+:mod:`dct_tpu_torch.parallel.reshard`; else the whole parameter), and
+under ZeRO-1 the ``data`` block of a replicated parameter along its
+leading flax dim (a view, whose updated blocks are all-gathered back
+after the step); where a rule stores the moments apart otherwise, the
+parameter's block in the moments' placement (gathered before the update
+and its stored block taken back after it).
+:meth:`TrainState.reduce_gradients` brings the raw
+gradients into the update space: each gradient is summed over the
+gradient-group axes (``data``, ``seq``) its stored block does not split,
+in one flat all-reduce for each set of such axes (a resharded leaf's
+gradient comes back from its unit already reduce-scattered over the
+axes its block splits), and ZeRO-1's over ``data`` in one flat
+reduce-scatter, then over ``seq``; a gradient whose moments are stored
+apart otherwise is then brought to their placement.
+:meth:`TrainState.grad_norm` is the
+norm over the logical arrays: each update-space tensor's squares summed
+over the axes that split it, each replicated leaf counted once. The
+numbers equal data parallelism's; what changes is the memory each
 process holds.
 """
 
 from __future__ import annotations
 
 import math
-from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Any, Callable, NamedTuple
 
@@ -51,6 +55,7 @@ from torch import nn
 
 from dct_tpu_torch.parallel.sharding_rules import (
     flax_layout,
+    respec,
     shard_state_with_rules,
 )
 
@@ -271,7 +276,8 @@ class TrainState:
     slices of them), the optimizer and its state, the step, the seed and
     the dropout seed ``rng`` that, with the step, seeds every dropout mask
     of a step. ``layout`` is the placement on a mesh (None: every process
-    holds everything); ``shards`` the FSDP parameters' stored blocks."""
+    holds everything); ``shards`` the resharded parameters' stored
+    blocks."""
 
     model: nn.Module
     tx: GradientTransformation
@@ -281,50 +287,52 @@ class TrainState:
     rng: int
     layout: Any = None
     shards: dict = field(default_factory=dict)
-    _full_depth: int = 0
 
     @property
     def params(self) -> list[torch.Tensor]:
         return list(self.model.parameters())
 
-    def _data_split(self) -> list[int]:
-        layout = self.layout
-        if layout is None or layout.mesh.shape["data"] == 1:
-            return []
-        return layout.data_split()
-
     def stored_param(self, i: int) -> torch.Tensor:
-        """What this process stores of parameter ``i``: its FSDP block,
-        else the parameter (a tensor-parallel slice, or whole)."""
+        """What this process stores of parameter ``i``: a resharded
+        leaf's block, else the parameter (a tensor-parallel slice, or
+        whole)."""
         return self.shards.get(i, self.params[i])
+
+    def grad_targets(self) -> list[torch.Tensor]:
+        """The tensors a step differentiates, in ``params`` order: each
+        parameter's stored tensor (a resharded leaf's block, which its
+        unit gathers at use)."""
+        return [self.shards.get(i, p) for i, p in enumerate(self.params)]
 
     def update_params(self) -> list[torch.Tensor]:
         """The tensors the optimizer updates (the module docstring's
-        update space)."""
-        params = self.params
-        out = [p for p in params]
-        for i in self._data_split():
-            out[i] = self.shards.get(i)
-            if out[i] is None:
-                out[i] = self.layout.leaves[i].local(params[i].detach())
+        update space): each parameter's block in its moments' placement
+        (a view of a ZeRO-1 leaf's, a gathered copy where the moments are
+        stored apart otherwise)."""
+        out = []
+        for i in range(len(self.params)):
+            t = self.stored_param(i)
+            lf = None if self.layout is None else self.layout.leaves[i]
+            if lf is not None and lf.zero1:
+                t = lf.local(t.detach(), lf.moment_spec)
+            elif lf is not None and lf.apart:
+                t = respec(t.detach(), lf, lf.param_spec, lf.moment_spec)
+            out.append(t)
         return out
 
-    def place_params(self) -> None:
-        """Keep each FSDP parameter as its data block, releasing the full
-        tensor (after the layout is set)."""
-        if self.layout is None:
-            return
+    def place_params(self, full: list[torch.Tensor]) -> None:
+        """Keep each resharded parameter as its stored block of ``full``
+        (every parameter's full torch-layout tensor), releasing the
+        module's parameter (after the layout is set)."""
         params = self.params
-        for i in self.layout.fsdp():
-            if self.layout.mesh.shape["data"] == 1:
-                continue
+        for i in self.layout.resharded():
             lf = self.layout.leaves[i]
-            self.shards[i] = lf.local(params[i].data).clone(
-                memory_format=torch.contiguous_format)
+            self.shards[i] = lf.local(full[i], lf.param_spec).clone(
+                memory_format=torch.contiguous_format).requires_grad_(True)
             params[i].data = params[i].data.new_empty(0)
 
     def _gather_blocks(self, idx: list[int], blocks) -> list[torch.Tensor]:
-        """The full torch-layout tensors of the data-split leaves ``idx``
+        """The full torch-layout tensors of the ZeRO-1 leaves ``idx``
         from this process's ``blocks``, in one all-gather over the data
         group (each block contiguous rows of the leaf's flax layout)."""
         layout = self.layout
@@ -344,50 +352,57 @@ class TrainState:
             off += n
         return full
 
-    @contextmanager
-    def full_params(self):
-        """The FSDP parameters all-gathered into the model for the body of
-        the ``with`` (nested uses gather once), released after it; a no-op
-        without FSDP leaves."""
-        if not self.shards:
-            yield
-            return
-        params = self.params
-        idx = sorted(self.shards)
-        if self._full_depth == 0:
-            for i, full in zip(idx, self._gather_blocks(
-                    idx, [self.shards[i] for i in idx])):
-                params[i].data = full
-        self._full_depth += 1
-        try:
-            yield
-        finally:
-            self._full_depth -= 1
-            if self._full_depth == 0:
-                for i in idx:
-                    params[i].data = params[i].data.new_empty(0)
-
     def reduce_gradients(self, grads, extras=()):
-        """Raw per-process gradients (in ``params`` order) and scalars
+        """Raw per-process gradients of :meth:`grad_targets` and scalars
         ``extras`` -> (update-space gradients summed over the gradient
-        group, data x seq, the summed ``extras``): one flat all-reduce,
-        and for the data-split leaves one flat reduce-scatter over the
-        data group and, under ``seq``, one all-reduce of this process's
-        blocks over the seq group."""
+        group, data x seq, the summed ``extras``): one flat all-reduce
+        for each set of gradient axes the stored blocks leave unsplit
+        (the replicated leaves' with the extras over the whole group),
+        and for the ZeRO-1 leaves one flat reduce-scatter over the data
+        group and, under ``seq``, one all-reduce of this process's blocks
+        over the seq group."""
         from dct_tpu_torch.parallel.mesh import all_reduce_sum
 
         grads, extras = list(grads), list(extras)
-        split = self._data_split()
-        whole = [i for i in range(len(grads)) if i not in set(split)]
+        layout = self.layout
+        zero1 = [] if layout is None else layout.zero1()
+        buckets: dict[tuple, list[int]] = {}
+        grad_axes = ("data", "seq")
+        if layout is not None:
+            grad_axes = tuple(a for a in grad_axes
+                              if layout.mesh.shape[a] > 1)
+        for i in range(len(grads)):
+            if i in zero1:
+                continue
+            left = grad_axes
+            if layout is not None:
+                split = layout.leaves[i].axes(layout.leaves[i].param_spec)
+                left = tuple(a for a in grad_axes if a not in split)
+            buckets.setdefault(left, []).append(i)
+        whole = buckets.pop(grad_axes, [])
         reduced = all_reduce_sum([*(grads[i] for i in whole), *extras])
         out = [None] * len(grads)
         for i, g in zip(whole, reduced):
             out[i] = g
-        if split:
-            layout = self.layout
+        for left, idx in buckets.items():
+            flat = [grads[i].reshape(-1).float() for i in idx]
+            if left:
+                buf = torch.cat(flat)
+                dist.all_reduce(buf, group=layout.mesh.axis_group(left[0]))
+                flat, off = [], 0
+                for i in idx:
+                    n = grads[i].numel()
+                    flat.append(buf[off:off + n])
+                    off += n
+            for i, f in zip(idx, flat):
+                out[i] = f.view(grads[i].shape).to(grads[i].dtype)
+        for i in [] if layout is None else layout.apart():
+            lf = layout.leaves[i]
+            out[i] = respec(out[i], lf, lf.param_spec, lf.moment_spec)
+        if zero1:
             d = layout.mesh.shape["data"]
             rows = [flax_layout(grads[i], layout.leaves[i].transposed)
-                    .reshape(d, -1).float() for i in split]
+                    .reshape(d, -1).float() for i in zero1]
             buf = torch.cat(rows, dim=1).contiguous()
             mine = buf.new_empty(buf.shape[1])
             dist.reduce_scatter_tensor(mine, buf.reshape(-1),
@@ -397,7 +412,7 @@ class TrainState:
                 # one share each of their gradients.
                 dist.all_reduce(mine, group=layout.mesh.seq_group)
             off = 0
-            for i, r in zip(split, rows):
+            for i, r in zip(zero1, rows):
                 lf = layout.leaves[i]
                 n = r.shape[1]
                 block = mine[off:off + n].reshape(lf.shape[0] // d,
@@ -409,44 +424,45 @@ class TrainState:
 
     def grad_norm(self, grads) -> torch.Tensor:
         """The global norm of update-space ``grads`` over the logical
-        arrays (f32)."""
+        arrays (f32): each tensor's squares summed over the axes that
+        split it (one all-reduce over each axis's group in turn)."""
         layout = self.layout
         if layout is None or not layout.sharded:
             return global_norm(grads)
-        parts = {None: [], "model": [], "data": []}
-        split = set(self._data_split())
+        parts: dict[tuple, list] = {(): []}
         for i, g in enumerate(grads):
             lf = layout.leaves[i]
-            axis = ("data" if i in split else
-                    "model" if lf.moment_axis == "model" else None)
-            parts[axis].append((g.float() * g.float()).sum())
+            parts.setdefault(lf.axes(lf.moment_spec), []).append(
+                (g.float() * g.float()).sum())
         zero = grads[0].new_zeros((), dtype=torch.float32)
-        total = sum(parts[None], zero)
-        for axis, group in (("model", layout.mesh.model_group),
-                            ("data", layout.mesh.data_group)):
-            if parts[axis]:
-                s = sum(parts[axis], zero).reshape(1)
-                dist.all_reduce(s, group=group)
-                total = total + s[0]
+        total = sum(parts.pop(()), zero)
+        for axes, squares in parts.items():
+            s = sum(squares, zero).reshape(1)
+            for axis in axes:
+                dist.all_reduce(s, group=layout.mesh.axis_group(axis))
+            total = total + s[0]
         return torch.sqrt(total)
 
     def apply_gradients(self, grads, norm: torch.Tensor) -> "TrainState":
         """One optimizer update of update-space ``grads``, whose global
         norm (:meth:`grad_norm`) is ``norm``, in place; the step advances.
-        ZeRO-1 blocks are all-gathered back into their replicated
-        parameters."""
+        ZeRO-1 blocks are all-gathered back into their stored
+        parameters, as is any block updated in its moments' placement."""
         params = self.update_params()
         with torch.no_grad():
             updates, self.opt_state = self.tx.update(
                 list(grads), self.opt_state, params, norm
             )
             torch._foreach_add_(params, updates)
-            zero1 = [i for i in self._data_split() if i not in self.shards]
+            zero1 = [] if self.layout is None else self.layout.zero1()
             if zero1:
-                full = self.params
                 for i, t in zip(zero1, self._gather_blocks(
                         zero1, [params[i] for i in zero1])):
-                    full[i].copy_(t)
+                    self.stored_param(i).copy_(t)
+            for i in [] if self.layout is None else self.layout.apart():
+                lf = self.layout.leaves[i]
+                self.stored_param(i).copy_(
+                    respec(params[i], lf, lf.moment_spec, lf.param_spec))
         self.step += 1
         return self
 

@@ -36,9 +36,12 @@ same logits: the bodies weight the rows on seq index 0 alone
 (:func:`~dct_tpu_torch.parallel.mesh.seq_owned`), and the gradients and
 sums are reduced over data x seq.
 The grad norm is :meth:`~dct_tpu_torch.train.state.TrainState.grad_norm`,
-over the logical arrays. FSDP parameters are all-gathered for each body
-(:meth:`~dct_tpu_torch.train.state.TrainState.full_params`). With one
-process the reductions return their inputs.
+over the logical arrays. The bodies differentiate each parameter's
+stored tensor (:meth:`~dct_tpu_torch.train.state.TrainState.
+grad_targets`): a resharded leaf's block (FSDP, a rule's placement) is
+gathered by its unit as the unit runs
+(:mod:`dct_tpu_torch.parallel.reshard`). With one process the
+reductions return their inputs.
 """
 
 from __future__ import annotations
@@ -91,17 +94,16 @@ def loss_and_grads(state: TrainState, x, y, weight):
     x, y, weight = _device_tensors(state, x, y, weight)
     weight = seq_owned(weight)
     state.model.train()
-    with state.full_params():
-        logits = _apply(state, x, (state.rng, state.step))
-        loss_sum, count = masked_cross_entropy(
-            logits, y, _position_weight(logits, y, weight)
-        )
-        (total,) = all_reduce_sum([count])
-        loss = loss_sum / torch.clamp(total, min=1.0)
-        aux = _aux_loss(state.model)
-        if aux is not None:
-            loss = loss + aux
-        grads = torch.autograd.grad(loss, state.params)
+    logits = _apply(state, x, (state.rng, state.step))
+    loss_sum, count = masked_cross_entropy(
+        logits, y, _position_weight(logits, y, weight)
+    )
+    (total,) = all_reduce_sum([count])
+    loss = loss_sum / torch.clamp(total, min=1.0)
+    aux = _aux_loss(state.model)
+    if aux is not None:
+        loss = loss + aux
+    grads = torch.autograd.grad(loss, state.grad_targets())
     grads, (loss,) = state.reduce_gradients(grads, [loss.detach()])
     return loss, grads
 
@@ -132,22 +134,21 @@ def _train_accum_body(state: TrainState, x, y, weight, accum_steps: int):
     total = torch.clamp(total, min=1.0)
     state.model.train()
     grads, loss = None, torch.zeros((), device=x.device)
-    with state.full_params():
-        params = state.params
-        for i in range(accum_steps):
-            rows = slice(i * n, (i + 1) * n)
-            cy, cw = y[rows], weight[rows]
-            logits = _apply(state, x[rows], (state.rng, state.step, i))
-            loss_sum, _ = masked_cross_entropy(
-                logits, cy, _position_weight(logits, cy, cw)
-            )
-            chunk = loss_sum / total
-            aux = _aux_loss(state.model)
-            if aux is not None:
-                chunk = chunk + aux / accum_steps
-            g = torch.autograd.grad(chunk, params)
-            grads = g if grads is None else [a + c for a, c in zip(grads, g)]
-            loss = loss + chunk.detach()
+    targets = state.grad_targets()
+    for i in range(accum_steps):
+        rows = slice(i * n, (i + 1) * n)
+        cy, cw = y[rows], weight[rows]
+        logits = _apply(state, x[rows], (state.rng, state.step, i))
+        loss_sum, _ = masked_cross_entropy(
+            logits, cy, _position_weight(logits, cy, cw)
+        )
+        chunk = loss_sum / total
+        aux = _aux_loss(state.model)
+        if aux is not None:
+            chunk = chunk + aux / accum_steps
+        g = torch.autograd.grad(chunk, targets)
+        grads = g if grads is None else [a + c for a, c in zip(grads, g)]
+        loss = loss + chunk.detach()
     grads, (loss,) = state.reduce_gradients(grads, [loss])
     gnorm = state.grad_norm(grads)
     return state.apply_gradients(grads, gnorm), loss, gnorm
@@ -158,7 +159,7 @@ def _eval_body(state: TrainState, x, y, weight):
     x, y, weight = _device_tensors(state, x, y, weight)
     weight = seq_owned(weight)
     state.model.eval()
-    with torch.no_grad(), state.full_params():
+    with torch.no_grad():
         logits = _apply(state, x, None)
         w = _position_weight(logits, y, weight)
         loss_sum, count = masked_cross_entropy(logits, y, w)
@@ -214,10 +215,8 @@ def _epoch_eval(state: TrainState, xs, ys, ws):
     processes' blocks)."""
     xs, ys, ws = _device_tensors(state, xs, ys, ws)
     sums = tuple(torch.zeros((), device=xs.device) for _ in range(6))
-    with state.full_params():
-        for x, y, w in zip(xs, ys, ws):
-            sums = tuple(a + b for a, b in
-                         zip(sums, _eval_body(state, x, y, w)))
+    for x, y, w in zip(xs, ys, ws):
+        sums = tuple(a + b for a, b in zip(sums, _eval_body(state, x, y, w)))
     return tuple(all_reduce_sum(sums))
 
 

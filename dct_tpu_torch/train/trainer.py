@@ -65,7 +65,11 @@ state is placed by the family's partition rules with
 checked against the declared layout, and the deploy checkpoints are
 gathered dense on every process before the coordinator writes them. The
 ``trainer.layout`` event gives each process's parameter and optimizer
-bytes.
+bytes. A resume reads this process's ``p<rank>`` directory, re-mapping a
+shard-saved state from another grid or process count through its sibling
+ranks' directories (:class:`~dct_tpu_torch.checkpoint.manager.
+TrainStateCheckpointer`), so a grown world's new ranks resume with the
+others.
 """
 
 from __future__ import annotations
@@ -186,6 +190,21 @@ class TrainResult:
     state: object | None = None
     # This process's parameter and optimizer-state bytes, and the mesh.
     layout: dict = field(default_factory=dict)
+
+
+def _gathered_bytes(state) -> dict:
+    """The most gathered parameter bytes this process held at once (its
+    resharded units', :mod:`dct_tpu_torch.parallel.reshard`), the largest
+    per-unit gather's, all of them together, and the small units' held
+    for the step (with the per-unit ones, what one gather of the whole
+    model would hold)."""
+    from dct_tpu_torch.parallel import reshard
+
+    units = reshard.unit_bytes(state)
+    return {"gathered_peak_bytes": reshard.gathered_bytes()["peak"],
+            "unit_bytes_max": max(units, default=0),
+            "unit_bytes_sum": sum(units),
+            "step_unit_bytes": reshard.step_bytes(state)}
 
 
 def _state_bytes(state) -> dict:
@@ -807,6 +826,7 @@ class Trainer:
                                     / max(len(steady), 1)),
             epoch_seconds=epoch_seconds, run_id=run_id, state=state,
             layout={"mesh": dict(mesh.shape), **_state_bytes(state),
+                    **_gathered_bytes(state),
                     "local_heads": _local_heads(state.model)},
         )
 

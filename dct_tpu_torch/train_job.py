@@ -23,7 +23,9 @@ dct_tpu_torch.train_job``). Environment:
       families and the MoE sequence-parallel (``DCT_SP_ENGINE`` ring or
       a2a, ``DCT_RING_STRIPED``), the MoE routing over data x seq, and
       replicates the MLP and the GRU over it; ZeRO-1 and FSDP split over
-      ``data`` and replicate over ``seq``
+      ``data`` and replicate over ``seq``; ``DCT_RESUME=1`` resumes a
+      shard-saved state on another grid or process count (re-mapped
+      from the sibling ranks' files)
   DCT_SHARD_OPT_STATE / DCT_SHARD_PARAMS / DCT_SHARD_RULES  ZeRO-1, FSDP
       and the partition-rule overrides
       (:mod:`dct_tpu_torch.parallel.sharding_rules`)
@@ -37,8 +39,11 @@ counts, when training ends (done, preempted or halted), so a supervisor's
 caller can count launches across the process boundary, and at the end of
 a completed fit ``[train_job] fit {...}``: the val_loss, samples/s (all
 epochs, and the epochs after the first), the epoch seconds, the mesh, this
-process's parameter and optimizer-state bytes, its attention's local
-heads and, on a card, its peak allocated bytes.
+process's parameter and optimizer-state bytes, the most gathered
+parameter bytes it held at once (``gathered_peak_bytes``, beside its
+largest unit's, all its units' together and its small units' held for the
+step), its attention's local heads
+and, on a card, its peak allocated bytes.
 
 Exit 0 only when training completed and, on the coordinator (rank 0), its
 best checkpoint exists (the other ranks write no ``*.ckpt``); 75
@@ -81,7 +86,7 @@ def refuse_unported_env(env=None) -> None:
 
 def main() -> int:
     from dct_tpu_torch.config import RunConfig
-    from dct_tpu_torch.device import resolve_device
+    from dct_tpu_torch.device import process_device
     from dct_tpu_torch.observability.events import current_run_id
     from dct_tpu_torch.parallel.distributed import initialize_from_env
 
@@ -91,22 +96,11 @@ def main() -> int:
     run_id = cfg.obs.run_id or current_run_id()
     cfg.obs.run_id = run_id
     print(f"[train_job] run_id={run_id}", flush=True)
-    device = os.environ.get("DCT_DEVICE") or None
-    if device is None:
-        import torch
-
-        n, rank = torch.cuda.device_count(), cfg.dist.process_id
-        if n and rank >= n:
-            raise RuntimeError(
-                f"process {rank} has no card of its own: {n} CUDA "
-                f"device(s) for {cfg.dist.num_processes} processes. Start "
-                "one process per card, or set DCT_DEVICE.")
-        device = f"cuda:{rank}" if n else "cuda"
-    device = resolve_device(device)
+    device = process_device(cfg.dist.process_id, cfg.dist.num_processes,
+                            os.environ.get("DCT_DEVICE") or None)
     if device.type == "cuda":
         import torch
 
-        torch.cuda.set_device(device)
         free, total = torch.cuda.mem_get_info(device)
         print(f"[train_job] {device}: {free / 2**30:.2f} of "
               f"{total / 2**30:.2f} GiB free at start", flush=True)

@@ -7,8 +7,11 @@ included) equal the reference's ``parse_rules``, ``rules_digest``,
 ``match_partition_rules`` and ``state_shardings`` on a ``data=4,
 model=2`` mesh of the 8 virtual CPU devices; so do the data-axis
 decisions of ``_data_shard_spec`` and the grid's errors. The placements
-the port computes itself (tensor-parallel slices, the raise where a rule
-asks another placement, naming its clause and item 15b) are pinned too.
+the port computes itself (tensor-parallel slices; rule layouts outside
+the family tables, stored apart from how they are computed, with the
+reference's specs on a ``data=2, model=2, seq=2`` mesh, moments stored
+apart from their parameter among them; the refusals of a ``pipe`` clause
+and of a dim its axis does not divide) are pinned too.
 """
 
 import jax
@@ -83,15 +86,17 @@ def test_rules_digest_and_table_match(monkeypatch, env, family):
         (p, _spec(s)) for p, s in ref.rules_for_family(family)]
 
 
-def _pair(family, opt):
+def _pair(family, opt, input_dim=F_IN):
     fields = dict(FAMILIES[family], name=family)
     seq = family != "weather_mlp"
-    jmodel = jax_get_model(JaxModelConfig(**fields), input_dim=F_IN)
-    jst = jax_state(jmodel, input_dim=F_IN, lr=1e-3, seed=0,
-                    example_shape=(1, fields["seq_len"], F_IN) if seq
+    jmodel = jax_get_model(JaxModelConfig(**fields), input_dim=input_dim)
+    jst = jax_state(jmodel, input_dim=input_dim, lr=1e-3, seed=0,
+                    example_shape=(1, fields["seq_len"], input_dim) if seq
                     else None, **opt)
-    model = get_model(ModelConfig(**fields), input_dim=F_IN, device="cpu")
-    pst = create_train_state(model, input_dim=F_IN, lr=1e-3, seed=0, **opt)
+    model = get_model(ModelConfig(**fields), input_dim=input_dim,
+                      device="cpu")
+    pst = create_train_state(model, input_dim=input_dim, lr=1e-3, seed=0,
+                             **opt)
     return jst, pst
 
 
@@ -180,25 +185,95 @@ def test_tensor_parallel_placement_slices_whole_groups():
         torch_eq(params[name].detach().numpy(), want.numpy())
     lf = pst.layout.leaves[list(params).index(
         "block_0.attn.qkv_proj.weight")]
-    assert (lf.shape, lf.dim, lf.offsets()) == ((16, 32), 1, (0, 16))
+    assert (lf.shape, lf.splits(lf.param_spec), lf.offsets(lf.param_spec)
+            ) == ((16, 32), [(1, "model")], (0, 16))
     # The Adam moments follow the slices.
     assert pst.opt_state[0]["mu"][list(params).index(
         "block_0.attn.qkv_proj.weight")].shape == (16, 16)
 
 
+@pytest.mark.parametrize("rules,name,stored,compute", [
+    # A unit split in part: the qkv kernel stored whole, computed as its
+    # tensor-parallel slice.
+    ("qkv_proj.*/kernel$=", "block_0.attn.qkv_proj.weight", (),
+     (None, "model")),
+    # A leaf on model outside the tables, computed whole.
+    ("head/kernel$=-,model", "head.weight", (None, "model"), ()),
+    # A seq placement, computed whole.
+    ("in_proj/kernel$=seq", "in_proj.weight", ("seq",), ()),
+], ids=["unit_in_part", "head_on_model", "in_proj_on_seq"])
+def test_rule_layouts_outside_the_tables_match_the_reference(
+        monkeypatch, rules, name, stored, compute):
+    monkeypatch.setenv("DCT_SHARD_RULES", rules)
+    jst, pst = _pair("weather_transformer", OPTIMIZERS[0], input_dim=6)
+    jmesh = jax_mesh.make_mesh(JaxMeshConfig(data=2, model=2, seq=2))
+    theirs = _ref_specs(ref.state_shardings(jst, jmesh,
+                                            family="weather_transformer"))
+    mesh = ProcessMesh(2, 2, 2, rank=5, world=8)
+    port.shard_state_with_rules(pst, mesh, family="weather_transformer")
+    declared = port.state_shardings(pst, mesh, family="weather_transformer")
+    assert {k: _spec(v) for k, v in declared.items()} == theirs
+    assert port.layout_mismatches(pst, theirs) == []
+    names = [n for n, _ in pst.model.named_parameters()]
+    i = names.index(name)
+    lf = pst.layout.leaves[i]
+    assert (lf.param_spec, lf.moment_spec, lf.compute_spec) == (
+        stored, stored, compute)
+    assert lf.resharded
+    # The process stores its block alone (torch layout); the module's
+    # parameter is empty until its unit gathers it.
+    block = lf.block_shape(stored)
+    want = block[::-1] if lf.transposed else block
+    assert tuple(pst.stored_param(i).shape) == tuple(want)
+    assert pst.params[i].numel() == 0
+    assert pst.model.block_0.attn.local == (2, 1, 8)
+
+
+@pytest.mark.parametrize("rules,name,stored,moments", [
+    # Moments split over data on a dim ZeRO-1 does not take.
+    ("(mu|nu)/params/block_0/ffn_in/kernel$=-,data",
+     "block_0.ffn_in.weight", (None, "model"), (None, "data")),
+    # A parameter on data (computed whole), its moments replicated.
+    ("(mu|nu)/params/block_1/ffn_out/kernel$=;block_1/ffn_out/kernel$=data",
+     "block_1.ffn_out.weight", ("data",), ()),
+    # A parameter on model, its moments over seq as well.
+    ("(mu|nu)/params/head/kernel$=seq,model;head/kernel$=-,model",
+     "head.weight", (None, "model"), ("seq", "model")),
+], ids=["moments_on_dim1", "param_on_data", "moments_on_seq"])
+def test_moments_stored_apart_match_the_reference(monkeypatch, rules, name,
+                                                  stored, moments):
+    monkeypatch.setenv("DCT_SHARD_RULES", rules)
+    jst, pst = _pair("weather_transformer", OPTIMIZERS[0], input_dim=6)
+    jmesh = jax_mesh.make_mesh(JaxMeshConfig(data=2, model=2, seq=2))
+    theirs = _ref_specs(ref.state_shardings(jst, jmesh,
+                                            family="weather_transformer"))
+    mesh = ProcessMesh(2, 2, 2, rank=5, world=8)
+    port.shard_state_with_rules(pst, mesh, family="weather_transformer")
+    declared = port.state_shardings(pst, mesh, family="weather_transformer")
+    assert {k: _spec(v) for k, v in declared.items()} == theirs
+    names = [n for n, _ in pst.model.named_parameters()]
+    i = names.index(name)
+    lf = pst.layout.leaves[i]
+    assert (lf.param_spec, lf.moment_spec) == (stored, moments)
+    assert lf.apart and not lf.zero1 and pst.layout.apart() == [i]
+    # The moments hold the moments' block (torch layout).
+    block = lf.block_shape(moments)
+    want = block[::-1] if lf.transposed else block
+    assert tuple(pst.opt_state[0]["mu"][i].shape) == tuple(want)
+
+
 @pytest.mark.parametrize("rules,match", [
-    ("qkv_proj.*/kernel$=", "qkv_proj.*/kernel\\$="),
-    ("head/kernel$=-,model", "head/kernel\\$=-,model"),
-    ("in_proj/kernel$=seq", "in_proj/kernel\\$=seq"),
-])
-def test_a_rule_asking_another_placement_raises_naming_15b(monkeypatch,
-                                                           rules, match):
+    ("in_proj/kernel$=pipe", "item 17"),
+    ("in_proj/kernel$=data", "dim 0 \\(5\\) does not divide over data=2"),
+], ids=["pipe", "indivisible"])
+def test_a_pipe_clause_and_an_indivisible_dim_raise_naming_the_clause(
+        monkeypatch, rules, match):
     monkeypatch.setenv("DCT_SHARD_RULES", rules)
     _, pst = _pair("weather_transformer", OPTIMIZERS[0])
-    with pytest.raises(ValueError, match="item 15b") as e:
+    with pytest.raises(ValueError, match=match) as e:
         port.shard_state_with_rules(pst, ProcessMesh(2, 2, rank=0, world=4),
                                     family="weather_transformer")
-    assert e.match(match)
+    assert e.match(rules.replace("$", "\\$"))
 
 
 def test_rules_replicating_every_unit_and_a_data_leading_rule(monkeypatch):
@@ -210,7 +285,8 @@ def test_rules_replicating_every_unit_and_a_data_leading_rule(monkeypatch):
     assert pst.model.block_0.attn.local == (4, 2, 16)
     names = [n for n, _ in pst.model.named_parameters()]
     lf = pst.layout.leaves[names.index("head.weight")]
-    assert (lf.param_axis, lf.moment_axis, lf.index) == ("data", "data", 1)
+    assert (lf.axes(lf.param_spec), lf.axes(lf.moment_spec),
+            lf.offsets(lf.param_spec)) == (("data",), ("data",), (8, 0))
     assert pst.stored_param(names.index("head.weight")).shape == (2, 8)
 
 

@@ -15,8 +15,8 @@ multi-device mesh.
 - ``train_job`` at W=4 (``data=2, model=2``, ZeRO-1) tracks the W=1 fit
   within 1e-3 on val_loss, publishes dense checkpoints, and a shard-saved
   resume continues its run exactly, with the keys and ``layout.json`` the
-  reference's ``_index_key`` and ``spec_to_json`` give; a changed topology
-  is refused naming item 15b.
+  reference's ``_index_key`` and ``spec_to_json`` give; one process on
+  ``model=1`` re-maps the same shard-saved state bit for bit.
 
 The worlds are few and each serves several tests; every subprocess has a
 bound that holds on a loaded machine.
@@ -600,12 +600,21 @@ def test_shard_keys_and_layout_are_the_reference_ones(fits):
         assert sorted(entries) == sorted(want_keys)
 
 
-def test_a_changed_topology_is_refused_naming_15b(fits, monkeypatch):
-    import torch
-
-    from dct_tpu_torch.checkpoint.manager import TrainStateCheckpointer
+def test_a_changed_topology_re_maps_onto_model1(fits, tmp_path):
+    """The W=4 (data=2, model=2, ZeRO-1) shard-saved state, restored by
+    one process on model=1 from rank 0's directory: every split leaf is
+    assembled from the four ranks' files (siblings on one filesystem),
+    bit for bit, the parameters equal the dense last.ckpt written at the
+    same step, and ``shard.topology_remap`` is on the event log."""
+    from dct_tpu_torch.checkpoint.manager import (
+        TrainStateCheckpointer,
+        flatten_tree,
+        load_checkpoint,
+        state_leaves,
+    )
     from dct_tpu_torch.config import ModelConfig
     from dct_tpu_torch.models.registry import get_model
+    from dct_tpu_torch.observability import events
     from dct_tpu_torch.parallel.mesh import ProcessMesh
     from dct_tpu_torch.train.state import create_train_state
 
@@ -615,9 +624,44 @@ def test_a_changed_topology_is_refused_naming_15b(fits, monkeypatch):
     st = create_train_state(model, input_dim=F_IN, lr=1e-3, seed=0,
                             mesh=ProcessMesh(1, 1, rank=0, world=1),
                             family="weather_transformer")
-    ck = TrainStateCheckpointer(os.path.join(
-        fits["dirs"]["four"], "train_state", "p0"))
-    with pytest.raises(RuntimeError, match="item 15b") as e:
+    d = fits["dirs"]["four"]
+    ck = TrainStateCheckpointer(os.path.join(d, "train_state", "p0"))
+    log = str(tmp_path / "events.jsonl")
+    events.set_default(events.EventLog(log, run_id="remap"))
+    try:
         ck.restore(st)
-    assert "'model': 2" in str(e.value) and "'model': 1" in str(e.value)
-    assert torch.is_tensor(st.params[0])
+    finally:
+        events.set_default(None)
+    # The dense value of every leaf, tiled from the ranks' blocks.
+    ranks = [_resume_files(d, r)[0] for r in range(4)]
+    got = state_leaves(st)
+    split = 0
+    for n, leaf in enumerate(got):
+        dense = np.zeros(np.shape(leaf), np.asarray(leaf).dtype)
+        for entries in ranks:
+            for k, v in entries.items():
+                if k == str(n):
+                    dense[...] = v
+                elif k.startswith(f"{n}_s"):
+                    split += 1
+                    off = [int(o) for o in k[len(f"{n}_s"):].split("x")]
+                    dense[tuple(slice(o, o + s) for o, s in
+                                zip(off, v.shape))] = v
+        np.testing.assert_array_equal(np.asarray(leaf), dense, err_msg=n)
+    assert split
+    params, _ = load_checkpoint(os.path.join(d, "last.ckpt"))
+    from dct_tpu_torch.checkpoint.manager import param_tree
+
+    mine = flatten_tree(param_tree(st.model)["params"])
+    for k, v in flatten_tree(params["params"]).items():
+        np.testing.assert_array_equal(mine[k], v, err_msg=k)
+    assert ck.last_remap["from_mesh"] == {"data": 2, "model": 2, "seq": 1,
+                                          "pipe": 1}
+    assert ck.last_remap["to_mesh"]["model"] == 1
+    assert (ck.last_remap["from_processes"], ck.last_remap["to_processes"]
+            ) == (4, 1)
+    assert ck.last_remap["leaves"] > 0
+    with open(log) as f:
+        recs = [json.loads(line) for line in f]
+    remaps = [r for r in recs if r["event"] == "shard.topology_remap"]
+    assert remaps and remaps[0]["leaves"] == ck.last_remap["leaves"]
