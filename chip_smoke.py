@@ -159,7 +159,7 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
    ``done``; prints the time to recover (the crashed rank's
    ``fault.injected`` to the relaunched rank's ``trainer.startup`` span
    end, where its first step is issued) with ``lost_wall_s`` and the
-   backoff. (i2) ``hang@rank0:epoch1`` with a 30 s heartbeat stall window
+   backoff. (i2) ``hang@rank0:epoch1`` with a 20 s heartbeat stall window
    (the monitor's startup grace too, so it must exceed a cold rank's 8-11 s
    from launch to its first beat on an H100 host): stall-killed (SIGTERM,
    SIGKILL 3 s later), relaunched once, exit 0; the relaunched rank finds
@@ -425,20 +425,58 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
    Then ``[smoke] (o) summary`` and ``phase_o.json``; on fewer than four
    cards one line, ``{"phase": "o", "ran": false, "cards": 1}``.
 
+(p) The pipe axis (``pipeline_phase``; ``--phase p`` runs only the kernel
+   build and (p)): ``weather_transformer_pp`` at the bench's width
+   (4 layers in ``n_stages`` stages) on (m)'s rows and schedule:
+   (p0) on any count of cards: the three kernels against their plain
+       versions at (p1)'s per-rank microbatch shapes (``[8, 8]``,
+       ``[4, 8]``, ``[8, 4]`` of ``[B, H]``; f32 and bf16, FWD_TOL and
+       BWD_TOL), then ``train_job`` on one card at ``n_stages=2``,
+       ``pipe=1`` (the stages one after another), f32 and bf16 side by
+       side, every layer's kernels once a train step and eval batch; the
+       f32 package through the HTTP server at 1, 3 and 8 windows and its
+       bf16 and int8 twins through the torch scorer at 3, against the
+       reference's numpy forward (1e-5 f32 and int8 with its kernels
+       dequantized, 2e-2 bf16 against f32), 4 forward launches a
+       request; and ``predict_job`` over (m)'s windows, the first and
+       last window of every chunk within 1e-5 of the numpy engine, 4
+       launches a chunk. In the whole script it runs at the end of the
+       (l) chain, once (i)'s drills have ended;
+   (p1) on four cards, one epoch each, f32 and bf16: ``pipe=2`` with
+       ``M`` 2 and 4 (side by side), ``pipe=4`` (``M`` 4), ``data=2
+       pipe=2`` and ``model=2 pipe=2``, each against one card's
+       sequential run from the same init (``n_stages`` 2, or 4 for
+       ``pipe=4``): every rank's val_loss within 1e-5 (f32) and 5e-3
+       (bf16), every rank's launches exactly ``(n_layers / P) x M`` a
+       train step and eval batch (backward as many a train step); step
+       ms, samples/s, peak memory per rank and each stage's idle share
+       of the traced schedules (``DCT_PIPE_TRACE``) beside the bubble
+       ``(P-1)/(M+P-1)``;
+   (p2) on four cards: a shard-saved resume, one epoch at ``data=2
+       pipe=2`` resumed at ``model=2 pipe=2`` and one at ``pipe=2``
+       resumed on one card, as (o1): every leaf of the restored state
+       equal to the tiled files, every rank logging
+       ``shard.topology_remap``, each within 1e-5 of its control
+       continuation (``n_stages`` must equal ``pipe``, so a two-stage
+       checkpoint resumes on two-stage grids).
+   Then ``[smoke] (p) summary`` and ``phase_p.json``; on fewer than four
+   cards one line, ``{"phase": "p", "ran": false, "cards": 1}``.
+
 After (g), four chains share the card: (h1) then (k) in this thread,
-(l) beside them (the two hold one lock around every part that reads
-this process's launch counts), (i) then (j1), and (f), (h0), (h2) then
-(o0); (l) runs over its own LOOP_ROWS rows (those of (h1)'s first
-cycle). (i2), (j2)/(j3), (m), (n) and (o)'s worlds follow once all four
-have ended. Each phase prints its wall on a ``[smoke] wall`` line, and
+(l) then (p0) beside them (the two hold one lock around every part that
+reads this process's launch counts; (p0) waits for (i)'s drills to end),
+(i) then (j1), and (f), (h0), (h2) then (o0); (l) runs over its own LOOP_ROWS rows (those of (h1)'s first
+cycle). (i2), (j2)/(j3), (m), (n), (o)'s and (p)'s worlds follow once
+all four have ended. Each phase prints its wall on a ``[smoke] wall`` line, and
 all of them, with the total, on ``[smoke] walls``.
 
 Prints the ``kernels`` JSON line (each kernel with its f32 numbers at the
 top level, as earlier slices did, a ``bf16`` summary beside them, its
 ``tensor_core_instructions`` by dtype and (n0)'s ``sp_variants``;
 ``launches_by_path`` gains ``serve_k``, ``predict``, ``knobs``,
-``families``, ``model_axis``, ``sequence_parallel`` and (o)'s
-``predict_mesh``, ``fsdp_layers`` and ``remap``),
+``families``, ``model_axis``, ``sequence_parallel``, (o)'s
+``predict_mesh``, ``fsdp_layers`` and ``remap``, and (p)'s
+``pipeline``),
 then the card line,
 then, last, ``{"ok": true, "device": {...}}``. Any failure raises.
 """
@@ -1805,8 +1843,9 @@ def loop_job_phase(root: str, card: str) -> dict:
 # (i2)'s heartbeat stall window, seconds. The monitor also takes it as the
 # grace for a rank's first beat, which a cold rank on an H100 host writes
 # 8-11 s after its launch (torch import, CUDA context): a 10 s window
-# stall-killed a healthy relaunch as "missing".
-SUP_STALL_S = 30
+# stall-killed a healthy relaunch as "missing". (i2) runs alone, so 20 s
+# keeps about twice the slowest first beat seen.
+SUP_STALL_S = 20
 SUP_GRACE_S = 3  # SIGTERM -> SIGKILL escalation window in (i2)
 SUP_BAND = 0.03  # val-loss band if a healed world is not bitwise equal
 
@@ -2113,6 +2152,11 @@ def supervised_phase(root: str, card: str) -> dict:
             data=DataConfig(processed_dir=loop_env["DCT_PROCESSED_DIR"])))
         counts = _child_launches(out, [per_epoch, grown], "i5")
         env["DCT_LOOP_MAX_ROUNDS"] = "0"
+        # The rank finishes its span (one epoch of the grown rows, beside
+        # the (i1)-(i4) worlds on the same card) before it saves and exits
+        # 75: the supervisor's grace window must outlast that span, or it
+        # SIGKILLs the rank before its snapshot and its launch line.
+        env["DCT_PREEMPT_GRACE_S"] = "90"
         signalled = {}
 
         def sigterm_loop(proc):
@@ -2128,12 +2172,18 @@ def supervised_phase(root: str, card: str) -> dict:
                 and drained["error"] is None and "at" in signalled
                 and os.path.getmtime(last) >= signalled["at"]):
             raise AssertionError(f"(i5) SIGTERM drain: {drained}")
+        saved = _named(read_events(loop_env["DCT_EVENTS_DIR"]),
+                       "preempt.checkpoint_saved")
+        if len(saved) != 1:
+            raise AssertionError(f"(i5) SIGTERM drain: the rank saved "
+                                 f"{len(saved)} resume snapshots, want 1")
         counts = {k: v + counts[k] for k, v in
                   _child_launches(out, [grown], "i5").items()}
         loop = {"two_rounds": two, "two_rounds_wall_s": two_s,
                 "round_classifications": [r["classification"] for r in rounds],
                 "freshness_s": fresh, "sigterm": drained,
-                "sigterm_wall_s": drained_s}
+                "sigterm_wall_s": drained_s,
+                "saved_after_signal_s": saved[0]["ts"] - signalled["at"]}
         print(f"[smoke] (i5) loop_job supervised {loop}", flush=True)
         return loop, counts
 
@@ -3844,14 +3894,14 @@ def _start_world(root: str, name: str, processed: str, *,
             "global_batch": kw["batch"] * kw["data"]}
 
 
-def _finish_world(started: dict) -> dict:
-    """Wait for a started world; each rank's fit line, launches and
-    stdout."""
+def _finish_world(started: dict, timeout: float = 600) -> dict:
+    """Wait for a started world (``timeout`` seconds a rank); each rank's
+    fit line, launches and stdout."""
     procs, name = started.pop("procs"), started["name"]
     outs = []
     try:
         for p in procs:
-            out, err = p.communicate(timeout=600)
+            out, err = p.communicate(timeout=timeout)
             outs.append((p.returncode, out, err))
     finally:
         for p in procs:
@@ -3869,6 +3919,10 @@ def _finish_world(started: dict) -> dict:
         fit["launches"] = json.loads([x for x in out.splitlines() if
                                       x.startswith("[train_job] launches ")]
                                      [-1][21:])
+        pipe = [x for x in out.splitlines()
+                if x.startswith("[train_job] pipeline ")]
+        if pipe:
+            fit["pipeline"] = json.loads(pipe[-1][21:])
         ranks.append(fit)
     return dict(started, wall_s=wall, ranks=ranks)
 
@@ -4324,10 +4378,11 @@ N3_BASES = {
 
 
 def _packed_worlds(root: str, processed: str, specs: list,
-                   cards: int) -> list:
-    """``(name, kw)`` worlds of ``data x model x seq`` ranks (global batch
-    MESH_BATCH), side by side where their cards add up to at most
-    ``cards``, each on cards of its own (``CUDA_VISIBLE_DEVICES``)."""
+                   cards: int, timeout: float = 600) -> list:
+    """``(name, kw)`` worlds of ``data x model x seq x pipe`` ranks
+    (global batch MESH_BATCH), side by side where their cards add up to
+    at most ``cards``, each on cards of its own
+    (``CUDA_VISIBLE_DEVICES``)."""
     done, i = [], 0
     while i < len(specs):
         started, used = [], 0
@@ -4335,19 +4390,19 @@ def _packed_worlds(root: str, processed: str, specs: list,
             name, kw = specs[i]
             kw = dict(kw)
             data, model = kw.pop("data", 1), kw.pop("model", 1)
-            seq = kw.pop("seq", 1)
-            size = data * model * seq
+            seq, pipe = kw.pop("seq", 1), kw.pop("pipe", 1)
+            size = data * model * seq * pipe
             if used + size > cards:
                 break
             visible = ",".join(str(c) for c in range(used, used + size))
             started.append(_start_world(
                 root, name, processed, data=data, model=model, world=size,
                 batch=MESH_BATCH // data, DCT_MESH_SEQ=seq,
-                CUDA_VISIBLE_DEVICES=visible, **kw))
+                DCT_MESH_PIPE=pipe, CUDA_VISIBLE_DEVICES=visible, **kw))
             started[-1]["seq"] = seq
             used += size
             i += 1
-        done += [_finish_world(w) for w in started]
+        done += [_finish_world(w, timeout) for w in started]
     return done
 
 
@@ -4724,10 +4779,12 @@ def o_one_card(fa, root: str, counted=None) -> dict:
     return out
 
 
-def _remap_check(models: str, ranks: int) -> dict:
-    """Rank 0's shard-saved state of ``models`` restored by one CPU
-    process on model=1 from its siblings' files: every leaf equal to the
-    dense value tiled from the ``ranks`` files (``np.array_equal``)."""
+def _remap_check(models: str, ranks: int, meta: dict | None = None
+                 ) -> dict:
+    """Rank 0's shard-saved state of ``models`` (a model of ``meta``)
+    restored by one CPU process on model=1 from its siblings' files:
+    every leaf equal to the dense value tiled from the ``ranks`` files
+    (``np.array_equal``)."""
     from dct_tpu_torch.checkpoint.manager import (
         TrainStateCheckpointer,
         state_leaves,
@@ -4741,12 +4798,13 @@ def _remap_check(models: str, ranks: int) -> dict:
         with np.load(os.path.join(models, "train_state", f"p{r}", "state",
                                   "state.npz")) as npz:
             files.append({k: npz[k] for k in npz.files})
-    model = get_model(config_from_meta(K_META), device="cpu")
-    st = create_train_state(model, input_dim=K_META["input_dim"],
+    meta = meta or K_META
+    model = get_model(config_from_meta(meta), device="cpu")
+    st = create_train_state(model, input_dim=meta["input_dim"],
                             lr=MESH_LR, seed=0, optimizer="sgd",
                             momentum=MESH_MOMENTUM,
                             mesh=ProcessMesh(1, 1, rank=0, world=1),
-                            family=K_META["model"])
+                            family=meta["model"])
     ck = TrainStateCheckpointer(os.path.join(models, "train_state", "p0"))
     ck.restore(st)
     unequal = []
@@ -4925,12 +4983,411 @@ def mesh_engines_phase(fa, root: str, card: str, o0: dict | None = None
     return out
 
 
+# ----------------------------------------------------------------------
+# (p) The pipe axis: weather_transformer_pp through train_job on (m)'s
+# rows and schedule, served and batch-scored; its worlds on four cards.
+
+PP = "weather_transformer_pp"
+PP_STAGES = 2
+PP_TOL = {"0": 1e-5, "1": 5e-3}  # |val_loss - one card's|, f32 and bf16
+PP_SERVE_TOL = {"f32": 1e-5, "int8": 1e-5, "bf16": 2e-2}  # vs numpy
+PP_WORLD_S = 300  # a (p) world's bound; one takes well under a minute
+
+
+def _mesh_batches(processed: str) -> tuple[int, int]:
+    """(train steps, eval batches) an epoch of (m)'s schedule."""
+    from dct_tpu_torch.data.dataset import load_processed_dataset
+    from dct_tpu_torch.data.pipeline import BatchLoader, contiguous_split
+    from dct_tpu_torch.data.windows import make_windows
+
+    seq = MESH_CFG["seq_len"]
+    windows = make_windows(load_processed_dataset(processed), seq)
+    train_idx, val_idx = contiguous_split(
+        len(windows), val_fraction=MESH_VAL_FRACTION, gap=seq)
+    return tuple(BatchLoader(windows, idx, global_batch=MESH_BATCH,
+                             shuffle=shuffle).num_batches
+                 for idx, shuffle in ((train_idx, True), (val_idx, False)))
+
+
+def pp_launches(batches: tuple, epochs: int, *, pipe: int = 1,
+                microbatches: int = 1) -> dict:
+    """One rank's flash launches over ``epochs`` of ``batches`` (train
+    steps, eval batches): its stage's ``n_layers / P`` layers on each of
+    ``M`` microbatches (the ramp ticks skipped) every train step and eval
+    batch, as many dK/dV and dQ every train step; on one card (``pipe``
+    1) every layer once a batch."""
+    n_train, n_val = batches
+    per = (MESH_CFG["n_layers"] // pipe * microbatches if pipe > 1
+           else MESH_CFG["n_layers"])
+    return {"flash_fwd": epochs * per * (n_train + n_val),
+            "flash_bwd_dkdv": epochs * per * n_train,
+            "flash_bwd_dq": epochs * per * n_train}
+
+
+def check_p_rank_shapes(fa) -> list[dict]:
+    """The three kernels against their plain versions at (p1)'s per-rank
+    microbatch shapes ``[B/(D M), H/M_model, T, D]``: ``[8, 8]`` (pipe=2,
+    M=2), ``[4, 8]`` (M=4, pipe=4, data=2 pipe=2), ``[8, 4]`` (model=2
+    pipe=2); f32 and bf16, not causal, FWD_TOL and BWD_TOL."""
+    h, t = MESH_CFG["n_heads"], MESH_CFG["seq_len"]
+    d = MESH_CFG["d_model"] // h
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    return [_rank_shape_row(fa, gen, (b, hl, t, d), dtype, g_lse=False,
+                            where="(p0)")
+            for b, hl in ((MESH_BATCH // 2, h), (MESH_BATCH // 4, h),
+                          (MESH_BATCH // 2, h // 2))
+            for dtype in (torch.float32, torch.bfloat16)]
+
+
+def _pp_rows(root: str) -> str:
+    """(m)'s rows (MESH_ROWS, seed 12), processed under ``root``."""
+    from dct_tpu_torch.data.synthetic import generate_weather_csv
+    from dct_tpu_torch.etl.preprocess import preprocess_csv_to_parquet
+
+    raw = os.path.join(root, "raw", "weather.csv")
+    generate_weather_csv(raw, rows=MESH_ROWS, seed=12)
+    processed = os.path.join(root, "processed")
+    preprocess_csv_to_parquet(raw, processed)
+    return processed
+
+
+def _pp_world_check(run: dict, base: dict, tol: float, want: dict, *,
+                    pipe: int, microbatches: int, where: str) -> dict:
+    """Every rank of ``run`` on one val_loss within ``tol`` of ``base``'s,
+    with ``want`` launches; its step, memory and each stage's idle share
+    of the traced schedules beside the bubble ``(P-1)/(M+P-1)``."""
+    from dct_tpu_torch.parallel.pipeline import bubble
+
+    s = _mesh_summary(run, base)
+    losses = {r["val_loss"] for r in run["ranks"]}
+    bad = [r["launches"] for r in run["ranks"] if r["launches"] != want]
+    if (len(losses) != 1 or not s["val_loss_diff"] <= tol
+            or DEVICE == "cuda" and bad):
+        raise AssertionError(f"(p) {where}: val_losses {losses} against "
+                             f"{base['ranks'][0]['val_loss']} (tol {tol}), "
+                             f"launches {bad} against {want}")
+    s["bubble"] = bubble(microbatches, pipe)
+    s["stages"] = []
+    for r in run["ranks"]:
+        tr = r.get("pipeline") or {}
+        span, busy = tr.get("median_span_ms"), tr.get("median_busy_ms")
+        s["stages"].append({
+            "median_schedule_ms": span, "median_busy_ms": busy,
+            "idle_share": (1 - busy / span) if span else None,
+            "schedules": tr.get("schedules")})
+    print(f"[smoke] (p) {where}: {json.dumps(s)}", flush=True)
+    return s
+
+
+def _pp_serve(fa, ckpt: str, root: str) -> dict:
+    """(p0) the package of ``ckpt`` through the HTTP server (torch engine,
+    the sequential stack on the card) at 1, 3 and 8 windows against the
+    reference's numpy forward (``transformer_pp_forward_numpy``), and its
+    bf16 and int8 twins through the torch scorer; one forward launch a
+    layer a request."""
+    from dct_tpu_torch.config import ServingConfig
+    from dct_tpu_torch.serving.batching import TorchScorer
+    from dct_tpu_torch.serving.numpy_runtime import (
+        softmax_numpy,
+        transformer_pp_forward_numpy,
+    )
+    from dct_tpu_torch.serving.package import load_package
+    from dct_tpu_torch.serving.quant import quantize_package
+    from dct_tpu_torch.serving.score_gen import generate_score_package
+    from dct_tpu_torch.serving.server import make_server
+
+    pkg = os.path.join(root, "pkg-pp")
+    generate_score_package(ckpt, pkg)
+    weights, meta = load_package(pkg)
+    rng = np.random.default_rng(16)
+    layers = MESH_CFG["n_layers"]
+    rows, launches = [], 0
+
+    def numpy_probs(w, x):
+        w = {k: v.dequantize() if hasattr(v, "dequantize") else v
+             for k, v in w.items()}
+        return softmax_numpy(transformer_pp_forward_numpy(w, meta, x))
+
+    # The numpy forward takes about a second a window at this width: one
+    # f32 reference for every request's windows.
+    x = rng.standard_normal((8, MESH_CFG["seq_len"], 5)).astype(np.float32)
+    want = numpy_probs(weights, x)
+
+    server = make_server(pkg, serving=ServingConfig(workers=1),
+                         device=None if DEVICE == "cuda" else DEVICE)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port = server.server_address[1]
+        for n in (1, 3, 8):
+            fa.reset_launches()
+            probs, ms = post(port, x[:n])
+            got = fa.launches
+            err = float(np.abs(probs - want[:n]).max())
+            if (DEVICE == "cuda" and got != layers
+                    or not err <= PP_SERVE_TOL["f32"]):
+                raise AssertionError(f"(p0) serve {n}: launches {got} "
+                                     f"(want {layers}), numpy err {err}")
+            launches += got
+            rows.append({"windows": n, "ms": ms, "numpy_max_abs_err": err})
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+    for quant in ("bf16", "int8"):
+        qdir = os.path.join(root, f"pkg-pp-{quant}")
+        quantize_package(pkg, qdir, quant)
+        qw, qmeta = load_package(qdir)
+        scorer = TorchScorer(qw, qmeta, "cuda:0" if DEVICE == "cuda"
+                             else DEVICE)
+        fa.reset_launches()
+        probs = scorer(x[:3])
+        got = fa.launches
+        # bf16 against the f32 reference (its bound is bf16's rounding);
+        # int8 against numpy over its own dequantized kernels.
+        ref = want[:3] if quant == "bf16" else numpy_probs(qw, x[:3])
+        err = float(np.abs(probs - ref).max())
+        if (DEVICE == "cuda" and got != layers
+                or not err <= PP_SERVE_TOL[quant]):
+            raise AssertionError(f"(p0) {quant} scorer: launches {got} "
+                                 f"(want {layers}), numpy err {err}")
+        launches += got
+        rows.append({"package": quant, "windows": 3,
+                     "numpy_max_abs_err": err})
+    out = {"requests": rows, "launches": launches}
+    print(f"[smoke] (p0) serve {json.dumps(out)}", flush=True)
+    return out
+
+
+def _pp_predict(ckpt: str, processed: str, root: str) -> dict:
+    """(p0) ``predict_job`` on one card over (m)'s rows, chunks of
+    PREDICT_CHUNK: one forward a layer a chunk; the first and last
+    window of every chunk within 1e-5 of the numpy engine (a window's
+    probabilities do not depend on the others'; the numpy forward takes
+    about a second a window at this width)."""
+    from dct_tpu_torch import predict_job
+    from dct_tpu_torch.data.dataset import load_processed_dataset
+    from dct_tpu_torch.data.windows import make_windows
+    from dct_tpu_torch.etl.parquet import read_table
+    from dct_tpu_torch.serving.score_gen import weights_from_checkpoint
+
+    out_path = os.path.join(root, "predictions-pp.parquet")
+    r = subprocess.run(
+        [sys.executable, "-m", "dct_tpu_torch.predict_job"],
+        env=_child_env(DCT_CKPT=ckpt, DCT_PROCESSED_DIR=processed,
+                       DCT_PREDICTIONS=out_path,
+                       DCT_PREDICT_CHUNK=str(PREDICT_CHUNK)),
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    line = [x for x in r.stdout.splitlines()
+            if x.startswith("[predict_job] scored ")]
+    if r.returncode != 0 or not line:
+        raise AssertionError(f"(p0) predict exit {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    job = _predict_line(line[-1])
+    n = job["windows"]
+    chunks = -(-n // PREDICT_CHUNK)
+    table = read_table(out_path)
+    probs = np.stack([table["prob_0"], table["prob_1"]], axis=1)
+    weights, meta = weights_from_checkpoint(ckpt)
+    windows = make_windows(load_processed_dataset(processed),
+                           int(meta["seq_len"])).features
+    rows = sorted({r for i in range(0, n, PREDICT_CHUNK)
+                   for r in (i, min(i + PREDICT_CHUNK, n) - 1)})
+    err = float(np.abs(probs[rows] - predict_job.score(
+        weights, meta, windows[rows], PREDICT_CHUNK, engine="numpy")).max())
+    want = {"flash_fwd": chunks * MESH_CFG["n_layers"], "flash_bwd_dkdv": 0,
+            "flash_bwd_dq": 0}
+    if (DEVICE == "cuda" and job["launches"] != want or len(probs) != n
+            or not err <= PP_SERVE_TOL["f32"]
+            or not np.isfinite(probs).all()):
+        raise AssertionError(f"(p0) predict launches {job['launches']} "
+                             f"(want {want}), rows {len(probs)} of {n}, "
+                             f"numpy err {err}")
+    out = {"windows": n, "chunks": chunks, "windows_checked": len(rows),
+           "build_s": job["build_s"],
+           "score_s": job["score_s"],
+           "steady_windows_per_s": job["steady_windows_per_s"],
+           "launches": job["launches"], "numpy_max_abs_err": err}
+    print(f"[smoke] (p0) predict job {json.dumps(out)}", flush=True)
+    return out
+
+
+def p_one_card(fa, root: str, counted=None) -> dict:
+    """(p0) on any count of cards (module docstring); ``counted`` is held
+    around the parts that launch in this process. ``root`` is emptied
+    first."""
+    with counted or contextlib.nullcontext():
+        rank_shapes = check_p_rank_shapes(fa)
+    shutil.rmtree(root, ignore_errors=True)
+    processed = _pp_rows(root)
+    batches = _mesh_batches(processed)
+    started = [_start_world(root, f"p0-{tag}", processed, family=PP,
+                            bf16=bf16, data=1, model=1, batch=MESH_BATCH,
+                            DCT_N_STAGES=PP_STAGES)
+               for tag, bf16 in (("f32", False), ("bf16", True))]
+    runs = dict(zip(("f32", "bf16"), (_finish_world(w, PP_WORLD_S)
+                                      for w in started)))
+    want = pp_launches(batches, MESH_EPOCHS)
+    train = {}
+    for tag, run in runs.items():
+        s = _mesh_summary(run)
+        if (DEVICE == "cuda" and s["launches"] != [want]
+                or not np.isfinite(s["val_loss"])):
+            raise AssertionError(f"(p0) train_job {tag}: {s} (launches "
+                                 f"want {want})")
+        train[tag] = s
+        print(f"[smoke] (p0) train_job {tag}: {json.dumps(s)}", flush=True)
+    ckpt = os.path.join(runs["f32"]["models"], "last.ckpt")
+    with counted or contextlib.nullcontext():
+        served = _pp_serve(fa, ckpt, root)
+    predicted = _pp_predict(ckpt, processed, root)
+    launches = {k: sum(r["launches"][k] for run in runs.values()
+                       for r in run["ranks"]) + predicted["launches"][k]
+                for k in want}
+    launches["flash_fwd"] += served["launches"]
+    out = {"rank_shapes": rank_shapes, "train": train, "serve": served,
+           "predict": predicted, "launches": launches, "batches": batches,
+           "processed": processed}
+    print(f"[smoke] (p0) launches {launches}", flush=True)
+    return out
+
+
+def p1_worlds(root: str, processed: str, batches: tuple, cards: int,
+              out: dict, runs: list) -> None:
+    """(p1) one epoch of each pipe world, f32 and bf16, against one
+    card's sequential run from the same init (module docstring)."""
+    trace = {"DCT_PIPE_TRACE": "1"}
+    bases = {}
+    for stages in (PP_STAGES, 4):
+        for bf16 in (False, True):
+            bases[(stages, bf16)] = dict(family=PP, bf16=bf16, epochs=1,
+                                         DCT_N_STAGES=stages)
+    done = _packed_worlds(root, processed, [
+        (f"p1-w1-s{st}-{'bf16' if b else 'f32'}", kw)
+        for (st, b), kw in bases.items()], cards, PP_WORLD_S)
+    base = dict(zip(bases, done))
+    runs += done
+    for (st, b), run in base.items():
+        out["p1"][f"w1_s{st}_{'bf16' if b else 'f32'}"] = _mesh_summary(run)
+    grids = [("pipe=2 M=2", dict(pipe=2), 2), ("pipe=2 M=4", dict(pipe=2), 4),
+             ("pipe=4 M=4", dict(pipe=4), 4),
+             ("data=2 pipe=2", dict(data=2, pipe=2), 2),
+             ("model=2 pipe=2", dict(model=2, pipe=2), 2)]
+    for bf16 in (False, True):
+        tag = "bf16" if bf16 else "f32"
+        specs = []
+        for where, mesh, m in grids:
+            stages = mesh["pipe"]
+            specs.append((f"p1-{tag}-" + where.replace(" ", "-").replace(
+                "=", ""), dict(mesh, family=PP, bf16=bf16, epochs=1,
+                               DCT_N_STAGES=stages, DCT_N_MICROBATCHES=m,
+                               **trace)))
+        done = _packed_worlds(root, processed, specs, cards, PP_WORLD_S)
+        runs += done
+        for (where, mesh, m), run in zip(grids, done):
+            p = mesh["pipe"]
+            want = pp_launches(batches, 1, pipe=p, microbatches=m)
+            out["p1"][f"{tag} {where}"] = _pp_world_check(
+                run, base[(p, bf16)], PP_TOL["1" if bf16 else "0"], want,
+                pipe=p, microbatches=m, where=f"p1 {tag} {where}")
+
+
+def _pp_remap_check(models: str, ranks: int) -> dict:
+    """:func:`_remap_check` for the pipeline family's state (two
+    stages)."""
+    meta = dict(K_META, model=PP, name=PP, n_stages=PP_STAGES)
+    return _remap_check(models, ranks, meta=meta)
+
+
+def p2_remap(root: str, processed: str, out: dict, runs: list) -> None:
+    """(p2) a shard-saved resume re-mapped: one epoch at data=2 pipe=2
+    resumed for a second at model=2 pipe=2, and one at pipe=2 resumed on
+    one card, each against the control continuation on its saving grid
+    (``n_stages`` equals ``pipe``, so a two-stage checkpoint resumes on
+    two-stage grids)."""
+    for name in ("grid", "two", "pivot", "one"):
+        shutil.rmtree(os.path.join(root, f"models-p2-{name}"),
+                      ignore_errors=True)
+
+    def spec(name, **kw):
+        return (f"p2-{name}", dict(kw, family=PP, bf16=False, epochs=1,
+                                   DCT_N_STAGES=PP_STAGES,
+                                   DCT_EVENTS_DIR=os.path.join(
+                                       root, f"models-p2-{name}",
+                                       "events")))
+
+    runs += _packed_worlds(root, processed, [
+        spec("grid", data=2, pipe=2), spec("two", pipe=2)], 4, PP_WORLD_S)
+    bitwise = {}
+    for src, dst, ranks in (("grid", "pivot", 4), ("two", "one", 2)):
+        shutil.copytree(os.path.join(root, f"models-p2-{src}"),
+                        os.path.join(root, f"models-p2-{dst}"))
+        bitwise[dst] = _pp_remap_check(
+            os.path.join(root, f"models-p2-{dst}"), ranks)
+    resume = {"DCT_RESUME": "1"}
+    done = _packed_worlds(root, processed, [
+        spec("grid", data=2, pipe=2, **resume),
+        spec("pivot", model=2, pipe=2, **resume),
+        spec("two", pipe=2, **resume), spec("one", **resume)], 4,
+        PP_WORLD_S)
+    runs += done
+    control_grid, pivot, control_two, one = done
+    for name, control, run, to in (("pivot", control_grid, pivot, 4),
+                                   ("one", control_two, one, 1)):
+        s = _mesh_summary(run, control)
+        remaps = _remap_events(run["models"])
+        s.update(bitwise[name], remapped_leaves_by_rank={
+            r["rank"]: r["leaves"] for r in remaps
+            if r.get("to_processes") == to},
+            from_mesh=remaps[0]["from_mesh"] if remaps else None)
+        losses = {r["val_loss"] for r in run["ranks"]}
+        if (len(losses) != 1 or s["val_loss_diff"] > 1e-5
+                or sorted(s["remapped_leaves_by_rank"]) != list(range(to))):
+            raise AssertionError(f"(p2) {name}: {s} (val_losses {losses}, "
+                                 "tol 1e-5)")
+        print(f"[smoke] (p2) {name}: shard.topology_remap leaves "
+              f"{s['remapped_leaves_by_rank']}; {json.dumps(s)}", flush=True)
+        out["p2"][name] = s
+
+
+def pipeline_phase(fa, root: str, card: str, p0: dict | None = None
+                   ) -> dict:
+    """(p) (module docstring): (p0) on any count of cards (unless given),
+    (p1) and (p2) on four; one line saying they did not run on fewer."""
+    t_phase = time.perf_counter()
+    if p0 is None:
+        p0 = p_one_card(fa, os.path.join(root, "p0"))
+    cards = torch.cuda.device_count()
+    out = {"p0": {k: p0[k] for k in ("rank_shapes", "train", "serve",
+                                      "predict")},
+           "launches": dict(p0["launches"])}
+    if cards < 4:
+        print(json.dumps({"phase": "p", "ran": False, "cards": cards}),
+              flush=True)
+        return out
+    out.update(ran=True, cards=cards, card=card, p1={}, p2={})
+    processed, runs = p0["processed"], []
+    p1_worlds(root, processed, p0["batches"], cards, out, runs)
+    p2_remap(root, processed, out, runs)
+    for k in out["launches"]:
+        out["launches"][k] += sum(r["launches"][k] for run in runs
+                                  for r in run["ranks"])
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[smoke] (p) pipe axis on {cards} cards, launches "
+          f"{out['launches']}, phase {out['phase_s']:.1f} s on {card}",
+          flush=True)
+    print(f"[smoke] (p) summary {json.dumps(out)}", flush=True)
+    with open(os.path.join(root, "phase_p.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase",
-                    choices=("all", "k", "l", "m", "n", "n3", "o"),
+                    choices=("all", "k", "l", "m", "n", "n3", "o", "p"),
                     default="all",
                     help="k: build the kernels and run only (k), over a "
                          "random full-width checkpoint and synthetic rows; "
@@ -4940,7 +5397,8 @@ def main(argv=None) -> int:
                          "cards); n3: only (n3), the MoE, the GRU and "
                          "ZeRO-1/FSDP on the seq axis; o: only (o), the "
                          "engines on a mesh, the re-map and per-layer FSDP "
-                         "(its worlds on four cards)")
+                         "(its worlds on four cards); p: only (p), the pipe "
+                         "axis (its worlds on four cards)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     walls: dict = {}
@@ -4988,12 +5446,15 @@ def main(argv=None) -> int:
     print(f"[smoke] tensor-core instructions: {tc_counts}", flush=True)
 
     engines_root = os.path.join(HERE, "build", "chip_smoke_engines")
-    if args.phase in ("m", "n", "n3", "o"):
+    pipe_root = os.path.join(HERE, "build", "chip_smoke_pipe")
+    if args.phase in ("m", "n", "n3", "o", "p"):
         if args.phase == "m":
             model_axis_phase(os.path.join(HERE, "build", "chip_smoke_mesh"),
                              card)
         elif args.phase == "o":
             walled("engines", mesh_engines_phase, fa, engines_root, card)
+        elif args.phase == "p":
+            walled("pipe", pipeline_phase, fa, pipe_root, card)
         else:
             sequence_phase(os.path.join(HERE, "build", "chip_smoke_seq"),
                            card, n3_only=args.phase == "n3")
@@ -5072,8 +5533,16 @@ def main(argv=None) -> int:
     # start, which read it.
     _set_dct_env(_loop_env(os.path.join(loop_root, "episodic")))
 
+    # (p0) starts once (i)'s drills have ended: their SIGTERM and stall
+    # timings are what a busier card would move.
+    drills_done = threading.Event()
+
     def supervised_then_quota():
-        supervised = walled("supervised", supervised_phase, sup_root, card)
+        try:
+            supervised = walled("supervised", supervised_phase, sup_root,
+                                card)
+        finally:
+            drills_done.set()
         return supervised, walled("scheduler_quota", scheduler_quota,
                                   sched_root, card)
 
@@ -5085,15 +5554,18 @@ def main(argv=None) -> int:
         return walled("o0", o_one_card, fa,
                       os.path.join(engines_root, "o0"), counted)
 
-    def families():
+    def families_then_pipe():
         rows = synthetic_rows(os.path.join(fam_root, "rows"))
-        return walled("families", families_phase, fa,
-                      os.path.join(fam_root, "phase"), rows, card, counted)
+        fam = walled("families", families_phase, fa,
+                     os.path.join(fam_root, "phase"), rows, card, counted)
+        drills_done.wait()
+        return fam, walled("p0", p_one_card, fa,
+                           os.path.join(pipe_root, "p0"), counted)
 
     with ThreadPoolExecutor(3) as pool:
         chain_i = pool.submit(supervised_then_quota)
         chain_f = pool.submit(mlp_then_loop_job)
-        chain_l = pool.submit(families)
+        chain_l = pool.submit(families_then_pipe)
         with counted:
             episodic = walled("episodic", episodic_phase, fa,
                               os.path.join(loop_root, "episodic"), card)
@@ -5104,7 +5576,8 @@ def main(argv=None) -> int:
             os.path.join(fit_root, "models-tf", "last.ckpt"),
             os.path.join(loop_root, "episodic", "processed"), card, counted)
         k_counts = served_k["launches"]
-        l_counts = chain_l.result()["launches"]
+        families_out, p0 = chain_l.result()
+        l_counts = families_out["launches"]
         supervised, quota = chain_i.result()
         o0 = chain_f.result()
     torch.cuda.empty_cache()  # the drills below read the card alone
@@ -5126,6 +5599,8 @@ def main(argv=None) -> int:
                      o0)
     o_predict, o_fsdp = engines["predict_launches"], engines["fsdp_launches"]
     o_remap = engines["remap_launches"]
+    p_counts = walled("pipe", pipeline_phase, fa, pipe_root, card,
+                      p0)["launches"]
 
     def bf16_summary(rows):
         row = [r for r in rows
@@ -5153,7 +5628,8 @@ def main(argv=None) -> int:
                      + k_counts["knobs"]["flash_fwd"]
                      + l_counts["flash_fwd"] + m_counts["flash_fwd"]
                      + n_counts["flash_fwd"] + o_predict["flash_fwd"]
-                     + o_fsdp["flash_fwd"] + o_remap["flash_fwd"]),
+                     + o_fsdp["flash_fwd"] + o_remap["flash_fwd"]
+                     + p_counts["flash_fwd"]),
         "launches_by_path": {"serve": launches,
                              "train": train_counts["flash_fwd"],
                              "fit": fit_counts["flash_fwd"],
@@ -5169,7 +5645,8 @@ def main(argv=None) -> int:
                              "sequence_parallel": n_counts["flash_fwd"],
                              "predict_mesh": o_predict["flash_fwd"],
                              "fsdp_layers": o_fsdp["flash_fwd"],
-                             "remap": o_remap["flash_fwd"]},
+                             "remap": o_remap["flash_fwd"],
+                             "pipeline": p_counts["flash_fwd"]},
         "gate_launches_per_consult": loop_counts["gate"]["flash_fwd"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -5193,7 +5670,8 @@ def main(argv=None) -> int:
                          + loop_counts["train"][name] + sup_counts[name]
                          + sched_counts[name] + k_counts["knobs"][name]
                          + l_counts[name] + m_counts[name]
-                         + n_counts[name] + o_fsdp[name] + o_remap[name]),
+                         + n_counts[name] + o_fsdp[name] + o_remap[name]
+                         + p_counts[name]),
             "launches_by_path": {"train": train_counts[name],
                                  "fit": fit_counts[name],
                                  "loop_train": loop_counts["train"][name],
@@ -5207,7 +5685,8 @@ def main(argv=None) -> int:
                                  "sequence_parallel": n_counts[name],
                                  "predict_mesh": o_predict[name],
                                  "fsdp_layers": o_fsdp[name],
-                                 "remap": o_remap[name]},
+                                 "remap": o_remap[name],
+                                 "pipeline": p_counts[name]},
             "launches_per_step": train_counts[name] / train_steps,
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],

@@ -196,8 +196,10 @@ def _to_flax(t: torch.Tensor, transposed: bool) -> np.ndarray:
     # Always a copy: on the CPU ``.numpy()`` shares the live tensor's
     # storage, which the next step updates in place while an async save
     # is still writing.
-    a = t.detach().float().cpu().numpy()
-    return np.array(a.T if transposed else a, order="C")
+    from dct_tpu_torch.convert import swap_layout
+
+    return np.array(swap_layout(t.detach().float().cpu().numpy(),
+                                transposed), order="C")
 
 
 def _opt_from_leaves(tx, st, it, per_param, step: int):
@@ -235,35 +237,37 @@ def restore_state_leaves(state, leaves: list[np.ndarray]):
     return state
 
 
-def _leaf_values(state) -> list[tuple[str, int | None, Any]]:
+def _leaf_values(state) -> list[tuple[str, int | None, Any, tuple]]:
     """Every leaf of the reference's state tree in its order, as ``(kind,
-    parameter index or None, value)``: counts, the rng and the step as
-    host arrays; moments and parameters as the tensors this process
-    stores (torch layout)."""
+    parameter index or None, value, its state path)``: counts, the rng
+    and the step as host arrays; moments and parameters as the tensors
+    this process stores (torch layout)."""
     from dct_tpu_torch.parallel.sharding_rules import opt_slots
 
     order = _param_order(state.model)
     out = []
-    for kind, _, value in opt_slots(state.tx, state.opt_state):
+    for kind, path, value in opt_slots(state.tx, state.opt_state):
         if kind == "count":
-            out.append(("count", None, np.asarray(value, np.int32)))
+            out.append(("count", None, np.asarray(value, np.int32), path))
         else:
-            out += [("moment", i, value[i]) for i, _, _ in order]
-    out += [("param", i, state.stored_param(i)) for i, _, _ in order]
+            out += [("moment", i, value[i], path + ("params",))
+                    for i, _, _ in order]
+    out += [("param", i, state.stored_param(i), ("params",))
+            for i, _, _ in order]
     rng = int(state.rng)
     out.append(("rng", None, np.asarray([rng >> 32, rng & 0xFFFFFFFF],
-                                        np.uint32)))
-    out.append(("step", None, np.asarray(state.step, np.int32)))
+                                        np.uint32), ("rng",)))
+    out.append(("step", None, np.asarray(state.step, np.int32), ("step",)))
     return out
 
 
-def _leaf_spec(layout, kind: str, i):
-    """(the layout leaf, the stored spec of this state leaf) or (None,
-    ())."""
+def _leaf_spec(layout, kind: str, i, path=()):
+    """(the layout leaf, the stored spec of this state leaf at ``path``)
+    or (None, ())."""
     if layout is None or i is None:
         return None, ()
     lf = layout.leaves[i]
-    return lf, lf.moment_spec if kind == "moment" else lf.param_spec
+    return lf, lf.stored_spec(kind, path)
 
 
 def _entry_key(n: int, lf, spec) -> str:
@@ -282,8 +286,8 @@ def state_entries(state) -> tuple[dict, list]:
     layout = getattr(state, "layout", None)
     order = {i: tr for i, _, tr in _param_order(state.model)}
     entries, records = {}, []
-    for n, (kind, i, value) in enumerate(_leaf_values(state)):
-        lf, spec = _leaf_spec(layout, kind, i)
+    for n, (kind, i, value, path) in enumerate(_leaf_values(state)):
+        lf, spec = _leaf_spec(layout, kind, i, path)
         if i is None:
             shape = [int(d) for d in value.shape]
             entries[str(n)] = value
@@ -355,13 +359,15 @@ def restore_entries(state, entries: dict, extra=None) -> list[int]:
     dev = params[0].device
 
     def tensor(i, a):
-        a = np.asarray(a, np.float32)
-        return torch.tensor(a.T if order[i] and a.ndim == 2 else a).to(
-            device=dev, dtype=params[i].dtype).contiguous()
+        from dct_tpu_torch.convert import swap_layout
+
+        a = swap_layout(np.asarray(a, np.float32), order[i])
+        return torch.tensor(a).to(device=dev,
+                                  dtype=params[i].dtype).contiguous()
 
     prepared, remapped = [], []
-    for n, (kind, i, value) in enumerate(values):
-        lf, spec = _leaf_spec(layout, kind, i)
+    for n, (kind, i, value, path) in enumerate(values):
+        lf, spec = _leaf_spec(layout, kind, i, path)
         want = (tuple(value.shape) if i is None
                 else tuple(_to_flax(value, order[i]).shape))
         key = _entry_key(n, lf, spec)

@@ -278,7 +278,14 @@ class AlwaysOnLoop:
         # keys: the tenant env shaped this loop's cfg in the first place,
         # and the cfg is the round's contract.
         env = {**self._extra_round_env, **env}
-        res = LocalProcessLauncher(**self._launcher_kwargs).supervise(
+        # The grace window is the config's (ResilienceConfig): a rank
+        # SIGTERMed mid-span finishes the span and saves before it exits
+        # 75, and a launcher default shorter than that span SIGKILLs it
+        # with its resume snapshot unwritten.
+        launcher_kwargs = {
+            "preempt_grace_s": self.cfg.resilience.preempt_grace_s,
+            **self._launcher_kwargs}
+        res = LocalProcessLauncher(**launcher_kwargs).supervise(
             [sys.executable, "-m", "dct_tpu_torch.train_job"],
             world_size=world_size,
             env=env,

@@ -10,7 +10,10 @@ A module that holds parameters of its own in flax's layout (the GRU's
 ``h_kernel`` ``[H, 3H]`` and ``h_bias``, the MoE's ``experts_in_kernel``
 ``[E, D, F]`` and the other expert tensors) lists them in a
 ``flax_params`` attribute, ``{name: init}``; they keep their names and
-layout. :func:`flax_weights` is the inverse (a model's parameters, or their
+layout. A pipeline stage's parameters carry the reference's stacked
+stage dim first (``pp_stages/block_0/attn/qkv_proj/kernel`` ``[n_stages,
+in, out]`` is a weight ``[n_stages, out, in]``): a kernel's last two dims
+are swapped whatever comes before them. :func:`flax_weights` is the inverse (a model's parameters, or their
 gradients, as a flat flax-path dict), and :func:`init_flax_weights` draws a
 model's initial weights from a numpy seed, the same on every device.
 """
@@ -57,14 +60,24 @@ def flax_names(model: nn.Module) -> dict[str, tuple[str, bool]]:
     return out
 
 
+def swap_layout(a: np.ndarray, transposed: bool) -> np.ndarray:
+    """A host array between flax's layout and torch's (a kernel's last
+    two dims swapped; the swap is its own inverse)."""
+    return np.swapaxes(a, -1, -2) if transposed and a.ndim >= 2 else a
+
+
+def flax_shape(shape: tuple, transposed: bool) -> tuple:
+    """A torch-layout shape in flax layout (see :func:`swap_layout`)."""
+    if transposed and len(shape) >= 2:
+        return (*shape[:-2], shape[-1], shape[-2])
+    return tuple(shape)
+
+
 def flax_shapes(model: nn.Module) -> dict[str, tuple[int, ...]]:
     """Flax key -> the flax-layout shape ``model`` expects for it."""
     params = dict(model.named_parameters())
-    out = {}
-    for name, (key, transposed) in flax_names(model).items():
-        shape = tuple(params[name].shape)
-        out[key] = shape[::-1] if transposed else shape
-    return out
+    return {key: flax_shape(tuple(params[name].shape), transposed)
+            for name, (key, transposed) in flax_names(model).items()}
 
 
 def load_flax_weights(model: nn.Module, flat: dict) -> nn.Module:
@@ -85,9 +98,8 @@ def load_flax_weights(model: nn.Module, flat: dict) -> nn.Module:
     params = dict(model.named_parameters())
     with torch.no_grad():
         for key, (name, transposed) in want.items():
-            value = np.asarray(flat[key], np.float32)
-            if transposed:
-                value = value.T
+            value = swap_layout(np.asarray(flat[key], np.float32),
+                                transposed)
             p = params[name]
             if tuple(value.shape) != tuple(p.shape):
                 raise ValueError(
@@ -109,8 +121,7 @@ def flax_weights(model: nn.Module, *, grads: bool = False) -> dict:
         t = params[name].grad if grads else params[name]
         if t is None:
             raise ValueError(f"{name} has no gradient")
-        value = t.detach().float().cpu().numpy()
-        out[key] = value.T if transposed else value
+        out[key] = swap_layout(t.detach().float().cpu().numpy(), transposed)
     return out
 
 
@@ -188,7 +199,7 @@ def init_flax_weights(model: nn.Module, seed: int) -> dict:
             fill = 1.0 if leaf == "scale" else 0.0
             out[key] = np.full(shape, fill, np.float32)
             continue
-        fan_in = shapes[f"{prefix}/kernel"][0]
+        fan_in = shapes[f"{prefix}/kernel"][-2]
         bound = 1.0 / np.sqrt(fan_in)
         out[key] = rng.uniform(-bound, bound, shape).astype(np.float32)
     return out

@@ -51,18 +51,19 @@ class TorchStyleDense(nn.Linear):
         self.tp: tuple | None = None  # ("column" | "row", ModelShard)
 
     def split_output(self, shard) -> None:
-        """Keep this rank's contiguous block of the output features."""
+        """Keep this rank's contiguous block of the output features (of
+        every stage, for a pipeline stage's stacked weights)."""
         n = self.out_features // shard.size
         rows = slice(shard.index * n, (shard.index + 1) * n)
-        self.weight = nn.Parameter(self.weight.data[rows].clone())
-        self.bias = nn.Parameter(self.bias.data[rows].clone())
+        self.weight = nn.Parameter(self.weight.data[..., rows, :].clone())
+        self.bias = nn.Parameter(self.bias.data[..., rows].clone())
         self.out_features, self.tp = n, ("column", shard)
 
     def split_input(self, shard) -> None:
         """Keep this rank's contiguous block of the input features."""
         n = self.in_features // shard.size
         cols = slice(shard.index * n, (shard.index + 1) * n)
-        self.weight = nn.Parameter(self.weight.data[:, cols].clone())
+        self.weight = nn.Parameter(self.weight.data[..., cols].clone())
         self.in_features, self.tp = n, ("row", shard)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,10 @@
 """Model registry (counterpart of ``dct_tpu/models/registry.py``).
 
-The MLP, the two transformer families, the GRU and the MoE are ported.
-The pipeline family raises :class:`NotImplementedError` naming the
-ROADMAP item that ports it; nothing else runs in its place. On a grid
+The MLP, the transformer families (the pipeline-parallel one included),
+the GRU and the MoE are ported. The pipeline family always takes the
+single-shard attention, as the reference's registry entry
+(``dct_tpu/models/registry.py:173-200``): its stages run the flash route
+on a pipe axis and replicated over seq. On a grid
 whose ``seq`` axis has more than one process (``mesh``) the two
 transformer families and the MoE run sequence-parallel (their attention
 is the axis's engine, and each seq rank keeps its positions); the MLP
@@ -22,15 +24,14 @@ from dct_tpu_torch.config import ModelConfig
 from dct_tpu_torch.models.gru import WeatherGRU
 from dct_tpu_torch.models.mlp import WeatherMLP
 from dct_tpu_torch.models.moe import WeatherMoE
-from dct_tpu_torch.models.transformer import WeatherTransformer
+from dct_tpu_torch.models.transformer import (
+    WeatherTransformer,
+    WeatherTransformerPP,
+)
 
 SEQUENCE_MODELS = {"weather_transformer", "weather_transformer_causal",
-                   "weather_gru", "weather_moe"}
+                   "weather_transformer_pp", "weather_gru", "weather_moe"}
 CAUSAL_MODELS = {"weather_transformer_causal"}
-
-_NOT_PORTED = {
-    "weather_transformer_pp": "ROADMAP Queue A item 17 (pipeline and MPMD)",
-}
 
 
 def is_sequence_model(name: str) -> bool:
@@ -60,11 +61,6 @@ def get_model(cfg: ModelConfig, *, input_dim: int | None = None,
     from dct_tpu_torch.device import resolve_device
     from dct_tpu_torch.ops.attention import make_attention_fn
 
-    if cfg.name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {cfg.name!r} is not ported to dct_tpu_torch yet: "
-            f"{_NOT_PORTED[cfg.name]}"
-        )
     if cfg.name != "weather_mlp" and cfg.name not in SEQUENCE_MODELS:
         raise KeyError(f"Unknown model {cfg.name!r}")
     dim = cfg.input_dim if input_dim is None else input_dim
@@ -93,6 +89,16 @@ def get_model(cfg: ModelConfig, *, input_dim: int | None = None,
             num_classes=cfg.num_classes, dropout=cfg.dropout,
             attn_fn=make_attention_fn(mesh), dispatch=cfg.moe_dispatch,
             top_k=cfg.router_top_k, auto_threshold=cfg.moe_auto_threshold,
+            n_kv_heads=cfg.n_kv_heads if cfg.n_kv_heads > 0 else None,
+            pos_embed=cfg.pos_embed, **kw,
+        ).eval()
+    if cfg.name == "weather_transformer_pp":
+        return WeatherTransformerPP(
+            dim, cfg.seq_len, d_model=cfg.d_model, n_heads=cfg.n_heads,
+            n_layers=cfg.n_layers, d_ff=cfg.d_ff,
+            num_classes=cfg.num_classes, dropout=cfg.dropout,
+            n_stages=cfg.n_stages, n_microbatches=cfg.n_microbatches,
+            attn_fn=make_attention_fn(None), remat=cfg.remat,
             n_kv_heads=cfg.n_kv_heads if cfg.n_kv_heads > 0 else None,
             pos_embed=cfg.pos_embed, **kw,
         ).eval()

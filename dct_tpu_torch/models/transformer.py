@@ -64,7 +64,21 @@ attention acts per position. The mean pool sums the ranks' positions
 over the seq group and divides by ``T``; the per-position logits are
 gathered over the seq group and put back in sequence order. So the head
 and the logits are the same on every seq rank, and the loss counts them
-on seq index 0 (:func:`~dct_tpu_torch.parallel.mesh.seq_owned`).
+on seq index 0 (:func:`~dct_tpu_torch.parallel.mesh.tail_owned`).
+
+Pipeline parallelism (``dct_tpu/models/transformer.py:155-310``):
+``WeatherTransformerPP`` groups its ``n_layers`` blocks into ``n_stages``
+equal stages, held in one module, ``pp_stages`` (:class:`StageStack`),
+whose parameters carry a leading stage dim, the reference's stacked
+``pp_stages`` leaves (``pp_stages/block_<i>/...`` ``[n_stages, ...]``).
+The input projection, the positions and one dropout run before the
+stages, the final LayerNorm, the mean pool and the head after them, on
+every rank; the stages are deterministic. Without a pipe axis the stages
+run one after another (the reference's oracle); on one (the placement
+keeps a rank's own stage, :meth:`StageStack.split_pipe_axis`) they run
+the GPipe schedule of :mod:`dct_tpu_torch.parallel.pipeline`, whose
+batch must tile ``n_microbatches``. A stage's blocks split over the
+model axis as any block does.
 """
 
 from __future__ import annotations
@@ -77,6 +91,7 @@ from torch.utils.checkpoint import checkpoint
 
 from dct_tpu_torch.models.mlp import Dropout, TorchStyleDense
 from dct_tpu_torch.parallel.mesh import gather_from_seq, reduce_from_seq
+from dct_tpu_torch.parallel.pipeline import pipeline_apply, sequential_apply
 
 
 def sincos_positions(seq_len: int, d_model: int) -> torch.Tensor:
@@ -359,3 +374,175 @@ class WeatherTransformer(nn.Module):
         else:
             logits = self.head(mean_pool(self, h, t))
         return logits.float()
+
+
+class StageStack(nn.Module):
+    """``pp_stages``: ``layers_per_stage`` pre-LN blocks (no dropout) whose
+    parameters hold every stage's values on a leading dim, ``[n_stages,
+    ...]``, or after :meth:`split_pipe_axis` this rank's stage alone.
+    :meth:`run` applies one held stage, each block reading its stage's
+    slices; ``forward`` applies the held stages in turn, or this rank's
+    part of the pipeline schedule."""
+
+    def __init__(self, n_stages: int, layers_per_stage: int, d_model: int,
+                 n_heads: int, d_ff: int, attn_fn, *,
+                 n_kv_heads: int | None = None, remat: bool = False,
+                 n_microbatches: int | None = None, device=None,
+                 dtype=None, compute_dtype=None):
+        super().__init__()
+        self.n_stages, self.layers = n_stages, layers_per_stage
+        self.n_microbatches = n_microbatches
+        self.remat = remat
+        self.pipe = None  # this rank's PipeShard, once split
+        for i in range(layers_per_stage):
+            self.add_module(f"block_{i}", TransformerBlock(
+                d_model, n_heads, d_ff, attn_fn, dropout=0.0,
+                n_kv_heads=n_kv_heads, device=device, dtype=dtype,
+                compute_dtype=compute_dtype))
+        with torch.no_grad():
+            for mod in self.modules():
+                for attr, p in list(mod._parameters.items()):
+                    mod._parameters[attr] = nn.Parameter(
+                        p.detach().unsqueeze(0).repeat(
+                            n_stages, *([1] * p.ndim)))
+
+    def _slots(self, i: int) -> list:
+        """(module, attribute) of every parameter of block ``i``."""
+        block = getattr(self, f"block_{i}")
+        return [(mod, attr) for mod in block.modules()
+                for attr in mod._parameters]
+
+    def stacked(self) -> list[torch.Tensor]:
+        """The tensors the blocks read now (the parameters, or what a
+        placement or a dtype rule put in their place)."""
+        return [mod._parameters[attr] for i in range(self.layers)
+                for mod, attr in self._slots(i)]
+
+    def split_pipe_axis(self, shard) -> None:
+        """Keep stage ``shard.index`` alone (None: keep every stage)."""
+        if shard is None:
+            return
+        if shard.size != self.n_stages:
+            raise ValueError(
+                f"stacked params have {self.n_stages} stages but mesh axis "
+                f"'pipe' has {shard.size} devices")
+        j = shard.index
+        for i in range(self.layers):
+            for mod, attr in self._slots(i):
+                p = mod._parameters[attr]
+                mod._parameters[attr] = nn.Parameter(
+                    p.data[j:j + 1].clone())
+        self.pipe = shard
+
+    def _block(self, i: int, h, rope, *params):
+        slots = self._slots(i)
+        prev = [mod._parameters[attr] for mod, attr in slots]
+        for (mod, attr), t in zip(slots, params):
+            mod._parameters[attr] = t
+        try:
+            return getattr(self, f"block_{i}")(h, rope)
+        finally:
+            for (mod, attr), t in zip(slots, prev):
+                mod._parameters[attr] = t
+
+    def run(self, h: torch.Tensor, j: int, rope=None) -> torch.Tensor:
+        """Held stage ``j``'s blocks over ``h`` (each under
+        ``torch.utils.checkpoint`` with ``remat``)."""
+        for i in range(self.layers):
+            params = [mod._parameters[attr][j]
+                      for mod, attr in self._slots(i)]
+            if self.remat and torch.is_grad_enabled():
+                h = checkpoint(self._block, i, h, rope, *params,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                h = self._block(i, h, rope, *params)
+        return h
+
+    def forward(self, h: torch.Tensor, rope=None) -> torch.Tensor:
+        if self.pipe is None:
+            return sequential_apply(lambda j, a: self.run(a, j, rope),
+                                    self.n_stages, h)
+        m = self.n_microbatches or self.pipe.size
+        if h.shape[0] % m:
+            from dct_tpu_torch.parallel.mesh import get_mesh
+
+            dp = get_mesh().data_size
+            raise ValueError(
+                f"batch {h.shape[0] * dp} does not tile n_microbatches={m} "
+                f"x data={dp} for the pipe={self.pipe.size} mesh; adjust "
+                "batch_size or n_microbatches")
+        return pipeline_apply(lambda a: self.run(a, 0, rope), h,
+                              shard=self.pipe, n_microbatches=m,
+                              params=self.stacked())
+
+
+class WeatherTransformerPP(nn.Module):
+    """Pipeline-parallel transformer: ``[B, S, F]`` windows -> ``[B, C]``
+    f32 logits, its blocks grouped into ``n_stages`` stages (module
+    docstring). The batch of a pipe world must tile ``n_microbatches``
+    (default: the pipe size) or the forward raises, as the reference's
+    (``dct_tpu/models/transformer.py:289-298``)."""
+
+    def __init__(self, input_dim: int, seq_len: int, *, d_model: int = 64,
+                 n_heads: int = 4, n_layers: int = 2, d_ff: int = 256,
+                 num_classes: int = 2, dropout: float = 0.1,
+                 n_stages: int = 2, n_microbatches: int | None = None,
+                 attn_fn=None, remat: bool = False,
+                 n_kv_heads: int | None = None, pos_embed: str = "sincos",
+                 device=None, dtype=torch.float32, compute_dtype=None):
+        super().__init__()
+        if n_layers % n_stages:
+            raise ValueError(
+                f"n_layers={n_layers} must divide into "
+                f"n_stages={n_stages} homogeneous stages"
+            )
+        if d_model % 2 or d_model % n_heads:
+            raise ValueError(
+                f"d_model={d_model} must be even (sinusoidal positions) "
+                f"and divisible by n_heads={n_heads}"
+            )
+        if pos_embed not in ("sincos", "rope"):
+            raise ValueError(
+                f"pos_embed={pos_embed!r} must be 'sincos' or 'rope'"
+            )
+        if attn_fn is None:
+            from dct_tpu_torch.ops.attention import make_attention_fn
+
+            attn_fn = make_attention_fn()
+        self.compute_dtype = compute_dtype or dtype
+        self.seq_parallel = None
+        kw = {"device": device, "dtype": dtype}
+        ckw = dict(kw, compute_dtype=self.compute_dtype)
+        self.seq_len, self.n_layers = seq_len, n_layers
+        self.num_classes, self.pos_embed = num_classes, pos_embed
+        self.remat, self.input_dim = remat, input_dim
+        self.in_proj = TorchStyleDense(input_dim, d_model, **ckw)
+        self.drop = Dropout(dropout)
+        self.pp_stages = StageStack(
+            n_stages, n_layers // n_stages, d_model, n_heads, d_ff, attn_fn,
+            n_kv_heads=n_kv_heads, remat=remat,
+            n_microbatches=n_microbatches, **ckw)
+        self.ln_out = LayerNorm(d_model, **kw)
+        self.head = TorchStyleDense(d_model, num_classes, **ckw)
+        if pos_embed == "rope":
+            cos, sin = rope_tables(seq_len, d_model // n_heads)
+            self.register_buffer("rope_cos", cos.to(device), persistent=False)
+            self.register_buffer("rope_sin", sin.to(device), persistent=False)
+        else:
+            self.register_buffer(
+                "pos_table", sincos_positions(seq_len, d_model).to(device),
+                persistent=False,
+            )
+
+    def blocks(self):
+        return []
+
+    def forward(self, x: torch.Tensor,
+                dropout_key: tuple | None = None) -> torch.Tensor:
+        """``dropout_key``: as :class:`WeatherTransformer`'s (one dropout,
+        before the stages)."""
+        h, rope, _ = embed_positions(self, x)
+        h = self.drop(h, None if dropout_key is None
+                      else tuple(dropout_key) + (0,))
+        h = self.ln_out(self.pp_stages(h, rope))
+        return self.head(h.mean(dim=1)).float()

@@ -1,11 +1,11 @@
 """The process grid and its collectives (counterpart of
-``dct_tpu/parallel/mesh.py``; the ``pipe`` axis waits for ROADMAP Queue A
-item 17).
+``dct_tpu/parallel/mesh.py``).
 
 One process drives one device. The reference lays its devices out in
-enumeration order over ``[data, model, seq, pipe]`` (``mesh.py:140``), so
-process ``p`` of ``W = D x M x S`` sits at data row ``p // (M S)``, model
-column ``(p // S) % M`` and seq index ``p % S``. :func:`make_mesh` builds
+enumeration order over ``[data, model, seq, pipe]`` (``mesh.py:65, 140``),
+so process ``p`` of ``W = D x M x S x P`` sits at data row ``p // (M S
+P)``, model column ``(p // (S P)) % M``, seq index ``(p // P) % S`` and
+stage ``p % P``. :func:`make_mesh` builds
 that grid from a :class:`~dct_tpu_torch.config.MeshConfig` and its
 process groups: the **model group** (the ``M`` processes of one data row
 and seq index, which share one block of every batch and split the
@@ -13,9 +13,12 @@ tensor-parallel layers), the **seq group** (the ``S`` processes of one
 data row and model column, which hold the ``T/S`` positions of that block
 each and run the sequence-parallel attention engines), the **data group**
 (the ``D`` processes of one model column and seq index) and the
-**gradient group** (the ``D x S`` processes of one model column, over
-which gradients, losses and metrics are reduced). Every process creates
-every group, in the same order, as ``torch.distributed`` requires.
+**pipe group** (the ``P`` stages of one pipeline, which hand each
+microbatch's activations on, :mod:`dct_tpu_torch.parallel.pipeline`) and
+the **gradient group** (the ``D x S x P`` processes of one model column,
+over which gradients, losses and metrics are reduced). Every process
+creates every group, in the same order, as ``torch.distributed``
+requires.
 
 :func:`set_mesh` makes a grid the process default; without one, the
 default is the data axis alone over every process. The reductions below
@@ -25,14 +28,16 @@ replicated parameters, so a sum over the world would count them ``M``
 times. The seq ranks of a block hold one share each of its gradients
 (their positions' part of every parameter's), and the replicated tail
 of the model (the pooled head, the gathered per-position logits) counts
-on seq index 0 alone (:func:`seq_owned`), so a sum over the gradient
-group is exact. The reference's step is one program over the global
-batch; here each process divides its block's weighted loss sum by the
-global row count and :func:`all_reduce_sum` adds the gradients and the
-losses over the gradient group in one flat buffer
-(:mod:`dct_tpu_torch.train.steps`): the reference's global weighted mean,
-the zero-weight padding of the last batch included, which a mean of
-per-process means is not.
+on seq index 0 and the last stage alone (:func:`tail_owned`), so a sum
+over the gradient group is exact: a stage holds the gradients of its own
+blocks, and of a replicated leaf only its own use of it (the input
+projection's on stage 0, the head's on the last stage). The reference's
+step is one program over the global batch; here each process divides
+its block's weighted loss sum by the global row count and
+:func:`all_reduce_sum` adds the gradients and the losses over the
+gradient group in one flat buffer (:mod:`dct_tpu_torch.train.steps`): the
+reference's global weighted mean, the zero-weight padding of the last
+batch included, which a mean of per-process means is not.
 
 The model axis's collectives carry gradients (small
 ``torch.autograd.Function`` s): :func:`copy_to_model` (the identity
@@ -66,8 +71,6 @@ from dct_tpu_torch.config import MeshConfig
 from dct_tpu_torch.parallel.distributed import process_count, process_index
 
 AXES = ("data", "model", "seq", "pipe")
-# The axes the port does not have, with the ROADMAP item that ports each.
-_UNPORTED_AXES = {"pipe": ("a pipeline axis", 17)}
 
 
 @dataclass(frozen=True)
@@ -92,23 +95,47 @@ class SeqShard:
     ranks: tuple = ()
 
 
+@dataclass(frozen=True)
+class PipeShard:
+    """This process's stage on the pipe axis: ``index`` of ``size``, the
+    process group of its pipeline's ``size`` ranks and their global ranks
+    in stage order (a stage's previous and next ranks)."""
+
+    size: int
+    index: int
+    group: object = None
+    ranks: tuple = ()
+
+    @property
+    def prev(self) -> int | None:
+        return self.ranks[self.index - 1] if self.index > 0 else None
+
+    @property
+    def next(self) -> int | None:
+        return (self.ranks[self.index + 1] if self.index < self.size - 1
+                else None)
+
+
 class ProcessMesh:
-    """The ``[data, model, seq]`` grid of processes (``pipe`` is 1).
-    ``shape`` maps every axis name to its size, as the reference's
-    ``Mesh.shape``; ``data_index``, ``model_index`` and ``seq_index``
+    """The ``[data, model, seq, pipe]`` grid of processes. ``shape`` maps
+    every axis name to its size, as the reference's ``Mesh.shape``;
+    ``data_index``, ``model_index``, ``seq_index`` and ``pipe_index``
     place this process."""
 
-    def __init__(self, data: int, model: int = 1, seq: int = 1, *,
-                 rank: int | None = None, world: int | None = None):
+    def __init__(self, data: int, model: int = 1, seq: int = 1,
+                 pipe: int = 1, *, rank: int | None = None,
+                 world: int | None = None):
         self.shape = {"data": int(data), "model": int(model),
-                      "seq": int(seq), "pipe": 1}
+                      "seq": int(seq), "pipe": int(pipe)}
         self.world = process_count() if world is None else int(world)
         self.rank = process_index() if rank is None else int(rank)
-        self.data_index, self.model_index, self.seq_index = self._coords(
-            self.rank)
+        (self.data_index, self.model_index, self.seq_index,
+         self.pipe_index) = self._coords(self.rank)
         self.data_group = self.model_group = None
-        self.seq_group = self.grad_group = None
+        self.seq_group = self.pipe_group = None
+        self.grad_group = self.route_group = None
         self.seq_ranks = tuple(self._peers((2,))[0])
+        self.pipe_ranks = tuple(self._peers((3,))[0])
         if self.world > 1 and dist.is_initialized():
             self._build_groups()
 
@@ -125,60 +152,67 @@ class ProcessMesh:
         return self.shape["seq"]
 
     @property
-    def grad_size(self) -> int:
-        """The processes a gradient is summed over: ``data x seq``."""
-        return self.data_size * self.seq_size
+    def pipe_size(self) -> int:
+        return self.shape["pipe"]
 
-    def _coords(self, p: int) -> tuple[int, int, int]:
-        m, s = self.model_size, self.seq_size
-        return p // (m * s), (p // s) % m, p % s
+    @property
+    def grad_size(self) -> int:
+        """The processes a gradient is summed over: ``data x seq x
+        pipe``."""
+        return self.data_size * self.seq_size * self.pipe_size
+
+    def _coords(self, p: int) -> tuple[int, int, int, int]:
+        m, s, q = self.model_size, self.seq_size, self.pipe_size
+        return p // (m * s * q), (p // (s * q)) % m, (p // q) % s, p % q
 
     def _peers(self, vary: tuple) -> list:
         """The groups of processes that differ only on the axes ``vary``
-        (0 data, 1 model, 2 seq), in the order of their first rank: this
-        process's first, then every group."""
+        (0 data, 1 model, 2 seq, 3 pipe), in the order of their first
+        rank: this process's first, then every group."""
         groups: dict = {}
-        for p in range(self.data_size * self.model_size * self.seq_size):
+        for p in range(math.prod(self.shape.values())):
             c = self._coords(p)
-            groups.setdefault(tuple(c[a] for a in range(3)
+            groups.setdefault(tuple(c[a] for a in range(4)
                                     if a not in vary), []).append(p)
         mine = tuple(c for a, c in enumerate(self._coords(self.rank))
                      if a not in vary)
         return [groups[mine], list(groups.values())]
 
     def _build_groups(self) -> None:
+        made: dict = {}
+
         def build(vary):
             mine, groups = self._peers(vary)
             out = None
             for ranks in groups:  # every process creates every group
                 # A group spanning the world is the default group (None);
-                # a group of one process is never used.
+                # a group of one process is never used; a group of the
+                # same processes as an earlier one is that one.
                 if 1 < len(ranks) < self.world:
-                    g = dist.new_group(ranks)
+                    key = tuple(ranks)
+                    if key not in made:
+                        made[key] = dist.new_group(ranks)
                     if ranks == mine:
-                        out = g
+                        out = made[key]
             return out
 
         self.model_group = build((1,))
         self.data_group = build((0,))
         self.seq_group = build((2,))
-        if self.seq_size == 1:
-            self.grad_group = self.data_group
-        elif self.data_size == 1:
-            self.grad_group = self.seq_group
-        else:
-            self.grad_group = build((0, 2))
+        self.pipe_group = build((3,))
+        self.route_group = build((0, 2))
+        self.grad_group = build((0, 2, 3))
 
     def axis_index(self, axis: str) -> int:
         """This process's index on ``axis``."""
         return {"data": self.data_index, "model": self.model_index,
-                "seq": self.seq_index, "pipe": 0}[axis]
+                "seq": self.seq_index, "pipe": self.pipe_index}[axis]
 
     def axis_group(self, axis: str):
         """The process group of ``axis`` (None: the default group, or an
         axis of one process, which no collective runs over)."""
         return {"data": self.data_group, "model": self.model_group,
-                "seq": self.seq_group}[axis]
+                "seq": self.seq_group, "pipe": self.pipe_group}[axis]
 
     def model_shard(self) -> ModelShard | None:
         """This process's :class:`ModelShard`, or None when the model axis
@@ -195,10 +229,18 @@ class ProcessMesh:
         return SeqShard(self.seq_size, self.seq_index, self.seq_group,
                         self.seq_ranks)
 
+    def pipe_shard(self) -> PipeShard | None:
+        """This process's :class:`PipeShard`, or None when the pipe axis
+        has one process."""
+        if self.pipe_size == 1:
+            return None
+        return PipeShard(self.pipe_size, self.pipe_index, self.pipe_group,
+                         self.pipe_ranks)
+
     def __repr__(self) -> str:
         return (f"ProcessMesh({self.shape}, rank={self.rank}: data row "
                 f"{self.data_index}, model column {self.model_index}, seq "
-                f"index {self.seq_index})")
+                f"index {self.seq_index}, stage {self.pipe_index})")
 
 
 def resolve_sizes(cfg: MeshConfig, n: int) -> dict:
@@ -231,13 +273,8 @@ def make_mesh(cfg: MeshConfig | None = None) -> ProcessMesh:
     """The process grid of ``cfg`` over this run's processes (and its
     groups, when the process group is up)."""
     sizes = resolve_sizes(cfg or MeshConfig(), process_count())
-    for axis, (what, item) in _UNPORTED_AXES.items():
-        if sizes[axis] > 1:
-            raise NotImplementedError(
-                f"DCT_MESH_{axis.upper()}={sizes[axis]} asks for {what}; "
-                f"the port has the data, model and seq axes: ROADMAP Queue "
-                f"A item {item}")
-    return ProcessMesh(sizes["data"], sizes["model"], sizes["seq"])
+    return ProcessMesh(sizes["data"], sizes["model"], sizes["seq"],
+                       sizes["pipe"])
 
 
 _MESH: ProcessMesh | None = None
@@ -261,7 +298,8 @@ def get_mesh() -> ProcessMesh:
 
 def process_data_block() -> tuple[int, int]:
     """``(num_blocks, my_block)`` of each global batch: one block per data
-    row, the ``M x S`` processes of a data row loading the same block."""
+    row, the ``M x S x P`` processes of a data row loading the same
+    block."""
     mesh = get_mesh()
     return mesh.data_size, mesh.data_index
 
@@ -271,20 +309,21 @@ def data_parallel() -> bool:
     return get_mesh().grad_size > 1
 
 
-def seq_owned(weight: torch.Tensor) -> torch.Tensor:
-    """``weight`` on seq index 0 and zeros on the other seq ranks: the
-    rows' weights of a loss or metric over the model's replicated tail
-    (every seq rank of a block computes the same logits), so the sum over
-    the gradient group counts them once."""
+def tail_owned(weight: torch.Tensor) -> torch.Tensor:
+    """``weight`` on seq index 0 of the last stage and zeros on the other
+    seq and pipe ranks: the rows' weights of a loss or metric over the
+    model's replicated tail (every seq rank of a block, every stage of a
+    pipeline, computes the same logits), so the sum over the gradient
+    group counts them once."""
     mesh = get_mesh()
-    if mesh.seq_size == 1 or mesh.seq_index == 0:
+    if mesh.seq_index == 0 and mesh.pipe_index == mesh.pipe_size - 1:
         return weight
     return torch.zeros_like(weight)
 
 
 def all_reduce_sum(tensors) -> list[torch.Tensor]:
     """The elementwise sums of ``tensors`` over the gradient group (data
-    x seq), through one f32 all-reduce of a flat buffer; the tensors
+    x seq x pipe), through one f32 all-reduce of a flat buffer; the tensors
     themselves come back (as f32 values in their own dtypes) when that
     group has one process."""
     tensors = list(tensors)
@@ -311,7 +350,7 @@ def all_gather_ints(value: int) -> list[int]:
 
 
 def all_gather_grad(tensor: torch.Tensor) -> torch.Tensor:
-    """``tensor`` of every process of the gradient group (data x seq),
+    """``tensor`` of every process of the data x seq group,
     ``[D, S, ...]`` by data row and seq index (on its own device: NCCL
     for CUDA tensors, gloo on the CPU); with one such process,
     ``tensor[None, None]``. Carries no gradient. The MoE's routing
@@ -320,11 +359,12 @@ def all_gather_grad(tensor: torch.Tensor) -> torch.Tensor:
     after it, so the global order needs every rank's rows."""
     tensor = tensor.detach()
     mesh = get_mesh()
-    if mesh.grad_size == 1:
+    n = mesh.data_size * mesh.seq_size
+    if n == 1:
         return tensor[None, None]
-    out = tensor.new_empty(mesh.grad_size * tensor.numel())
+    out = tensor.new_empty(n * tensor.numel())
     dist.all_gather_into_tensor(out, tensor.reshape(-1).contiguous(),
-                                group=mesh.grad_group)
+                                group=mesh.route_group)
     # The group's ranks ascend, so data row major, then seq index.
     return out.view(mesh.data_size, mesh.seq_size, *tensor.shape)
 
@@ -597,3 +637,42 @@ def gather_from_seq(x: torch.Tensor, shard: SeqShard) -> torch.Tensor:
     seq order, on every seq rank; the backward sums the copies' gradients
     and keeps this rank's positions."""
     return _GatherFromSeq.apply(x, shard)
+
+
+# ------------------------------------------------------ pipe-axis hops
+
+
+def _wire(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the bytes that travel: bf16 as bytes (gloo moves no
+    bf16)."""
+    return x.view(torch.uint8) if x.dtype == torch.bfloat16 else x
+
+
+def pipe_send(x: torch.Tensor, peer: int, shard: PipeShard) -> None:
+    """``x`` to the pipe rank ``peer`` (a global rank): one
+    ``batch_isend_irecv`` of one send, waited for."""
+    x = _wire(x.detach().contiguous())
+    for req in dist.batch_isend_irecv(
+            [dist.P2POp(dist.isend, x, peer, group=shard.group)]):
+        req.wait()
+
+
+def pipe_recv(like: torch.Tensor, peer: int, shard: PipeShard
+              ) -> torch.Tensor:
+    """A tensor of ``like``'s shape, dtype and device from the pipe rank
+    ``peer``: one ``batch_isend_irecv`` of one receive, waited for."""
+    out = torch.empty_like(like, memory_format=torch.contiguous_format)
+    for req in dist.batch_isend_irecv(
+            [dist.P2POp(dist.irecv, _wire(out), peer, group=shard.group)]):
+        req.wait()
+    return out
+
+
+def pipe_broadcast(x: torch.Tensor, src_index: int,
+                   shard: PipeShard) -> torch.Tensor:
+    """Stage ``src_index``'s ``x`` on every stage of the pipeline (the
+    reference's ``psum`` of the last stage's outputs)."""
+    x = x.contiguous()
+    dist.broadcast(_wire(x), shard.ranks[src_index], group=shard.group)
+    return x
+

@@ -6,7 +6,8 @@ resharding GSPMD inserts for the reference's placements,
 A leaf whose stored spec differs from its compute spec (a
 :class:`~dct_tpu_torch.parallel.sharding_rules.Leaf` that is
 ``resharded``: an FSDP block over ``data``, a rule's ``seq`` or ``model``
-placement of a leaf computed whole, a replicated leaf of a unit computed
+placement of a leaf computed whole, a rule's ``pipe`` placement of a leaf
+outside the pipeline's stages, a replicated leaf of a unit computed
 tensor-parallel) keeps only its stored block, in ``state.shards``; its
 module's parameter is empty. The leaves of one **unit**, a direct child
 of the model (the input projection, each transformer, MoE or GRU block,
@@ -14,8 +15,8 @@ the final LayerNorm, the head), are gathered together when the unit
 runs (:func:`install_units` wraps its ``forward``):
 
 - forward: one all-gather over each axis that splits any of the unit's
-  stored blocks (``data``, then ``seq``, then ``model``), each leaf then
-  narrowed to its compute slice and cast to its ``DCT_DTYPE_RULES``
+  stored blocks (``data``, then ``seq``, ``pipe`` and ``model``), each
+  leaf then narrowed to its compute slice and cast to its ``DCT_DTYPE_RULES``
   dtype, and put into its module for the unit's forward alone. The
   tensors that the unit's operations save for the backward are packed as
   references (``saved_tensors_hooks``), so the gathered tensors are freed
@@ -25,12 +26,13 @@ runs (:func:`install_units` wraps its ``forward``):
   backward ends, the gradient of each compute slice goes back to its
   stored block (one autograd function, :class:`_Gather`): all-gathered
   over ``model`` where the compute slice splits it, reduce-scattered
-  over each of ``data`` and ``seq`` that the stored block splits (the
-  per-rank contributions summed over that group, the trap of a stored
-  axis that is also a gradient axis), narrowed where the stored block
-  splits ``model`` (the model ranks of a leaf computed whole hold equal
+  over each of ``data``, ``seq`` and ``pipe`` that the stored block
+  splits (the per-rank contributions summed over that group, the trap of
+  a stored axis that is also a gradient axis: a stage holds only its own
+  use of a replicated leaf), narrowed where the stored block splits
+  ``model`` (the model ranks of a leaf computed whole hold equal
   gradients), and the re-gathered tensors freed. The rest of the
-  gradient group (``data`` x ``seq``) is summed by the step
+  gradient group (``data`` x ``seq`` x ``pipe``) is summed by the step
   (:meth:`~dct_tpu_torch.train.state.TrainState.reduce_gradients`);
 - remat (a transformer block under ``torch.utils.checkpoint``, whose
   saved-tensor hooks the unit's own would shadow): the unit installs no
@@ -136,10 +138,6 @@ def reduce_scatter_dims(tensors, dims, mesh, axis: str) -> list:
     return res
 
 
-def _only(spec, axis: str) -> tuple:
-    return tuple(a if a == axis else None for a in spec)
-
-
 class Unit:
     """The resharded leaves ``idx`` of one direct child of the model."""
 
@@ -176,7 +174,7 @@ class Unit:
     def materialize(self, stored) -> list[torch.Tensor]:
         """The compute tensors from the stored blocks (no autograd)."""
         ts = [s.detach() for s in stored]
-        for axis in ("data", "seq", "model"):
+        for axis in ("data", "seq", "pipe", "model"):
             sel = [(k, lf.tdim(lf.param_spec.index(axis)))
                    for k, lf in enumerate(self.leaves)
                    if axis in lf.axes(lf.param_spec)]
@@ -195,28 +193,34 @@ class Unit:
     def reduce(self, grads) -> list[torch.Tensor]:
         """Compute-slice gradients -> stored-block gradients (module
         docstring), still partial over the gradient-group axes the stored
-        block does not split."""
+        block does not split. A stage leaf's compute slice is its stage:
+        its gradient is gathered over ``pipe`` as a model slice's is over
+        ``model``, never summed there."""
         gs = [g.float() for g in grads]
-        sel = [(k, lf.tdim(lf.compute_spec.index("model")))
-               for k, lf in enumerate(self.leaves)
-               if "model" in lf.axes(lf.compute_spec)]
-        if sel:
-            out = all_gather_dims([gs[k] for k, _ in sel],
-                                  [d for _, d in sel], self.mesh, "model")
-            for (k, _), o in zip(sel, out):
-                gs[k] = o
-        for axis in ("data", "seq"):
+        for axis in ("model", "pipe"):
+            sel = [(k, lf.tdim(lf.compute_spec.index(axis)))
+                   for k, lf in enumerate(self.leaves)
+                   if axis in lf.axes(lf.compute_spec)]
+            if sel:
+                out = all_gather_dims([gs[k] for k, _ in sel],
+                                      [d for _, d in sel], self.mesh, axis)
+                for (k, _), o in zip(sel, out):
+                    gs[k] = o
+        for axis in ("data", "seq", "pipe"):
             sel = [(k, lf.tdim(lf.param_spec.index(axis)))
                    for k, lf in enumerate(self.leaves)
-                   if axis in lf.axes(lf.param_spec)]
+                   if axis in lf.axes(lf.param_spec)
+                   and axis not in lf.axes(lf.compute_spec)]
             if sel:
                 out = reduce_scatter_dims([gs[k] for k, _ in sel],
                                           [d for _, d in sel], self.mesh,
                                           axis)
                 for (k, _), o in zip(sel, out):
                     gs[k] = o
-        return [lf.local(g, _only(lf.param_spec, "model")).contiguous()
-                for lf, g in zip(self.leaves, gs)]
+        return [lf.local(g, tuple(
+            a if a == "model" or a in lf.axes(lf.compute_spec) else None
+            for a in lf.param_spec)).contiguous()
+            for lf, g in zip(self.leaves, gs)]
 
     def pack(self, t: torch.Tensor):
         ptr = t.untyped_storage().data_ptr() if t.numel() else 0

@@ -20,20 +20,27 @@ collectives and reshards whatever it is given, the port computes the
 placements itself (:func:`shard_state_with_rules`). Each leaf has two:
 
 - its **stored** specs, where the parameter and its moments live
-  between steps: any rule's spec over ``data``, ``model`` and ``seq``,
-  one axis a dim (the moments' by the clauses matching their
-  ``opt_state`` paths, alike for every moment of a leaf), with ZeRO-1
+  between steps: any rule's spec over the four axes, one axis a dim
+  (each moment's by the clauses matching its own ``opt_state`` path, so
+  Adam's ``mu`` and ``nu`` may differ), with ZeRO-1
   (``shard_opt``: the moments of an otherwise replicated leaf split
   their leading dim over ``data``) and FSDP (``shard_params``: the
   parameter as well), the reference's per-leaf rule
   (:func:`_data_shard_spec`). Moments stored apart from their parameter
-  are updated in their own placement, the parameter's block brought
-  there and back (:func:`respec`);
+  are updated in the first moment's placement, the parameter's block
+  brought there and back (:func:`respec`), and a later moment stored
+  apart from the first is brought there for the update and its block
+  kept after it (``Leaf.slot_specs``). A pipeline stage leaf
+  (``pp_stages/...``, stacked ``[n_stages, ...]``) is stored and
+  computed ``P("pipe", <the table's spec of the path inside the stage>,
+  None...)``, the reference's structural rule, which ZeRO-1 and FSDP
+  never split over ``data``;
 - its **compute** spec, what its module computes with: the family
   table's tensor-parallel slice where its unit (an attention's
   ``qkv_proj``/``o_proj``, a block's ``ffn_in``/``ffn_out``, an MoE's
   expert stacks) is split over ``model`` (any of the unit's leaves stored
-  over ``model``), else the whole leaf. The split units' modules run the
+  over ``model``), else the whole leaf; a stage leaf's is its stage's
+  slice of that. The split units' modules run the
   collectives (:mod:`dct_tpu_torch.parallel.mesh`); the sizes must
   divide (whole KV groups, ``d_ff``, the experts) or the placement
   raises.
@@ -42,12 +49,12 @@ A leaf whose two specs differ is **resharded** at its use
 (:mod:`dct_tpu_torch.parallel.reshard`): its stored block is all-gathered
 over its axes and narrowed to the compute slice when its unit runs, and
 its gradient goes back to the stored block. A rule raises, naming its
-clause, only for a dim its axis does not divide, a ``pipe`` axis (ROADMAP
-Queue A item 17) or a spec the leaf cannot take (longer than its rank,
-or one axis on two dims). The gather half (:func:`gather_leaf`,
-:func:`gather_tree`, :func:`make_shard_and_gather_fns`) brings a stored
-leaf back dense: a collective every process runs, which the publish path
-(deploy checkpoints, packages) calls before the coordinator writes.
+clause, only for a dim its axis does not divide or a spec the leaf
+cannot take (longer than its rank, or one axis on two dims). The gather
+half (:func:`gather_leaf`, :func:`gather_tree`,
+:func:`make_shard_and_gather_fns`) brings a stored leaf back dense: a
+collective every process runs, which the publish path (deploy
+checkpoints, packages) calls before the coordinator writes.
 
 **Dtype rules.** ``DCT_DTYPE_RULES='pattern=dtype[;pattern=dtype...]'``
 selects parameters by a regex over their flax path and casts the matching
@@ -60,7 +67,7 @@ from __future__ import annotations
 import hashlib
 import os
 import re
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -216,28 +223,42 @@ def match_partition_rules(rules, tree):
     return walk(tree, ())
 
 
-def _resolve(name: str, family: str | None):
+def _resolve(name: str, family: str | None, ndim: int | None = None):
     """(spec, the ``DCT_SHARD_RULES`` clause that gave it or None) for
-    the ``/``-joined path ``name``."""
-    for pattern, spec in _env_rules():
+    the ``/``-joined path ``name`` of a leaf of rank ``ndim``. A pipeline
+    stage leaf (a path through ``pp_stages``, stacked ``[n_stages, ...]``)
+    puts its stage dim on ``pipe`` and matches the rules against the
+    path inside the stage, padded with None to ``ndim`` (2 when None):
+    ``P("pipe", *inner, None...)``, as the reference's
+    ``spec_for_path`` (``dct_tpu/parallel/sharding_rules.py:308-327``),
+    so the stage's blocks keep their tensor-parallel placement."""
+    names = name.split("/")
+    stage = "pp_stages" in names
+    if stage:
+        name = "/".join(names[names.index("pp_stages") + 1:])
+    spec, clause = P(), None
+    for pattern, s in _env_rules():
         if re.search(pattern, name):
-            axes = ",".join("-" if a is None else a for a in spec)
-            return spec, f"{pattern}={axes}"
-    for pattern, spec in FAMILY_RULES.get(family, FAMILY_RULES[None]):
-        if re.search(pattern, name):
-            return spec, None
-    return P(), None
+            axes = ",".join("-" if a is None else a for a in s)
+            spec, clause = s, f"{pattern}={axes}"
+            break
+    else:
+        for pattern, s in FAMILY_RULES.get(family, FAMILY_RULES[None]):
+            if re.search(pattern, name):
+                spec = s
+                break
+    if stage:
+        pad = (2 if ndim is None else ndim) - 1 - len(spec)
+        spec = P("pipe", *spec, *([None] * max(pad, 0)))
+    return spec, clause
 
 
 def spec_for_path(path, ndim: int | None = None,
                   family: str | None = None) -> tuple:
-    """The rule table's spec for the leaf at ``path`` (the pipeline
-    family's ``pp_stages`` branch waits for ROADMAP Queue A item 17)."""
+    """The rule table's spec for the leaf at ``path`` (of rank ``ndim``;
+    :func:`_resolve`)."""
     names = [str(getattr(k, "key", k)) for k in path]
-    if "pp_stages" in names:
-        raise NotImplementedError(
-            "pipeline-stage leaves are not ported: ROADMAP Queue A item 17")
-    return _resolve("/".join(names), family)[0]
+    return _resolve("/".join(names), family, ndim)[0]
 
 
 def _data_shard_spec(leaf, mesh) -> tuple | None:
@@ -325,7 +346,7 @@ def state_shardings(state, mesh, *, shard_opt: bool = False,
             out[name] = P()
             continue
         shape = shapes[i]
-        spec = _resolve(name, family)[0] if shape else P()
+        spec = _resolve(name, family, len(shape))[0] if shape else P()
         if spec == P() and shape:
             eligible = (shard_opt and kind == "moment") or shard_params
             if eligible:
@@ -337,7 +358,7 @@ def state_shardings(state, mesh, *, shard_opt: bool = False,
 def _global_shapes(model: nn.Module) -> list[tuple]:
     """The flax-layout global shape of every parameter (in
     ``model.parameters()`` order), shards included."""
-    from dct_tpu_torch.convert import flax_names
+    from dct_tpu_torch.convert import flax_names, flax_shape
 
     layout = getattr(model, "dct_layout", None)
     names = flax_names(model)
@@ -346,8 +367,7 @@ def _global_shapes(model: nn.Module) -> list[tuple]:
         if layout is not None:
             out.append(layout.leaves[i].shape)
             continue
-        shape = tuple(p.shape)
-        out.append(shape[::-1] if names[name][1] else shape)
+        out.append(flax_shape(tuple(p.shape), names[name][1]))
     return out
 
 
@@ -369,6 +389,9 @@ class Leaf:
     moment_spec: tuple
     compute_spec: tuple = ()
     mesh: object = None
+    #: The stored specs of the moments kept apart from ``moment_spec``
+    #: (the first moment's, where the update runs), by moment path.
+    slot_specs: dict = field(default_factory=dict)
 
     def splits(self, spec) -> list[tuple[int, str]]:
         """``(flax dim, axis)`` of every dim ``spec`` splits over more
@@ -380,6 +403,16 @@ class Leaf:
 
     def axes(self, spec) -> tuple:
         return tuple(a for _, a in self.splits(spec))
+
+    def stored_spec(self, kind: str, path=()) -> tuple:
+        """The stored spec of this leaf's parameter (``kind`` "param") or
+        of its moment at the state path ``path``."""
+        if kind != "moment":
+            return self.param_spec
+        for slot, spec in self.slot_specs.items():
+            if path_str(path).startswith(slot + "/"):
+                return spec
+        return self.moment_spec
 
     @property
     def resharded(self) -> bool:
@@ -401,8 +434,12 @@ class Leaf:
                 and self.splits(self.moment_spec) == [(0, "data")])
 
     def tdim(self, d: int) -> int:
-        """Flax dim ``d`` in torch layout (a dense kernel is transposed)."""
-        return 1 - d if self.transposed and len(self.shape) == 2 else d
+        """Flax dim ``d`` in torch layout (a dense kernel's last two dims
+        are swapped)."""
+        n = len(self.shape)
+        if self.transposed and n >= 2 and d >= n - 2:
+            return 2 * n - 3 - d
+        return d
 
     def block_shape(self, spec) -> tuple:
         out = list(self.shape)
@@ -462,10 +499,7 @@ def _unit_error(name, spec, clause, why) -> ValueError:
 
 
 def _check_spec(name, shape, spec, clause, mesh) -> None:
-    """The three placements the port refuses (module docstring)."""
-    if "pipe" in spec:
-        raise _unit_error(name, spec, clause, "the pipe axis is not ported "
-                          "(ROADMAP Queue A item 17)")
+    """The two placements the port refuses (module docstring)."""
     named = [a for a in spec if a is not None]
     if len(spec) > len(shape) or len(set(named)) != len(named):
         raise _unit_error(name, spec, clause, f"a leaf of shape "
@@ -478,24 +512,17 @@ def _check_spec(name, shape, spec, clause, mesh) -> None:
                               f"does not divide over {a}={mesh.shape[a]}")
 
 
-def _leaf_specs(key: str, moment_paths, family):
-    """(param spec, its clause, moment spec, its clause) of the leaf at
-    flax ``key``; every moment mirror must resolve like the first."""
+def _leaf_specs(key: str, ndim: int, moment_paths, family):
+    """(param spec, its clause, ``[(moment path, spec, clause)]`` for
+    each moment mirror) of the leaf at flax ``key``: each resolved on its
+    own path, as the reference matches every ``opt_state`` path."""
     pname = path_str(("params", "params", *key.split("/")))
-    pspec, pclause = _resolve(pname, family)
-    mspec, mclause = (pspec, pclause)
-    for i, prefix in enumerate(moment_paths):
+    pspec, pclause = _resolve(pname, family, ndim)
+    moments = []
+    for prefix in moment_paths:
         name = path_str(prefix + ("params", *key.split("/")))
-        spec, clause = _resolve(name, family)
-        if i == 0:
-            mspec, mclause = spec, clause
-        elif spec != mspec:
-            raise ValueError(
-                f"DCT_SHARD_RULES clause {clause!r} places the moments of "
-                f"{key} apart from each other ({spec_to_json(spec)} and "
-                f"{spec_to_json(mspec)}); the port stores a parameter's "
-                "moments alike")
-    return pspec, pclause, mspec, mclause
+        moments.append((path_str(prefix), *_resolve(name, family, ndim)))
+    return pspec, pclause, moments
 
 
 def split_units(model: nn.Module, mesh, spec_of) -> dict:
@@ -506,6 +533,10 @@ def split_units(model: nn.Module, mesh, spec_of) -> dict:
     table spec}`` of every leaf of a split unit."""
     m = mesh.shape["model"]
     shard = mesh.model_shard()
+    pipe = mesh.pipe_shard()
+    for mod in model.modules():
+        if hasattr(mod, "split_pipe_axis"):
+            mod.split_pipe_axis(pipe)
     out = {}
     for prefix, mod in model.named_modules():
         want = getattr(mod, "tp_leaves", None)
@@ -518,7 +549,9 @@ def split_units(model: nn.Module, mesh, spec_of) -> dict:
         mod.shard_model_axis(shard, split=split)
         if split:
             out.update(keys)
-    return out
+    # A pipeline stage's leaves compute with this rank's stage.
+    return {k: (P("pipe", *spec) if k.startswith("pp_stages/") else spec)
+            for k, spec in out.items()}
 
 
 def shard_state_with_rules(state, mesh, *, shard_opt: bool = False,
@@ -549,18 +582,25 @@ def shard_state_with_rules(state, mesh, *, shard_opt: bool = False,
     leaves: list[Leaf] = []
     for i, name in enumerate(n for n, _ in model.named_parameters()):
         key, shape = key_of[i], tuple(shapes[i])
-        pspec, pc, mspec, mc = _leaf_specs(key, moment_paths, family)
-        _check_spec(key, shape, pspec, pc, mesh)
-        _check_spec(key, shape, mspec, mc, mesh)
-        lf = Leaf(name=name, key=key, transposed=names[name][1],
-                  shape=shape, param_spec=pspec, moment_spec=mspec,
-                  mesh=mesh)
+        pspec, pc, moments = _leaf_specs(key, len(shape), moment_paths,
+                                         family)
         ds = _data_shard_spec(shape, mesh)
+        _check_spec(key, shape, pspec, pc, mesh)
         if ds is not None and pspec == P() and shard_params:
-            lf.param_spec = lf.moment_spec = ds
-        if ds is not None and lf.moment_spec == P() and (shard_opt
-                                                          or shard_params):
-            lf.moment_spec = ds
+            pspec = ds
+        specs = []
+        for path, mspec, mc in moments:
+            _check_spec(key, shape, mspec, mc, mesh)
+            if ds is not None and mspec == P() and (shard_opt
+                                                    or shard_params):
+                mspec = ds
+            specs.append((path, mspec))
+        lf = Leaf(name=name, key=key, transposed=names[name][1],
+                  shape=shape, param_spec=pspec, moment_spec=specs[0][1],
+                  compute_spec=(P("pipe") if key.startswith("pp_stages/")
+                                else P()), mesh=mesh)
+        lf.slot_specs = {path: spec for path, spec in specs[1:]
+                         if lf.splits(spec) != lf.splits(lf.moment_spec)}
         leaves.append(lf)
     by_key = {lf.key: lf for lf in leaves}
     for key, spec in split_units(
@@ -571,10 +611,12 @@ def shard_state_with_rules(state, mesh, *, shard_opt: bool = False,
     model.dct_layout = layout
     state.layout = layout
     state.place_params(full)
-    # The update space (moments alike), from the full tensors.
+    # The update space, from the full tensors; the moments stored apart
+    # from it keep their own blocks.
     state.opt_state = state.tx.init([
         lf.local(full[i], lf.moment_spec) if lf.apart
         else state.stored_param(i) for i, lf in enumerate(leaves)])
+    state.store_moments()
     reshard.install_units(state)
     return state
 
@@ -588,8 +630,8 @@ def place_for_inference(model: nn.Module, mesh, family: str | None = None):
 
     names = flax_names(model)
     spec = {names[n][0]: _resolve(
-        path_str(("params", "params", *names[n][0].split("/"))), family)[0]
-        for n, _ in model.named_parameters()}
+        path_str(("params", "params", *names[n][0].split("/"))), family,
+        p.ndim)[0] for n, p in model.named_parameters()}
     split_units(model, mesh, spec.__getitem__)
     return model
 
@@ -598,9 +640,10 @@ def place_for_inference(model: nn.Module, mesh, family: str | None = None):
 
 
 def flax_layout(t: torch.Tensor, transposed: bool) -> torch.Tensor:
-    """A torch-layout tensor in flax layout (dense kernels ``[in, out]``),
-    and back: the transpose is its own inverse."""
-    return t.t() if transposed and t.ndim == 2 else t
+    """A torch-layout tensor in flax layout (dense kernels ``[in, out]``,
+    behind a stage dim for a stage-stacked one), and back: the swap is
+    its own inverse."""
+    return t.transpose(-1, -2) if transposed and t.ndim >= 2 else t
 
 
 def gather_leaf(t: torch.Tensor, leaf: Leaf | None = None,
@@ -626,15 +669,13 @@ def gather_tree(state) -> dict:
     A collective when any parameter is split: every process calls it."""
     layout = getattr(state, "layout", None)
     model = state.model
-    from dct_tpu_torch.convert import flax_names
+    from dct_tpu_torch.convert import flax_names, swap_layout
 
     names = flax_names(model)
     tree: dict = {}
     for i, (name, p) in enumerate(model.named_parameters()):
         if layout is None:
-            value = gather_leaf(p, None)
-            if names[name][1]:
-                value = np.ascontiguousarray(value.T)
+            value = swap_layout(gather_leaf(p, None), names[name][1])
             key = names[name][0]
         else:
             lf = layout.leaves[i]
@@ -670,9 +711,8 @@ def make_shard_and_gather_fns(layout: StateLayout, *, moments=False):
         spec = lf.moment_spec if moments else lf.param_spec
 
         def shard_fn(a):
-            t = torch.as_tensor(np.asarray(a, np.float32))
-            if lf.transposed and t.ndim == 2:
-                t = t.t()
+            t = flax_layout(torch.as_tensor(np.asarray(a, np.float32)),
+                            lf.transposed)
             return lf.local(t, spec).contiguous()
 
         def gather_fn(t):
@@ -710,8 +750,7 @@ def leaf_spec(state, path: str):
             continue
         if i is None or layout is None:
             return P()
-        lf = layout.leaves[i]
-        return lf.moment_spec if kind == "moment" else lf.param_spec
+        return layout.leaves[i].stored_spec(kind, lpath)
     raise KeyError(path)
 
 

@@ -25,16 +25,24 @@ only ``shards`` holds and its unit gathers at use,
 under ZeRO-1 the ``data`` block of a replicated parameter along its
 leading flax dim (a view, whose updated blocks are all-gathered back
 after the step); where a rule stores the moments apart otherwise, the
-parameter's block in the moments' placement (gathered before the update
-and its stored block taken back after it).
+parameter's block in the first moment's placement (gathered before the
+update and its stored block taken back after it). A later moment that a
+rule stores apart from the first (Adam's ``nu`` apart from its ``mu``)
+is brought to the update's placement for the update and its own block
+kept after it (:meth:`TrainState.store_moments`).
 :meth:`TrainState.reduce_gradients` brings the raw
 gradients into the update space: each gradient is summed over the
-gradient-group axes (``data``, ``seq``) its stored block does not split,
-in one flat all-reduce for each set of such axes (a resharded leaf's
-gradient comes back from its unit already reduce-scattered over the
-axes its block splits), and ZeRO-1's over ``data`` in one flat
-reduce-scatter, then over ``seq``; a gradient whose moments are stored
-apart otherwise is then brought to their placement.
+gradient-group axes (``data``, ``seq``, ``pipe``) its stored block does
+not split, in one flat all-reduce for each such axis in turn (a
+resharded leaf's gradient comes back from its unit already
+reduce-scattered over the axes its block splits), and ZeRO-1's over
+``data`` in one flat reduce-scatter, then over ``seq`` and ``pipe``; a
+gradient whose moments are stored apart otherwise is then brought to
+their placement. On a pipe axis a stage's leaves are split over
+``pipe`` (each stage sums its own gradients over the rest), and a
+replicated leaf's gradient is its stages' contributions summed: the
+input projection's from stage 0, the head's and the final LayerNorm's
+from the last stage, each counted once.
 :meth:`TrainState.grad_norm` is the
 norm over the logical arrays: each update-space tensor's squares summed
 over the axes that split it, each replicated leaf counted once. The
@@ -120,7 +128,7 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
         torch._foreach_add_(denom, eps)
         out = torch._foreach_div(
             torch._foreach_div(mu, _bias_correction(b1, count)), denom)
-        return out, {"count": count, "mu": mu, "nu": nu}
+        return out, {"count": count, "mu": list(mu), "nu": list(nu)}
 
     return GradientTransformation(init, update, "adam")
 
@@ -352,22 +360,42 @@ class TrainState:
             off += n
         return full
 
+    def store_moments(self, *, back: bool = False) -> None:
+        """Keep each moment a rule stores apart from the leaf's first
+        (``Leaf.slot_specs``) as its own block, from the update
+        placement; ``back``: bring it from its block to the update
+        placement (a collective over the axes its block splits)."""
+        from dct_tpu_torch.parallel.sharding_rules import opt_slots, path_str
+
+        if self.layout is None:
+            return
+        for kind, path, values in opt_slots(self.tx, self.opt_state):
+            if kind != "moments":
+                continue
+            slot = path_str(path)
+            for i, lf in enumerate(self.layout.leaves):
+                spec = lf.slot_specs.get(slot)
+                if spec is not None:
+                    src, dst = ((spec, lf.moment_spec) if back
+                                else (lf.moment_spec, spec))
+                    values[i] = respec(values[i], lf, src, dst)
+
     def reduce_gradients(self, grads, extras=()):
         """Raw per-process gradients of :meth:`grad_targets` and scalars
         ``extras`` -> (update-space gradients summed over the gradient
-        group, data x seq, the summed ``extras``): one flat all-reduce
-        for each set of gradient axes the stored blocks leave unsplit
-        (the replicated leaves' with the extras over the whole group),
-        and for the ZeRO-1 leaves one flat reduce-scatter over the data
-        group and, under ``seq``, one all-reduce of this process's blocks
-        over the seq group."""
+        group, data x seq x pipe, the summed ``extras``): one flat
+        all-reduce for each set of gradient axes the stored blocks leave
+        unsplit (the replicated leaves' with the extras over the whole
+        group; the others' one axis at a time), and for the ZeRO-1 leaves
+        one flat reduce-scatter over the data group and, under ``seq`` or
+        ``pipe``, an all-reduce of this process's blocks over each."""
         from dct_tpu_torch.parallel.mesh import all_reduce_sum
 
         grads, extras = list(grads), list(extras)
         layout = self.layout
         zero1 = [] if layout is None else layout.zero1()
         buckets: dict[tuple, list[int]] = {}
-        grad_axes = ("data", "seq")
+        grad_axes = ("data", "seq", "pipe")
         if layout is not None:
             grad_axes = tuple(a for a in grad_axes
                               if layout.mesh.shape[a] > 1)
@@ -388,7 +416,8 @@ class TrainState:
             flat = [grads[i].reshape(-1).float() for i in idx]
             if left:
                 buf = torch.cat(flat)
-                dist.all_reduce(buf, group=layout.mesh.axis_group(left[0]))
+                for axis in left:
+                    dist.all_reduce(buf, group=layout.mesh.axis_group(axis))
                 flat, off = [], 0
                 for i in idx:
                     n = grads[i].numel()
@@ -407,10 +436,12 @@ class TrainState:
             mine = buf.new_empty(buf.shape[1])
             dist.reduce_scatter_tensor(mine, buf.reshape(-1),
                                        group=layout.mesh.data_group)
-            if layout.mesh.seq_size > 1:
-                # The seq ranks of a data row hold the same blocks and
-                # one share each of their gradients.
-                dist.all_reduce(mine, group=layout.mesh.seq_group)
+            for axis in ("seq", "pipe"):
+                # The seq ranks and stages of a data row hold the same
+                # blocks and one share each of their gradients.
+                if layout.mesh.shape[axis] > 1:
+                    dist.all_reduce(mine,
+                                    group=layout.mesh.axis_group(axis))
             off = 0
             for i, r in zip(zero1, rows):
                 lf = layout.leaves[i]
@@ -450,9 +481,11 @@ class TrainState:
         parameters, as is any block updated in its moments' placement."""
         params = self.update_params()
         with torch.no_grad():
+            self.store_moments(back=True)
             updates, self.opt_state = self.tx.update(
                 list(grads), self.opt_state, params, norm
             )
+            self.store_moments()
             torch._foreach_add_(params, updates)
             zero1 = [] if self.layout is None else self.layout.zero1()
             if zero1:

@@ -32,9 +32,14 @@ process then holds the reference's global weighted means. The model ranks
 of a block hold the same loss and sums, so nothing is reduced over the
 model axis here: its collectives run inside the tensor-parallel modules.
 The seq ranks of a block hold one share each of its gradients, and the
-same logits: the bodies weight the rows on seq index 0 alone
-(:func:`~dct_tpu_torch.parallel.mesh.seq_owned`), and the gradients and
-sums are reduced over data x seq.
+same logits, as do the stages of a pipeline: the bodies weight the rows
+on seq index 0 of the last stage alone
+(:func:`~dct_tpu_torch.parallel.mesh.tail_owned`), and the gradients and
+sums are reduced over data x seq x pipe. The pipeline family's forward
+runs the GPipe schedule, and its backward runs inside the one
+``torch.autograd.grad`` of the body, microbatch by microbatch
+(:mod:`dct_tpu_torch.parallel.pipeline`): the loss and metrics are the
+last stage's, shared over the pipe group by that reduction.
 The grad norm is :meth:`~dct_tpu_torch.train.state.TrainState.grad_norm`,
 over the logical arrays. The bodies differentiate each parameter's
 stored tensor (:meth:`~dct_tpu_torch.train.state.TrainState.
@@ -53,7 +58,7 @@ from dct_tpu_torch.ops.losses import (
     masked_binary_counts,
     masked_cross_entropy,
 )
-from dct_tpu_torch.parallel.mesh import all_reduce_sum, seq_owned
+from dct_tpu_torch.parallel.mesh import all_reduce_sum, tail_owned
 from dct_tpu_torch.parallel.sharding_rules import cast_params_by_rules
 from dct_tpu_torch.train.state import TrainState
 
@@ -92,7 +97,7 @@ def loss_and_grads(state: TrainState, x, y, weight):
     ``(loss, grads)`` with grads in the update space (``state.params``
     order; see :mod:`dct_tpu_torch.train.state`)."""
     x, y, weight = _device_tensors(state, x, y, weight)
-    weight = seq_owned(weight)
+    weight = tail_owned(weight)
     state.model.train()
     logits = _apply(state, x, (state.rng, state.step))
     loss_sum, count = masked_cross_entropy(
@@ -121,7 +126,7 @@ def _train_accum_body(state: TrainState, x, y, weight, accum_steps: int):
     is its weighted CE sum over the whole batch's supervised count, so the
     sum equals one step on the whole batch."""
     x, y, weight = _device_tensors(state, x, y, weight)
-    weight = seq_owned(weight)
+    weight = tail_owned(weight)
     b = x.shape[0]
     if b % accum_steps:
         raise ValueError(f"batch {b} does not split into {accum_steps} "
@@ -157,7 +162,7 @@ def _train_accum_body(state: TrainState, x, y, weight, accum_steps: int):
 def _eval_body(state: TrainState, x, y, weight):
     """One eval batch -> (loss_sum, acc_sum, count, tp, fp, fn)."""
     x, y, weight = _device_tensors(state, x, y, weight)
-    weight = seq_owned(weight)
+    weight = tail_owned(weight)
     state.model.eval()
     with torch.no_grad():
         logits = _apply(state, x, None)

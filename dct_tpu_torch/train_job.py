@@ -16,9 +16,12 @@ dct_tpu_torch.train_job``). Environment:
       ``r`` has no card of its own (two ranks never share one)
   DCT_RUN_ID  the run-correlation ID (the launcher mints it; an unlaunched
       run mints its own), logged first
-  DCT_MESH_DATA / DCT_MESH_MODEL / DCT_MESH_SEQ  the process grid
-      (``data=-1`` absorbs every process; WORLD_SIZE must equal data x
-      model x seq): the model axis runs the transformers tensor-parallel
+  DCT_MESH_DATA / DCT_MESH_MODEL / DCT_MESH_SEQ / DCT_MESH_PIPE  the
+      process grid (``data=-1`` absorbs every process; WORLD_SIZE must
+      equal data x model x seq x pipe): the pipe axis runs
+      ``weather_transformer_pp``'s stages as a GPipe schedule
+      (``DCT_N_STAGES`` must equal it, ``DCT_N_MICROBATCHES`` defaults to
+      it) and replicates the other families over it; the model axis runs the transformers tensor-parallel
       and the MoE expert-parallel; the seq axis runs the two transformer
       families and the MoE sequence-parallel (``DCT_SP_ENGINE`` ring or
       a2a, ``DCT_RING_STRIPED``), the MoE routing over data x seq, and
@@ -30,9 +33,11 @@ dct_tpu_torch.train_job``). Environment:
       and the partition-rule overrides
       (:mod:`dct_tpu_torch.parallel.sharding_rules`)
   DCT_* training, model, data, tracking, observability and resilience
-      settings (:class:`dct_tpu_torch.config.RunConfig`); the pipeline
-      axis and the stream ingest are refused with the ROADMAP item that
-      ports them
+      settings (:class:`dct_tpu_torch.config.RunConfig`); the stream
+      ingest is refused with the ROADMAP item that ports it
+  DCT_PIPE_TRACE=1 times this stage's share of each pipelined train step
+      (:func:`dct_tpu_torch.parallel.pipeline.trace`, printed as
+      ``[train_job] pipeline {...}``; a sync a step)
 
 Prints ``[train_job] launches {...}``, this process's flash-kernel launch
 counts, when training ends (done, preempted or halted), so a supervisor's
@@ -59,24 +64,11 @@ import json
 import os
 import sys
 
-#: (environment variable, what the port does not have yet, the ROADMAP
-#: Queue A item that ports it).
-_UNPORTED = (
-    ("DCT_MESH_PIPE", "a pipeline axis", 17),
-)
-
-
 def refuse_unported_env(env=None) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item when the
-    environment asks for a pipeline axis or the stream ingest, neither of
-    which the port has."""
+    environment asks for the stream ingest, which the port does not
+    have."""
     env = os.environ if env is None else env
-    for var, what, item in _UNPORTED:
-        raw = (env.get(var) or "").strip()
-        if raw and int(raw) > 1:
-            raise NotImplementedError(
-                f"{var}={raw} asks for {what}; the port has the data, "
-                f"model and seq axes only: ROADMAP Queue A item {item}")
     mode = (env.get("DCT_INGEST_MODE") or "poll").strip().lower()
     if mode != "poll":
         raise NotImplementedError(
@@ -144,6 +136,11 @@ def _train(cfg, device) -> int:
     finally:
         print(f"[train_job] launches "
               f"{json.dumps(flash_attention.launch_counts())}", flush=True)
+        if os.environ.get("DCT_PIPE_TRACE") == "1":
+            from dct_tpu_torch.parallel import pipeline
+
+            print(f"[train_job] pipeline {json.dumps(pipeline.trace())}",
+                  flush=True)
     fit = {"val_loss": result.val_loss,
            "samples_per_sec": result.samples_per_sec,
            "steady_samples_per_sec": result.steady_samples_per_sec,

@@ -383,6 +383,40 @@ def test_gru_forward_on_card_matches_cpu(card):
     assert (out[1] - out[0]).abs().max().item() <= 1e-5
 
 
+def test_pp_sequential_stack_on_card_matches_cpu(card):
+    """``weather_transformer_pp`` (two stages of two blocks, T=256) on one
+    card runs its stages one after another on the flash kernels: f32
+    logits within 1e-4 of the CPU's and the stage leaves' gradients
+    within 1e-3 of their largest, 4 forward, 4 dK/dV and 4 dQ launches."""
+    from dct_tpu_torch.config import ModelConfig
+    from dct_tpu_torch.convert import init_flax_weights, load_flax_weights
+    from dct_tpu_torch.models.registry import get_model
+
+    cfg = ModelConfig(name="weather_transformer_pp", seq_len=T, d_model=64,
+                      n_heads=4, n_layers=4, d_ff=128, n_stages=2,
+                      dropout=0.0)
+    x = torch.from_numpy(np.random.default_rng(17).standard_normal(
+        (4, T, 5)).astype(np.float32))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out, grads = [], []
+    for device in ("cpu", card):
+        model = get_model(cfg, input_dim=5, device=device)
+        load_flax_weights(model, init_flax_weights(model, 3))
+        fa.reset_launches()
+        logits = model(x.to(device))
+        logits.float().square().sum().backward()
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert fa.launch_counts() == {"flash_fwd": 4,
+                                          "flash_bwd_dkdv": 4,
+                                          "flash_bwd_dq": 4}
+        out.append(logits.detach().cpu())
+        grads.append(model.pp_stages.block_1.attn.qkv_proj.weight.grad.cpu())
+    assert (out[1] - out[0]).abs().max().item() <= 1e-4
+    scale = grads[0].abs().max().item()
+    assert (grads[1] - grads[0]).abs().max().item() <= 1e-3 * scale
+
+
 # C1: head dims between the kernel instances run through the zero-padded
 # instance above them (8 -> 16, 48 -> 64), the scale of the true D kept.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

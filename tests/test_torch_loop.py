@@ -324,6 +324,37 @@ def test_supervised_and_stream_raise_naming_their_items(tmp_path):
     assert LoopConfig().train_mode == "supervised"
 
 
+
+@pytest.mark.parametrize("launcher_kwargs,want", [
+    (None, 45.0), ({"preempt_grace_s": 7.0}, 7.0)])
+def test_supervised_round_takes_the_configured_grace_window(
+        tmp_path, monkeypatch, launcher_kwargs, want):
+    # A rank SIGTERMed mid-span finishes the span before it exits 75: the
+    # round's launcher waits the config's grace window (a tenant's own
+    # launcher_kwargs win), not the launcher's built-in default.
+    from dct_tpu_torch.config import ResilienceConfig
+    from dct_tpu_torch.launch import launcher as launcher_mod
+
+    seen = {}
+
+    class _Launcher:
+        def __init__(self, **kw):
+            seen.update(kw)
+
+        def supervise(self, argv, **kw):
+            return launcher_mod.SuperviseResult(
+                results=[], success=True, classification="success")
+
+    monkeypatch.setattr(launcher_mod, "LocalProcessLauncher", _Launcher)
+    cfg = _cfg(str(tmp_path))
+    cfg = dataclasses.replace(
+        cfg, loop=dataclasses.replace(cfg.loop, train_mode="supervised"),
+        resilience=ResilienceConfig(preempt_grace_s=45.0))
+    loop = AlwaysOnLoop(cfg, device="cpu", launcher_kwargs=launcher_kwargs)
+    rec = loop._run_round_supervised()
+    assert rec["classification"] == "success"
+    assert seen["preempt_grace_s"] == want
+
 def _job_env(base: str, **extra) -> dict:
     env = {k: v for k, v in os.environ.items() if not k.startswith("DCT_")}
     env.update(

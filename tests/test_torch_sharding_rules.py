@@ -263,16 +263,19 @@ def test_moments_stored_apart_match_the_reference(monkeypatch, rules, name,
 
 
 @pytest.mark.parametrize("rules,match", [
-    ("in_proj/kernel$=pipe", "item 17"),
+    ("in_proj/kernel$=pipe", "dim 0 \\(5\\) does not divide over pipe=2"),
     ("in_proj/kernel$=data", "dim 0 \\(5\\) does not divide over data=2"),
 ], ids=["pipe", "indivisible"])
 def test_a_pipe_clause_and_an_indivisible_dim_raise_naming_the_clause(
         monkeypatch, rules, match):
+    """A clause may name ``pipe`` (the pipe axis is ported), and one whose
+    dim does not divide over its axis raises naming the clause."""
     monkeypatch.setenv("DCT_SHARD_RULES", rules)
     _, pst = _pair("weather_transformer", OPTIMIZERS[0])
     with pytest.raises(ValueError, match=match) as e:
-        port.shard_state_with_rules(pst, ProcessMesh(2, 2, rank=0, world=4),
-                                    family="weather_transformer")
+        port.shard_state_with_rules(
+            pst, ProcessMesh(2, 1, 1, 2, rank=0, world=4),
+            family="weather_transformer")
     assert e.match(rules.replace("$", "\\$"))
 
 
@@ -360,10 +363,17 @@ def test_seq_and_pipe_axes_raise_naming_their_items(monkeypatch, axis, item):
         with pytest.raises(ValueError, match=f"item {item}b"):
             ring_flash(192, striped=False, window=None, device="cuda")
     else:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            refuse_unported_env({f"DCT_MESH_{axis}": "2"})
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            port_mesh.make_mesh(cfg)
+        # Item 17a ported the pipe axis: the job and the grid take it, and
+        # the pipeline family builds on it, a stage a rank once placed.
+        refuse_unported_env({"DCT_MESH_PIPE": "2"})
+        mesh = port_mesh.make_mesh(cfg)
+        assert mesh.shape["pipe"] == 2 and mesh.pipe_shard().size == 2
+        pp = get_model(ModelConfig(name="weather_transformer_pp",
+                                   seq_len=8, n_layers=2, n_stages=2),
+                       input_dim=5, device="cpu", mesh=mesh)
+        port.split_units(pp, mesh, lambda key: ())
+        assert pp.pp_stages.pipe.index == mesh.pipe_index
+        assert pp.pp_stages.block_0.ffn_in.weight.shape[0] == 1
     # The model axis and the shard knobs are no longer refused.
     refuse_unported_env({"DCT_MESH_MODEL": "2", "DCT_SHARD_OPT_STATE": "1",
                          "DCT_SHARD_PARAMS": "1",

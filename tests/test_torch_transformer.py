@@ -157,18 +157,17 @@ def test_load_flax_weights_is_strict():
     "weather_gru", "weather_moe", "weather_transformer_pp",
 ])
 def test_registry_refuses_unported_families(family):
-    """The pipeline family is refused, naming its ROADMAP item; the GRU
-    and the MoE, refused until they were ported, now build."""
-    if family != "weather_transformer_pp":
-        from dct_tpu_torch.models.gru import WeatherGRU
-        from dct_tpu_torch.models.moe import WeatherMoE
+    """The GRU, the MoE and the pipeline family, each refused until it
+    was ported, now build."""
+    from dct_tpu_torch.models.gru import WeatherGRU
+    from dct_tpu_torch.models.moe import WeatherMoE
+    from dct_tpu_torch.models.transformer import WeatherTransformerPP
 
-        model = get_model(ModelConfig(name=family), input_dim=5, device="cpu")
-        assert isinstance(model, {"weather_gru": WeatherGRU,
-                                  "weather_moe": WeatherMoE}[family])
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(ModelConfig(name=family), input_dim=5, device="cpu")
+    model = get_model(ModelConfig(name=family), input_dim=5, device="cpu")
+    assert isinstance(model, {"weather_gru": WeatherGRU,
+                              "weather_moe": WeatherMoE,
+                              "weather_transformer_pp":
+                                  WeatherTransformerPP}[family])
 
 
 def test_registry_unknown_family():
