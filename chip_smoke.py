@@ -461,13 +461,56 @@ without them, and without the ``dct_tpu_torch`` package beside this file.
        checkpoint resumes on two-stage grids).
    Then ``[smoke] (p) summary`` and ``phase_p.json``; on fewer than four
    cards one line, ``{"phase": "p", "ran": false, "cards": 1}``.
+(q) The MPMD pipeline (``mpmd_phase``; ``--phase q`` runs only the kernel
+   build and (q)): ``weather_transformer_pp`` at the bench's width on (m)'s
+   rows and schedule (global batch 16, SGD), dropout 0, each stage a
+   program of its own (:mod:`dct_tpu_torch.parallel.mpmd`):
+   (q0) on any count of cards: the three kernels against their plain
+       versions at the stage microbatch shapes (``[8, 8]`` and ``[4, 8]``
+       of ``[B, H]``; f32 and bf16, FWD_TOL and BWD_TOL); ``train_job`` on
+       one card at ``n_stages=2``, ``pipe=1``, every step's loss logged
+       (the sequential runs: f32 3 epochs of whole batches; bf16 1 epoch,
+       of whole batches and accumulating over M 2 and M 4 microbatches,
+       ``_q_seq_key``); the in-process ``MpmdTrainer`` at ``1,1`` on
+       ``cuda:0`` (the ``DCT_DEVICE`` override: both stages on one card,
+       a thread each), 1f1b with M 2 and M 4 (f32: 3 epochs) and gpipe
+       with M 4, f32 and bf16, from train_job's init: every step's loss
+       and val_loss within 1e-5 (f32, against whole batches) and 5e-3
+       (bf16, against the same microbatches; the whole-batch differences
+       printed beside), each stage's launches
+       exactly ``2 (L/P) M`` forwards and ``(L/P) M`` dK/dV and dQ a train
+       step and ``(L/P) M`` forwards an eval batch, read from its
+       per-stage tally of that run; step ms, samples/s, peak memory, each
+       stage's busy, transfer-wait, fill, steady and drain seconds, and
+       ``analytic_bubble`` and ``measured_bubble`` from M 2 and M 4. The
+       supervised worker (``resilience.supervise --world-size 2 --
+       mpmd_worker``, ``1,1`` on one card, 1f1b M 4), f32 (3 epochs) with
+       a SIGTERM to both stages in the second epoch (each finishes it,
+       saves, exits 75 and reports ``mpmd.stage_done preempted=true``; one
+       free relaunch resumes every stage) and bf16 (1 epoch): the
+       manifest and both stage files, one ``mpmd.step_report`` an epoch,
+       each process's launches an attempt's, its last val_loss within
+       1e-5 (f32; bf16 5e-3) of the in-process run and within (q)'s
+       tolerance of train_job's. The pivots, bitwise on every leaf: the
+       worker's stage files adopted here (each merged leaf its stage's)
+       and by ``train_job``'s resume (its ``mpmd.pivot`` digest against
+       this process's merge), and train_job's ``train_state`` split by a
+       resumed worker world (each stage's ``mpmd.pivot`` digest against
+       this process's split). In the whole script it runs at the end of
+       the (f) chain, after (o0);
+   (q1) on four cards, one epoch each, f32 and bf16: ``1,1,1,1`` (one
+       layer a stage) with 1f1b and gpipe and ``1,1`` on two cards (M 4),
+       each stage on its own card, against one card's train_job from the
+       same init (``n_stages`` 4 or 2), held as (q0)'s in-process runs.
+   Then ``[smoke] (q) summary`` and ``phase_q.json``; on fewer than four
+   cards one line, ``{"phase": "q", "ran": false, "cards": 1}``.
 
 After (g), four chains share the card: (h1) then (k) in this thread,
 (l) then (p0) beside them (the two hold one lock around every part that
 reads this process's launch counts; (p0) waits for (i)'s drills to end),
-(i) then (j1), and (f), (h0), (h2) then (o0); (l) runs over its own LOOP_ROWS rows (those of (h1)'s first
-cycle). (i2), (j2)/(j3), (m), (n), (o)'s and (p)'s worlds follow once
-all four have ended. Each phase prints its wall on a ``[smoke] wall`` line, and
+(i) then (j1), and (f), (h0), (h2), (o0) then (q0); (l) runs over its own LOOP_ROWS rows (those of (h1)'s first
+cycle). (i2), (j2)/(j3), (m), (n), (o)'s, (p)'s and (q1)'s worlds follow
+once all four have ended. Each phase prints its wall on a ``[smoke] wall`` line, and
 all of them, with the total, on ``[smoke] walls``.
 
 Prints the ``kernels`` JSON line (each kernel with its f32 numbers at the
@@ -475,8 +518,8 @@ top level, as earlier slices did, a ``bf16`` summary beside them, its
 ``tensor_core_instructions`` by dtype and (n0)'s ``sp_variants``;
 ``launches_by_path`` gains ``serve_k``, ``predict``, ``knobs``,
 ``families``, ``model_axis``, ``sequence_parallel``, (o)'s
-``predict_mesh``, ``fsdp_layers`` and ``remap``, and (p)'s
-``pipeline``),
+``predict_mesh``, ``fsdp_layers`` and ``remap``, (p)'s ``pipeline``
+and (q)'s ``mpmd``),
 then the card line,
 then, last, ``{"ok": true, "device": {...}}``. Any failure raises.
 """
@@ -5382,12 +5425,698 @@ def pipeline_phase(fa, root: str, card: str, p0: dict | None = None
     return out
 
 
+# ----------------------------------------------------------------------
+# (q) The MPMD pipeline.
+
+MPMD_STAGES = "1,1"
+# Epochs of the sequential runs, the long in-process run and the worker,
+# f32 and bf16: in bf16 a microbatched step's rounding parts its loss from
+# the whole batch's by up to 7.3e-3 (against 5e-3) by the third epoch.
+MPMD_EPOCHS = {False: 3, True: 1}
+MPMD_RUNS = (("1f1b", 2, False), ("1f1b", 4, True), ("gpipe", 4, False))
+# (schedule, M, runs MPMD_EPOCHS) of the in-process runs; the rest 1 epoch
+MPMD_TOL = {"0": 1e-5, "1": 5e-3}  # every step's loss and val_loss against
+# train_job's, f32 and bf16
+MPMD_WORKER_TOL = {"0": 1e-5, "1": 5e-3}  # the worker's val_loss against
+# the in-process run's
+MPMD_WORLD_S = 600
+MPMD_Q1 = (("1,1,1,1", "1f1b"), ("1,1,1,1", "gpipe"), ("1,1", "1f1b"))
+
+
+_Q_PROCS: list = []  # (q)'s child processes, stopped if the phase fails
+
+
+def _q_stop_children() -> None:
+    """SIGTERM every (q) child still running (a supervisor drains its
+    world), then SIGKILL what outlives 60 s."""
+    for p in _Q_PROCS:
+        if p.poll() is None:
+            p.terminate()
+    deadline = time.monotonic() + 60
+    for p in _Q_PROCS:
+        try:
+            p.wait(timeout=max(0.1, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def _q_dtype(bf16: bool) -> str:
+    return "bf16" if bf16 else "f32"
+
+
+def _q_env(root: str, name: str, processed: str, *, bf16: bool,
+           stages: str = MPMD_STAGES, epochs: int = 1,
+           m: int = 4, schedule: str = "1f1b", **extra) -> dict:
+    """A train_job or mpmd_worker environment in (q): (m)'s rows and
+    schedule at the bench's width, ``n_stages`` from the stage map,
+    dropout 0, every step's loss logged, the world's own events,
+    heartbeats and tracking store."""
+    return _mesh_env(
+        root, name, processed, family=PP, bf16=bf16, data=1, model=1,
+        batch=MESH_BATCH, epochs=epochs,
+        DCT_N_STAGES=len(stages.split(",")), DCT_DROPOUT=0,
+        DCT_LOG_EVERY_N_STEPS=1,
+        DCT_EVENTS_DIR=os.path.join(root, f"events-{name}"),
+        DCT_HEARTBEAT_DIR=os.path.join(root, f"hb-{name}"),
+        DCT_TRACKING_DIR=os.path.join(root, f"mlruns-{name}"),
+        DCT_MPMD_STAGES=stages, DCT_MPMD_MICROBATCHES=m,
+        DCT_MPMD_SCHEDULE=schedule, **extra)
+
+
+def _q_seq_key(bf16: bool, m: int):
+    """Which sequential run a pipeline of ``m`` microbatches is held to:
+    the whole-batch train_job in f32 (None); in bf16 train_job
+    accumulating over the same ``m`` consecutive row blocks of each
+    global batch (``m``), because bf16 rounding alone parts a run of
+    whole batches from one of microbatches by more than MPMD_TOL within
+    an epoch (both printed beside each other in (q0))."""
+    return m if bf16 else None
+
+
+def _q_seq_env(bf16: bool, key) -> dict:
+    """The environment of :func:`_q_seq_key`'s run: ``DCT_BATCH_SIZE``
+    global/M and ``DCT_GRAD_ACCUM_STEPS`` M, so one update takes the same
+    rows in the same microbatches as the pipeline's step."""
+    if key is None:
+        return {}
+    return {"DCT_BATCH_SIZE": MESH_BATCH // key, "DCT_GRAD_ACCUM_STEPS": key}
+
+
+def _q_sequential(root: str, name: str, processed: str, *, bf16: bool,
+                  stages: str = MPMD_STAGES, epochs: int = 1,
+                  **extra) -> dict:
+    """Start ``train_job`` on one card (pipe=1, the stages one after
+    another) with (q)'s environment."""
+    env = {k: str(v) for k, v in _q_env(
+        root, name, processed, bf16=bf16, stages=stages, epochs=epochs,
+        **extra).items()}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dct_tpu_torch.train_job"], env=env,
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    _Q_PROCS.append(proc)
+    return {"name": name, "world": 1, "procs": [proc],
+            "t0": time.perf_counter(), "env": env,
+            "models": env["DCT_MODELS_DIR"], "global_batch": MESH_BATCH}
+
+
+def _q_trajectory(run: dict) -> dict:
+    """A finished train_job's every step loss (its tracking store) and
+    every epoch's val_loss (its event log)."""
+    env = run["env"]
+    steps = []
+    for root_dir, _, files in os.walk(env["DCT_TRACKING_DIR"]):
+        if "metrics.jsonl" in files:
+            with open(os.path.join(root_dir, "metrics.jsonl")) as f:
+                steps += [json.loads(x) for x in f if x.strip()]
+    losses = [r["train_loss"] for r in sorted(steps, key=lambda r: r["step"])
+              if "train_loss" in r]
+    vals = [e["val_loss"] for e in _named(_events_of(env), "epoch_end")]
+    return {"step_losses": losses, "val_losses": vals,
+            "launches": run["ranks"][0]["launches"],
+            "fit": {k: run["ranks"][0][k] for k in (
+                "val_loss", "samples_per_sec", "steady_samples_per_sec")}}
+
+
+def _q_cfg(root: str, name: str, processed: str, *, bf16: bool,
+           stages: str, schedule: str, m: int, epochs: int):
+    """(q)'s in-process run, configured as :func:`_q_env`'s (the
+    environment's defaults elsewhere)."""
+    from dct_tpu_torch.config import ModelConfig, MpmdConfig, RunConfig
+
+    cfg = RunConfig()
+    cfg.data.processed_dir = processed
+    cfg.data.models_dir = os.path.join(root, f"models-{name}")
+    cfg.data.val_fraction = MESH_VAL_FRACTION
+    cfg.model = ModelConfig(
+        name=PP, seq_len=MESH_CFG["seq_len"], d_model=MESH_CFG["d_model"],
+        n_heads=MESH_CFG["n_heads"], n_layers=MESH_CFG["n_layers"],
+        d_ff=MESH_CFG["d_ff"], n_stages=len(stages.split(",")),
+        dropout=0.0)
+    cfg.train.epochs, cfg.train.batch_size = epochs, MESH_BATCH
+    cfg.train.bf16_compute = bf16
+    cfg.train.optimizer, cfg.train.lr = "sgd", MESH_LR
+    cfg.train.momentum = MESH_MOMENTUM
+    cfg.obs.events_dir = os.path.join(root, f"events-{name}")
+    cfg.mpmd = MpmdConfig(stages=stages, microbatches=m, schedule=schedule)
+    return cfg
+
+
+def mpmd_launches(batches: tuple, epochs: int, *, stages: int,
+                  microbatches: int) -> dict:
+    """One stage's flash launches over ``epochs`` of ``batches`` (train
+    steps, eval batches): ``2 (L/P) M`` forwards a train step (the fwd op
+    and the backward's recompute) and ``(L/P) M`` dK/dV and dQ; ``(L/P)
+    M`` forwards an eval batch."""
+    n_train, n_val = batches
+    per = MESH_CFG["n_layers"] // stages * microbatches
+    return {"train": {"flash_fwd": epochs * n_train * 2 * per,
+                      "flash_bwd_dkdv": epochs * n_train * per,
+                      "flash_bwd_dq": epochs * n_train * per},
+            "eval": {"flash_fwd": epochs * n_val * per,
+                     "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}}
+
+
+def _q_check(where: str, got: dict, base: dict, tol: float) -> dict:
+    """Every step's loss and every epoch's val_loss of ``got`` within
+    ``tol`` of ``base``'s first as many."""
+    steps, vals = got["step_losses"], got["val_losses"]
+    step_diff = max(abs(a - b) for a, b in zip(steps,
+                                               base["step_losses"]))
+    val_diff = max(abs(a - b) for a, b in zip(vals, base["val_losses"]))
+    if (len(base["step_losses"]) < len(steps)
+            or len(base["val_losses"]) < len(vals)
+            or not (step_diff <= tol and val_diff <= tol)
+            or not np.isfinite(steps + vals).all()):
+        raise AssertionError(
+            f"(q) {where}: step losses {steps[:4]}... val {vals} against "
+            f"{base['step_losses'][:4]}... val {base['val_losses']}: "
+            f"max diffs {step_diff}, {val_diff} (tol {tol})")
+    return {"steps": len(steps), "step_loss_max_diff": step_diff,
+            "val_loss_max_diff": val_diff}
+
+
+def q_inprocess(root: str, processed: str, batches: tuple, *, bf16: bool,
+                stages: str, schedule: str, m: int, epochs: int,
+                base: dict, device, whole: dict | None = None) -> dict:
+    """One in-process ``MpmdTrainer`` fit held to ``base`` (train_job's
+    trajectory, :func:`_q_seq_key`): its steps and val losses, each
+    stage's launches exactly :func:`mpmd_launches`, its step ms,
+    samples/s and the last step's bubble report; ``whole``'s (the
+    whole-batch run's) differences printed beside them."""
+    from dct_tpu_torch.train.mpmd_trainer import MpmdTrainer
+
+    p = len(stages.split(","))
+    name = f"{_q_dtype(bf16)}-{stages.replace(',', '')}-{schedule}-m{m}"
+    cfg = _q_cfg(root, name, processed, bf16=bf16, stages=stages,
+                 schedule=schedule, m=m, epochs=epochs)
+    shutil.rmtree(cfg.data.models_dir, ignore_errors=True)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = MpmdTrainer(cfg, device=device).fit()
+    wall = time.perf_counter() - t0
+    want = mpmd_launches(batches, epochs, stages=p, microbatches=m)
+    if DEVICE == "cuda" and any(s != want for s in res.stage_launches):
+        raise AssertionError(f"(q) {name}: stage launches "
+                             f"{res.stage_launches}, want {want} a stage")
+    out = {"stages": stages, "schedule": schedule, "microbatches": m,
+           "dtype": _q_dtype(bf16), "epochs": epochs,
+           **_q_check(name, {"step_losses": res.step_losses,
+                             "val_losses": res.val_losses}, base,
+                      MPMD_TOL["1" if bf16 else "0"]),
+           "val_losses": res.val_losses,
+           **({"whole_batch_step_loss_max_diff": max(
+               abs(a - b) for a, b in zip(res.step_losses,
+                                          whole["step_losses"])),
+               "whole_batch_val_loss_max_diff": max(
+                   abs(a - b) for a, b in zip(res.val_losses,
+                                              whole["val_losses"]))}
+              if whole else {}),
+           "step_ms": 1e3 * statistics.median(res.step_seconds),
+           "samples_per_s": MESH_BATCH / statistics.median(res.step_seconds),
+           "stage_launches": res.stage_launches, "wall_s": wall,
+           "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                    if DEVICE == "cuda" else None),
+           "bubble": res.bubble}
+    print(f"[smoke] (q) {name}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def _free_port_block(n: int) -> int:
+    """A base port whose next ``n`` ports were free a moment ago."""
+    import socket
+
+    for _ in range(50):
+        base = _free_port()
+        if base + n >= 65535:
+            continue
+        socks = []
+        try:
+            for i in range(1, n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", base + i))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError("no free port block")
+
+
+def _q_world(root: str, name: str, processed: str, *, bf16: bool,
+             on_start=None, **extra) -> dict:
+    """``resilience.supervise --world-size 2 -- mpmd_worker`` at ``1,1``
+    on one card (``DCT_DEVICE``), run to its end; ``on_start(proc,
+    env)`` on a thread once it is up."""
+    env = {k: str(v) for k, v in _q_env(
+        root, name, processed, bf16=bf16,
+        DCT_MPMD_PORT_BASE=_free_port_block(3),
+        DCT_MPMD_TRANSFER_TIMEOUT_S=300,
+        DCT_DEVICE="cuda:0" if DEVICE == "cuda" else "cpu",
+        **extra).items()}
+    log = open(os.path.join(root, f"{name}.log"), "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dct_tpu_torch.resilience.supervise",
+         "--world-size", "2", "--backoff", "1", "--",
+         sys.executable, "-m", "dct_tpu_torch.train.mpmd_worker"],
+        env=env, cwd=HERE, stdout=subprocess.PIPE, stderr=log, text=True)
+    _Q_PROCS.append(proc)
+    watcher = None
+    if on_start is not None:
+        watcher = threading.Thread(target=on_start, args=(proc, env),
+                                   daemon=True)
+        watcher.start()
+    try:
+        out, _ = proc.communicate(timeout=MPMD_WORLD_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        log.close()
+        if watcher is not None:
+            watcher.join(timeout=10)
+    events = _events_of(env)
+    reports = _named(events, "mpmd.step_report")
+    launches = {k: [json.loads(x.split(" launches ", 1)[1])
+                    for x in out.splitlines()
+                    if x.startswith(f"[mpmd_worker s{k}] launches ")]
+                for k in (0, 1)}
+    memory = {k: [json.loads(x.split(" memory ", 1)[1])
+                  ["max_memory_allocated"] for x in out.splitlines()
+                  if x.startswith(f"[mpmd_worker s{k}] memory ")]
+              for k in (0, 1)}
+    return {"name": name, "exit": proc.returncode, "env": env,
+            "events": events, "wall_s": time.perf_counter() - t0,
+            "val_losses": [r["val_loss"] for r in reports],
+            "train_losses": [r["train_loss"] for r in reports],
+            "epochs_reported": [r["epoch"] for r in reports],
+            "launches": launches, "memory": memory,
+            "models": env["DCT_MODELS_DIR"], "log": log.name}
+
+
+def _sigterm_stages_in(epoch: int, signalled: dict):
+    """An ``on_start`` that SIGTERMs both stage processes (their
+    heartbeat files' pids) once both beat in ``epoch``."""
+    import signal
+
+    from dct_tpu_torch.observability.heartbeat import (
+        heartbeat_path,
+        read_heartbeat,
+    )
+
+    def watch(proc, env):
+        while proc.poll() is None:
+            beats = [read_heartbeat(heartbeat_path(env["DCT_HEARTBEAT_DIR"],
+                                                   k)) for k in (0, 1)]
+            if all(b and b.get("epoch") == epoch and b.get("phase") == "train"
+                   for b in beats):
+                signalled["at"] = time.time()
+                for b in beats:
+                    os.kill(int(b["pid"]), signal.SIGTERM)
+                return
+            time.sleep(0.05)
+
+    return watch
+
+
+def _stage_file_leaves(models: str, k: int) -> list[np.ndarray]:
+    path = os.path.join(models, "train_state_mpmd", f"stage{k}", "p0",
+                        "state", "state.npz")
+    with np.load(path) as npz:
+        return [npz[str(i)] for i in range(len(npz.files))]
+
+
+def _q_pivots(root: str, processed: str, worker: dict, seq: dict,
+              device) -> dict:
+    """Both pivots, bitwise on every leaf: the worker's stage files merged
+    by ``train_job``'s resume (its ``mpmd.pivot`` digest against this
+    process's merge of the same files, and this process's adoption
+    against the files, leaf by leaf), and ``train_job``'s train_state
+    split by the worker world's resume (each stage's ``mpmd.pivot``
+    digest against this process's split)."""
+    from dct_tpu_torch.checkpoint.manager import (
+        TrainStateCheckpointer,
+        state_leaves,
+    )
+    from dct_tpu_torch.data.dataset import load_processed_dataset
+    from dct_tpu_torch.parallel import mpmd
+    from dct_tpu_torch.train import mpmd_trainer as mt
+
+    cfg = _q_cfg(root, "pivot", processed, bf16=False, stages=MPMD_STAGES,
+                 schedule="1f1b", m=4, epochs=1)
+    dim = load_processed_dataset(processed).input_dim
+
+    def template():
+        return mt.build_full_state(cfg, dim, device=device)
+
+    # MPMD -> SPMD, in this process: every merged leaf is its stage's.
+    adopt_dir = os.path.join(root, "models-pivot-adopt")
+    shutil.rmtree(adopt_dir, ignore_errors=True)
+    shutil.copytree(worker["models"], adopt_dir)
+    shutil.rmtree(os.path.join(adopt_dir, "train_state"), ignore_errors=True)
+    mt.adopt_mpmd_checkpoint(adopt_dir, template())
+    adopted = TrainStateCheckpointer(os.path.join(
+        adopt_dir, "train_state", "p0")).restore(template())
+    leaves = 0
+    for k in range(2):
+        got = state_leaves(mpmd.split_state(adopted, k, 2))
+        want = _stage_file_leaves(worker["models"], k)
+        if len(got) != len(want) or not all(
+                np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"(q) adopt: stage {k}'s leaves differ")
+        leaves += len(got)
+    merged = mpmd.merge_stage_states(
+        [mt.stage_checkpointer(worker["models"], k).restore(
+            mpmd.split_state(template(), k, 2)) for k in range(2)],
+        template())
+    want_merged = mt.state_digest(merged)
+    want_split = [mt.state_digest(mpmd.split_state(
+        TrainStateCheckpointer(os.path.join(
+            seq["models"], "train_state", "p0")).restore(template()), k, 2))
+        for k in range(2)]
+    del adopted, merged
+
+    # Through the entry points: train_job adopts the worker's files, the
+    # worker world splits train_job's train_state, side by side.
+    job_dir = os.path.join(root, "models-pivot-job")
+    split_name = "pivot-split"
+    split_dir = os.path.join(root, f"models-{split_name}")
+    for d, src in ((job_dir, worker["models"]), (split_dir, seq["models"])):
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(src, d)
+    shutil.rmtree(os.path.join(job_dir, "train_state"), ignore_errors=True)
+    job = _q_sequential(root, "pivot-job", processed, bf16=False, epochs=1,
+                        DCT_RESUME=1, DCT_MODELS_DIR=job_dir)
+    split = {}
+    splitter = threading.Thread(target=lambda: split.update(_q_world(
+        root, split_name, processed, bf16=False, epochs=1, DCT_RESUME=1)))
+    splitter.start()
+    job_run = _finish_world(job, MPMD_WORLD_S)
+    splitter.join()
+    job_pivots = _named(_events_of(job["env"]), "mpmd.pivot")
+    split_pivots = sorted(_named(split["events"], "mpmd.pivot"),
+                          key=lambda e: e["stage"])
+    job_meta = TrainStateCheckpointer(os.path.join(
+        job_dir, "train_state", "p0")).load_meta()
+    out = {"adopt_leaves_bitwise": leaves,
+           "train_job_adopt": {
+               "digest_equal": [e.get("digest") for e in job_pivots]
+               == [want_merged],
+               "epochs_completed": job_meta.get("epochs_completed"),
+               "val_loss": job_run["ranks"][0]["val_loss"]},
+           "worker_split": {
+               "exit": split["exit"],
+               "digests_equal": [e.get("digest") for e in split_pivots]
+               == want_split,
+               "epochs_reported": split["epochs_reported"]}}
+    if not (out["train_job_adopt"]["digest_equal"]
+            and [e["direction"] for e in job_pivots] == ["mpmd_to_spmd"]
+            and job_meta.get("epochs_completed") == MPMD_EPOCHS[False] + 1
+            and split["exit"] == 0 and out["worker_split"]["digests_equal"]
+            and [e["direction"] for e in split_pivots]
+            == ["spmd_to_mpmd"] * 2
+            and split["epochs_reported"] == [MPMD_EPOCHS[False]]):
+        raise AssertionError(f"(q) pivots: {out}")
+    print(f"[smoke] (q) pivots {json.dumps(out)}", flush=True)
+    return {"pivots": out, "launches": [job_run["ranks"][0]["launches"],
+                                        *split["launches"][0],
+                                        *split["launches"][1]]}
+
+
+def _q_worker_check(run: dict, inproc: dict, seq: dict, *, bf16: bool,
+                    drill: bool, batches: tuple, signalled: dict) -> dict:
+    """The supervised worker world against the in-process run and
+    train_job: exit 0, the manifest and both stage files, one step report
+    an epoch, each stage's launches a whole attempt's; with ``drill`` the
+    SIGTERM in epoch index 1: both stages exit 75 and report
+    ``preempted``, one free relaunch resumes every stage, no epoch runs
+    twice."""
+    from dct_tpu_torch.train import mpmd_trainer as mt
+
+    tag = f"worker {_q_dtype(bf16)}"
+    ev = run["events"]
+    manifest = mt.read_manifest(run["models"])
+    files = [os.path.exists(os.path.join(
+        run["models"], "train_state_mpmd", f"stage{k}", "p0", "state",
+        "state.npz")) for k in (0, 1)]
+    per_epoch = mpmd_launches(batches, 1, stages=2, microbatches=4)
+    one = {k: per_epoch["train"][k] + per_epoch["eval"][k]
+           for k in per_epoch["train"]}
+    epochs = MPMD_EPOCHS[bf16]
+    epochs_by_attempt = [2, epochs - 2] if drill else [epochs]
+    want_launches = [{k: n * v for k, v in one.items()}
+                     for n in epochs_by_attempt]
+    exits = [e["returncode"] for e in _named(ev, "rank_exit")]
+    done = _named(ev, "mpmd.stage_done")
+    relaunch = _named(ev, "restart.relaunch")
+    ok = (run["exit"] == 0 and all(files)
+          and manifest.get("epochs_completed") == epochs
+          and run["epochs_reported"] == list(range(epochs))
+          and (DEVICE != "cuda" or all(run["launches"][k] == want_launches
+                                       for k in (0, 1))))
+    if drill:
+        ok = ok and ("at" in signalled
+                     and sorted(exits) == [0, 0, 75, 75]
+                     and sorted((e["stage"], e["preempted"])
+                                for e in done)
+                     == [(0, False), (0, True), (1, False), (1, True)]
+                     and [e["classification"] for e in relaunch]
+                     == ["preempted"])
+    out = {"exit": run["exit"], "wall_s": run["wall_s"],
+           "rank_exits": exits,
+           "stage_done": [(e["stage"], e["preempted"]) for e in done],
+           "relaunches": [e["classification"] for e in relaunch],
+           "manifest_epochs": manifest.get("epochs_completed"),
+           "val_losses": run["val_losses"],
+           "val_loss_diff_inprocess": abs(run["val_losses"][-1]
+                                          - inproc["val_losses"][-1])
+           if run["val_losses"] else None,
+           "val_loss_diff_train_job": abs(run["val_losses"][-1]
+                                          - seq["val_losses"][-1])
+           if run["val_losses"] else None,
+           "launches": run["launches"],
+           "max_memory_allocated": run["memory"]}
+    if drill and "at" in signalled:
+        saved = [e for e in _named(ev, "resume_state_saved")
+                 if e["ts"] >= signalled["at"]]
+        out["saved_after_signal_s"] = (saved[0]["ts"] - signalled["at"]
+                                       if saved else None)
+    key = "1" if bf16 else "0"
+    if not (ok and out["val_loss_diff_inprocess"] is not None
+            and out["val_loss_diff_inprocess"] <= MPMD_WORKER_TOL[key]
+            and out["val_loss_diff_train_job"] <= MPMD_TOL[key]):
+        raise AssertionError(f"(q) {tag}: {out}; log {run['log']}")
+    print(f"[smoke] (q) {tag}{' SIGTERM drill' if drill else ''}: "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def check_q_rank_shapes(fa) -> list[dict]:
+    """The three kernels against their plain versions at (q)'s stage
+    microbatch shapes ``[B/M, H, T, D]``: ``[8, 8]`` (M=2) and ``[4, 8]``
+    (M=4); f32 and bf16, not causal, FWD_TOL and BWD_TOL."""
+    h, t = MESH_CFG["n_heads"], MESH_CFG["seq_len"]
+    d = MESH_CFG["d_model"] // h
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    return [_rank_shape_row(fa, gen, (b, h, t, d), dtype, g_lse=False,
+                            where="(q0)")
+            for b in (MESH_BATCH // 2, MESH_BATCH // 4)
+            for dtype in (torch.float32, torch.bfloat16)]
+
+
+def q_one_card(fa, root: str, counted=None) -> dict:
+    """(q0) on any count of cards (module docstring); ``counted`` is held
+    around the parts that launch in this process. ``root`` is emptied
+    first."""
+    try:
+        return _q_one_card(fa, root, counted)
+    except BaseException:
+        _q_stop_children()
+        raise
+
+
+def _q_one_card(fa, root: str, counted) -> dict:
+    lock = counted or contextlib.nullcontext()
+    device = "cuda:0" if DEVICE == "cuda" else "cpu"
+    with lock:
+        rank_shapes = check_q_rank_shapes(fa) if DEVICE == "cuda" else []
+    shutil.rmtree(root, ignore_errors=True)
+    processed = _pp_rows(root)
+    batches = _mesh_batches(processed)
+    # The children first: train_job f32 and bf16 (the sequential runs:
+    # :func:`_q_seq_key`) and the supervised worker worlds, f32 with the
+    # SIGTERM drill.
+    seq_keys = sorted({(bf16, _q_seq_key(bf16, m)) for bf16 in (False, True)
+                       for _, m, _ in MPMD_RUNS} | {(True, None)}, key=str)
+    seq_started = {
+        (bf16, key): _q_sequential(
+            root, f"seq-{_q_dtype(bf16)}" + (f"-accum{key}" if key else ""),
+            processed, bf16=bf16, epochs=MPMD_EPOCHS[bf16],
+            **_q_seq_env(bf16, key))
+        for bf16, key in seq_keys}
+    signalled: dict = {}
+    workers: dict = {}
+
+    def run_workers():
+        drill = threading.Thread(target=lambda: workers.update({False: _q_world(
+            root, "worker-f32", processed, bf16=False,
+            epochs=MPMD_EPOCHS[False],
+            on_start=_sigterm_stages_in(1, signalled))}))
+        drill.start()
+        workers[True] = _q_world(root, "worker-bf16", processed, bf16=True,
+                                 epochs=MPMD_EPOCHS[True])
+        drill.join()
+
+    worker_thread = threading.Thread(target=run_workers, daemon=True)
+    worker_thread.start()
+    seq = {k: _finish_world(w, MPMD_WORLD_S)
+           for k, w in seq_started.items()}
+    base = {k: _q_trajectory(dict(run, env=seq_started[k]["env"]))
+            for k, run in seq.items()}
+    for (bf16, key), b in base.items():
+        if len(b["step_losses"]) != MPMD_EPOCHS[bf16] * batches[0] or len(
+                b["val_losses"]) != MPMD_EPOCHS[bf16]:
+            raise AssertionError(f"(q0) train_job {_q_dtype(bf16)} {key}: "
+                                 f"{len(b['step_losses'])} step losses, "
+                                 f"{b['val_losses']}")
+        print(f"[smoke] (q0) train_job {_q_dtype(bf16)} accumulating "
+              f"{key or 1}: {json.dumps(b['fit'])}", flush=True)
+    inproc = {}
+    with lock:
+        for bf16 in (False, True):
+            for schedule, m, long in MPMD_RUNS:
+                inproc[(bf16, schedule, m)] = q_inprocess(
+                    root, processed, batches, bf16=bf16, stages=MPMD_STAGES,
+                    schedule=schedule, m=m,
+                    epochs=MPMD_EPOCHS[bf16] if long else 1,
+                    base=base[(bf16, _q_seq_key(bf16, m))], device=device,
+                    whole=base[(bf16, None)] if bf16 else None)
+    from dct_tpu_torch.parallel.mpmd import analytic_bubble, measured_bubble
+
+    bubbles = {}
+    for bf16 in (False, True):
+        t2 = inproc[(bf16, "1f1b", 2)]["step_ms"]
+        t4 = inproc[(bf16, "1f1b", 4)]["step_ms"]
+        bubbles[_q_dtype(bf16)] = {
+            "step_ms_m2": t2, "step_ms_m4": t4,
+            "analytic_m2": analytic_bubble(2, 2),
+            "analytic_m4": analytic_bubble(2, 4),
+            "measured_m2": measured_bubble(t2, t4, 2, 4),
+            "stages_m4": inproc[(bf16, "1f1b", 4)]["bubble"]["stages"]}
+    print(f"[smoke] (q0) bubbles (global batch {MESH_BATCH}, so the "
+          f"microbatch halves from M=2 to M=4): {json.dumps(bubbles)}",
+          flush=True)
+    worker_thread.join()
+    checked = {_q_dtype(bf16): _q_worker_check(
+        workers[bf16], inproc[(bf16, "1f1b", 4)],
+        base[(bf16, _q_seq_key(bf16, 4))], bf16=bf16, drill=not bf16,
+        batches=batches, signalled=signalled)
+        for bf16 in (False, True)}
+    # The pivots launch no kernel here (copies and digests).
+    pivots = _q_pivots(root, processed, workers[False],
+                       seq[(False, None)], device)
+    launches = {k: 0 for k in ("flash_fwd", "flash_bwd_dkdv",
+                               "flash_bwd_dq")}
+    for counts in ([r["launches"] for run in seq.values()
+                    for r in run["ranks"]]
+                   + [c for w in workers.values()
+                      for k in (0, 1) for c in w["launches"][k]]
+                   + pivots["launches"]
+                   + [s[part] for r in inproc.values()
+                      for s in r["stage_launches"]
+                      for part in ("train", "eval")]):
+        for k in launches:
+            launches[k] += counts[k]
+    out = {"rank_shapes": rank_shapes,
+           "train_job": {f"{_q_dtype(b)} accumulating {k or 1}":
+                         base[(b, k)]["fit"] for b, k in base},
+           "inprocess": {f"{_q_dtype(b)} {s} M={m}": r
+                         for (b, s, m), r in inproc.items()},
+           "bubbles": bubbles, "workers": checked,
+           "pivots": pivots["pivots"], "launches": launches,
+           "batches": batches, "processed": processed}
+    print(f"[smoke] (q0) launches {launches}", flush=True)
+    return out
+
+
+def q1_runs(root: str, processed: str, batches: tuple, out: dict) -> dict:
+    """(q1) on four cards: ``1,1,1,1`` (one layer a stage) with 1f1b and
+    gpipe and ``1,1`` on two cards, f32 and bf16, one epoch each, against
+    one card's train_job from the same init (``n_stages`` 4 or 2;
+    :func:`_q_seq_key` at M 4); each stage on its own card. Returns the
+    launches."""
+    starts = {}
+    for stages in ("1,1,1,1", "1,1"):
+        for bf16 in (False, True):
+            name = f"q1-seq-{stages.replace(',', '')}-{_q_dtype(bf16)}"
+            starts[(stages, bf16)] = _q_sequential(
+                root, name, processed, bf16=bf16, stages=stages, epochs=1,
+                **_q_seq_env(bf16, _q_seq_key(bf16, 4)))
+    base = {key: _q_trajectory(dict(_finish_world(w, MPMD_WORLD_S),
+                                    env=w["env"]))
+            for key, w in starts.items()}
+    launches = {k: 0 for k in ("flash_fwd", "flash_bwd_dkdv",
+                               "flash_bwd_dq")}
+    for b in base.values():
+        for k in launches:
+            launches[k] += b["launches"][k]
+    for stages, schedule in MPMD_Q1:
+        for bf16 in (False, True):
+            r = q_inprocess(root, processed, batches, bf16=bf16,
+                            stages=stages, schedule=schedule, m=4, epochs=1,
+                            base=base[(stages, bf16)], device=None)
+            r["train_job"] = base[(stages, bf16)]["fit"]
+            out["q1"][f"{_q_dtype(bf16)} {stages} {schedule}"] = r
+            for s in r["stage_launches"]:
+                for part in ("train", "eval"):
+                    for k in launches:
+                        launches[k] += s[part][k]
+    return launches
+
+
+def mpmd_phase(fa, root: str, card: str, q0: dict | None = None) -> dict:
+    """(q) (module docstring): (q0) on any count of cards (unless given),
+    (q1) on four; one line saying it did not run on fewer."""
+    t_phase = time.perf_counter()
+    if q0 is None:
+        q0 = q_one_card(fa, os.path.join(root, "q0"))
+    cards = torch.cuda.device_count()
+    out = {"q0": {k: q0[k] for k in ("rank_shapes", "train_job",
+                                      "inprocess", "bubbles", "workers",
+                                      "pivots")},
+           "launches": dict(q0["launches"])}
+    if cards < 4:
+        print(json.dumps({"phase": "q", "ran": False, "cards": cards}),
+              flush=True)
+        return out
+    out.update(ran=True, cards=cards, card=card, q1={})
+    try:
+        q1 = q1_runs(root, q0["processed"], q0["batches"], out)
+    except BaseException:
+        _q_stop_children()
+        raise
+    for k in out["launches"]:
+        out["launches"][k] += q1[k]
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[smoke] (q) MPMD on {cards} cards, launches {out['launches']}, "
+          f"phase {out['phase_s']:.1f} s on {card}", flush=True)
+    print(f"[smoke] (q) summary {json.dumps(out)}", flush=True)
+    with open(os.path.join(root, "phase_q.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase",
-                    choices=("all", "k", "l", "m", "n", "n3", "o", "p"),
+                    choices=("all", "k", "l", "m", "n", "n3", "o", "p",
+                             "q"),
                     default="all",
                     help="k: build the kernels and run only (k), over a "
                          "random full-width checkpoint and synthetic rows; "
@@ -5398,7 +6127,8 @@ def main(argv=None) -> int:
                          "ZeRO-1/FSDP on the seq axis; o: only (o), the "
                          "engines on a mesh, the re-map and per-layer FSDP "
                          "(its worlds on four cards); p: only (p), the pipe "
-                         "axis (its worlds on four cards)")
+                         "axis (its worlds on four cards); q: only (q), "
+                         "the MPMD pipeline ((q1) on four cards)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     walls: dict = {}
@@ -5447,7 +6177,8 @@ def main(argv=None) -> int:
 
     engines_root = os.path.join(HERE, "build", "chip_smoke_engines")
     pipe_root = os.path.join(HERE, "build", "chip_smoke_pipe")
-    if args.phase in ("m", "n", "n3", "o", "p"):
+    mpmd_root = os.path.join(HERE, "build", "chip_smoke_mpmd")
+    if args.phase in ("m", "n", "n3", "o", "p", "q"):
         if args.phase == "m":
             model_axis_phase(os.path.join(HERE, "build", "chip_smoke_mesh"),
                              card)
@@ -5455,6 +6186,8 @@ def main(argv=None) -> int:
             walled("engines", mesh_engines_phase, fa, engines_root, card)
         elif args.phase == "p":
             walled("pipe", pipeline_phase, fa, pipe_root, card)
+        elif args.phase == "q":
+            walled("mpmd", mpmd_phase, fa, mpmd_root, card)
         else:
             sequence_phase(os.path.join(HERE, "build", "chip_smoke_seq"),
                            card, n3_only=args.phase == "n3")
@@ -5551,8 +6284,10 @@ def main(argv=None) -> int:
         walled("etl", etl_phase, os.path.join(loop_root, "etl"), card)
         walled("loop_job", loop_job_phase,
                os.path.join(loop_root, "loop_job"), card)
-        return walled("o0", o_one_card, fa,
-                      os.path.join(engines_root, "o0"), counted)
+        o0 = walled("o0", o_one_card, fa,
+                    os.path.join(engines_root, "o0"), counted)
+        return o0, walled("q0", q_one_card, fa,
+                          os.path.join(mpmd_root, "q0"), counted)
 
     def families_then_pipe():
         rows = synthetic_rows(os.path.join(fam_root, "rows"))
@@ -5579,7 +6314,7 @@ def main(argv=None) -> int:
         families_out, p0 = chain_l.result()
         l_counts = families_out["launches"]
         supervised, quota = chain_i.result()
-        o0 = chain_f.result()
+        o0, q0 = chain_f.result()
     torch.cuda.empty_cache()  # the drills below read the card alone
     hang = walled("hang_drill", hang_drill, sup_root, card,
                   supervised["clean_env"], supervised["per_epoch"])
@@ -5601,6 +6336,8 @@ def main(argv=None) -> int:
     o_remap = engines["remap_launches"]
     p_counts = walled("pipe", pipeline_phase, fa, pipe_root, card,
                       p0)["launches"]
+    q_counts = walled("mpmd", mpmd_phase, fa, mpmd_root, card,
+                      q0)["launches"]
 
     def bf16_summary(rows):
         row = [r for r in rows
@@ -5629,7 +6366,7 @@ def main(argv=None) -> int:
                      + l_counts["flash_fwd"] + m_counts["flash_fwd"]
                      + n_counts["flash_fwd"] + o_predict["flash_fwd"]
                      + o_fsdp["flash_fwd"] + o_remap["flash_fwd"]
-                     + p_counts["flash_fwd"]),
+                     + p_counts["flash_fwd"] + q_counts["flash_fwd"]),
         "launches_by_path": {"serve": launches,
                              "train": train_counts["flash_fwd"],
                              "fit": fit_counts["flash_fwd"],
@@ -5646,7 +6383,8 @@ def main(argv=None) -> int:
                              "predict_mesh": o_predict["flash_fwd"],
                              "fsdp_layers": o_fsdp["flash_fwd"],
                              "remap": o_remap["flash_fwd"],
-                             "pipeline": p_counts["flash_fwd"]},
+                             "pipeline": p_counts["flash_fwd"],
+                             "mpmd": q_counts["flash_fwd"]},
         "gate_launches_per_consult": loop_counts["gate"]["flash_fwd"],
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -5671,7 +6409,7 @@ def main(argv=None) -> int:
                          + sched_counts[name] + k_counts["knobs"][name]
                          + l_counts[name] + m_counts[name]
                          + n_counts[name] + o_fsdp[name] + o_remap[name]
-                         + p_counts[name]),
+                         + p_counts[name] + q_counts[name]),
             "launches_by_path": {"train": train_counts[name],
                                  "fit": fit_counts[name],
                                  "loop_train": loop_counts["train"][name],
@@ -5686,7 +6424,8 @@ def main(argv=None) -> int:
                                  "predict_mesh": o_predict[name],
                                  "fsdp_layers": o_fsdp[name],
                                  "remap": o_remap[name],
-                                 "pipeline": p_counts[name]},
+                                 "pipeline": p_counts[name],
+                                 "mpmd": q_counts[name]},
             "launches_per_step": train_counts[name] / train_steps,
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],

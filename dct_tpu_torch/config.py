@@ -14,8 +14,9 @@ plane's ``metrics_dir`` and ``metrics_publish_s``, ``:468-471``),
 ``ResilienceConfig`` (the supervisor, preemption and fault-plan knobs of
 ``:606-660``), ``EvaluationConfig`` (``:672-766``), ``ServingConfig``
 (``:768-915``, every field), ``LoopConfig`` (``:918-976``),
-``StreamConfig`` (its ``mode``, ``:979``), ``SchedulerConfig`` (``:1040-1083``) and the
-``RunConfig`` bundle the trainer, the loop and the scheduler take.
+``StreamConfig`` (its ``mode``, ``:979``), ``SchedulerConfig`` (``:1040-1083``),
+``MpmdConfig`` (``:1086-1130``) and the ``RunConfig`` bundle the trainer,
+the loop and the scheduler take.
 ``EvaluationConfig`` stays out of the bundle: the gate reads it from
 the environment where it is used, as the reference's does.
 """
@@ -740,6 +741,50 @@ class SchedulerConfig:
 
 
 @dataclass
+class MpmdConfig:
+    """The MPMD pipeline trainer's knobs (``dct_tpu/config.py:1086-1130``;
+    :mod:`dct_tpu_torch.parallel.mpmd`): ``DCT_MPMD_STAGES`` (the stage
+    map: a stage count, or per-stage device counts such as ``"1,1"``),
+    ``DCT_MPMD_MICROBATCHES`` (0 = 2x the stage count),
+    ``DCT_MPMD_SCHEDULE`` (``1f1b`` | ``gpipe``),
+    ``DCT_MPMD_TRANSFER_TIMEOUT_S`` (the inter-stage wait before a loud
+    failure) and ``DCT_MPMD_PORT_BASE`` (the multi-process transfer
+    plane: stage k listens on base + k). ``DCT_MPMD_STAGE_ID`` (a
+    worker's stage, else ``NODE_RANK``) is read by the worker."""
+
+    stages: str = "2"
+    microbatches: int = 0
+    schedule: str = "1f1b"
+    transfer_timeout_s: float = 120.0
+    port_base: int = 29600
+
+    @classmethod
+    def from_env(cls) -> "MpmdConfig":
+        c = cls()
+        c.stages = _env("DCT_MPMD_STAGES", c.stages, str)
+        c.microbatches = _env("DCT_MPMD_MICROBATCHES", c.microbatches, int)
+        c.schedule = _env(
+            "DCT_MPMD_SCHEDULE", c.schedule, str
+        ).strip().lower()
+        c.transfer_timeout_s = _env(
+            "DCT_MPMD_TRANSFER_TIMEOUT_S", c.transfer_timeout_s, float
+        )
+        c.port_base = _env("DCT_MPMD_PORT_BASE", c.port_base, int)
+        return c
+
+    def to_spec(self, *, n_devices: int | None = None):
+        """Parse and validate into an :class:`dct_tpu_torch.parallel.mpmd.
+        MpmdSpec`; every malformed clause raises ``MpmdSpecError`` naming
+        the knob."""
+        from dct_tpu_torch.parallel.mpmd import spec_from_env_values
+
+        return spec_from_env_values(
+            self.stages, self.microbatches, self.schedule,
+            self.transfer_timeout_s, self.port_base, n_devices=n_devices,
+        )
+
+
+@dataclass
 class RunConfig:
     """The bundle passed to the trainer, the loop and the scheduler."""
 
@@ -754,6 +799,7 @@ class RunConfig:
     loop: LoopConfig = field(default_factory=LoopConfig)
     stream: StreamConfig = field(default_factory=StreamConfig)
     sched: SchedulerConfig = field(default_factory=SchedulerConfig)
+    mpmd: MpmdConfig = field(default_factory=MpmdConfig)
 
     @classmethod
     def from_env(cls) -> "RunConfig":
@@ -766,7 +812,8 @@ class RunConfig:
                    resilience=ResilienceConfig.from_env(),
                    loop=LoopConfig.from_env(),
                    stream=StreamConfig.from_env(),
-                   sched=SchedulerConfig.from_env())
+                   sched=SchedulerConfig.from_env(),
+                   mpmd=MpmdConfig.from_env())
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)

@@ -426,13 +426,18 @@ class StageStack(nn.Module):
             raise ValueError(
                 f"stacked params have {self.n_stages} stages but mesh axis "
                 f"'pipe' has {shard.size} devices")
-        j = shard.index
+        self.keep_stage(shard.index)
+        self.pipe = shard
+
+    def keep_stage(self, j: int) -> None:
+        """Hold stage ``j``'s values alone (a copy, ``[1, ...]``): a pipe
+        rank's stage, or an MPMD stage's own parameters, which
+        :meth:`run` applies as stage 0."""
         for i in range(self.layers):
             for mod, attr in self._slots(i):
                 p = mod._parameters[attr]
                 mod._parameters[attr] = nn.Parameter(
                     p.data[j:j + 1].clone())
-        self.pipe = shard
 
     def _block(self, i: int, h, rope, *params):
         slots = self._slots(i)

@@ -42,6 +42,7 @@ their loops mask any ragged edge.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import os
@@ -82,6 +83,37 @@ def launch_counts() -> dict[str, int]:
     with _count_lock:
         return {"flash_fwd": launches, "flash_bwd_dkdv": dkdv_launches,
                 "flash_bwd_dq": dq_launches}
+
+
+#: The tally of the block this thread runs under (counted_launches).
+_tally = threading.local()
+
+
+@contextlib.contextmanager
+def counted_launches(counts: dict | None = None):
+    """Count the launches of this block into ``counts`` (a fresh dict by
+    kernel name when None), beside the process-wide counts: the
+    per-stage counts of an MPMD step, whose stages run side by side in
+    threads of one process. A :class:`FlashAttention` backward counts
+    into the tally its forward ran under, on whatever thread autograd
+    runs it."""
+    if counts is None:
+        counts = dict.fromkeys(("flash_fwd", "flash_bwd_dkdv",
+                                "flash_bwd_dq"), 0)
+    prev = getattr(_tally, "counts", None)
+    _tally.counts = counts
+    try:
+        yield counts
+    finally:
+        _tally.counts = prev
+
+
+def _tally_launch(name: str) -> None:
+    """Add one to the tally of this thread's block, if any (the caller
+    holds ``_count_lock``)."""
+    counts = getattr(_tally, "counts", None)
+    if counts is not None:
+        counts[name] += 1
 
 
 def _validate(q, k, v, *, causal, window, block_q, block_k, q_offset):
@@ -286,6 +318,7 @@ def _flash_cuda(q, k, v, *, causal, scale, window, return_lse, q_offset=0):
             window=window, q_offset=q_offset)
     with _count_lock:
         launches += 1
+        _tally_launch("flash_fwd")
     return o, lse
 
 
@@ -340,6 +373,7 @@ def flash_bwd_dkdv(q, k, v, o, lse, do, *, causal: bool = False,
             scale=scale, window=window, q_offset=q_offset)
     with _count_lock:
         dkdv_launches += 1
+        _tally_launch("flash_bwd_dkdv")
     if dk.shape[-1] != d:
         dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
@@ -363,6 +397,7 @@ def flash_bwd_dq(q, k, v, o, lse, do, *, causal: bool = False,
             scale=scale, window=window, q_offset=q_offset)
     with _count_lock:
         dq_launches += 1
+        _tally_launch("flash_bwd_dq")
     return dq[..., :d].contiguous() if dq.shape[-1] != d else dq
 
 
@@ -422,6 +457,7 @@ class FlashAttention(torch.autograd.Function):
                                            q_offset=q_offset)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.opts = (causal, scale, window, block_q, block_k, q_offset)
+        ctx.tally = getattr(_tally, "counts", None)
         ctx.set_materialize_grads(False)
         return o, lse
 
@@ -441,8 +477,10 @@ class FlashAttention(torch.autograd.Function):
         kw = dict(causal=causal, scale=scale, window=window,
                   q_offset=q_offset, g_lse=g_lse)
         if q.device.type == "cuda":
-            dk, dv = flash_bwd_dkdv(q, k, v, o, lse, do, **kw)
-            dq = flash_bwd_dq(q, k, v, o, lse, do, **kw)
+            with (counted_launches(ctx.tally) if ctx.tally is not None
+                  else contextlib.nullcontext()):
+                dk, dv = flash_bwd_dkdv(q, k, v, o, lse, do, **kw)
+                dq = flash_bwd_dq(q, k, v, o, lse, do, **kw)
         else:
             dq, dk, dv = flash_attention_bwd_plain(
                 q, k, v, o, lse, do, block_q=block_q, block_k=block_k, **kw)

@@ -505,6 +505,19 @@ class Trainer:
         # continues for `epochs` more on the (possibly refreshed) data.
         start_epoch, target_epochs = 0, cfg.train.epochs
         opt_identity = optimizer_identity(cfg.train)
+        if cfg.train.resume and not state_ckptr.exists():
+            # The MPMD -> SPMD pivot: an MPMD run's per-stage files
+            # (train_state_mpmd/stage<k>/) merge, bitwise, into a plain
+            # train_state that the restore below reads. A manifest of
+            # another family is left alone (this run trains fresh).
+            from dct_tpu_torch.train import mpmd_trainer
+
+            manifest = mpmd_trainer.read_manifest(cfg.data.models_dir)
+            if manifest and manifest.get("family") == cfg.model.name:
+                mpmd_trainer.adopt_mpmd_checkpoint(
+                    cfg.data.models_dir, mpmd_trainer.build_full_state(
+                        cfg, data.input_dim, device=dev,
+                        compute_dtype=compute_dtype))
         if cfg.train.resume and state_ckptr.exists():
             saved = state_ckptr.load_meta()
             saved_opt = saved.get("optimizer")

@@ -43,6 +43,7 @@ from dct_tpu_torch.tracking.client import LocalTracking
 from dct_tpu_torch.train import state as port_state
 from dct_tpu_torch.train import steps
 from dct_tpu_torch.train.trainer import Trainer
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

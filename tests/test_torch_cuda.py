@@ -1114,3 +1114,65 @@ def test_moe_seq4_ring_at_t256_runs_the_kernels(card, monkeypatch):
         assert (o - moe_out[0][:, p]).abs().max().item() <= 1e-4
     dropped = sum(int((o == 0).all(dim=-1).sum()) for o in outs)
     assert dropped == int((moe_out[0] == 0).all(dim=-1).sum()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mpmd_runner_on_one_card_launches_the_kernels(card, dtype):
+    """``MpmdRunner`` at ``1,1`` on ``cuda:0`` (both stages on the card,
+    a thread each): every stage launches ``2 (L/P) M`` forwards and
+    ``(L/P) M`` dK/dV and dQ a train step and ``(L/P) M`` forwards an
+    eval batch, counted per stage, and the losses match the sequential
+    step."""
+    from dct_tpu_torch.config import ModelConfig, MpmdConfig, RunConfig
+    from dct_tpu_torch.parallel import mpmd
+    from dct_tpu_torch.train import mpmd_trainer as mt
+    from dct_tpu_torch.train import steps
+
+    cfg = RunConfig()
+    cfg.model = ModelConfig(name="weather_transformer_pp", seq_len=T,
+                            d_model=64, n_heads=4, n_layers=4, d_ff=128,
+                            n_stages=2, dropout=0.0)
+    cfg.train.bf16_compute = dtype == torch.bfloat16
+    cfg.train.optimizer, cfg.train.lr, cfg.train.momentum = "sgd", 0.01, 0.9
+    m = 4
+    cfg.mpmd = MpmdConfig(stages="1,1", microbatches=m)
+    spec = cfg.mpmd.to_spec()
+    devices = mpmd.carve_stage_meshes(spec.device_counts, device=card)
+    full = mt.build_full_state(cfg, 5, device=card)
+    seq = mt.build_full_state(cfg, 5, device=card)
+    fns = mt.build_stage_fns(cfg.model)
+    runner = mpmd.MpmdRunner(
+        spec, [mpmd.split_state(full, k, 2) for k in range(2)],
+        [mpmd.make_stage_programs(k, 2, fns) for k in range(2)], devices)
+    step = steps.make_train_step()
+    rng = np.random.default_rng(3)
+    per = cfg.model.n_layers // 2 * m
+    for _ in range(3):
+        x = rng.standard_normal((8, T, 5)).astype(np.float32)
+        y = rng.integers(0, 2, 8).astype(np.int32)
+        w = np.ones(8, np.float32)
+        loss, _ = runner.train_step(x, y, w)
+        seq, mets = step(seq, x, y, w)
+        tol = 1e-5 if dtype == torch.float32 else 5e-3
+        assert abs(loss - float(mets["train_loss"])) <= tol
+        for rep in runner.last_reports:
+            assert rep.launches == {"flash_fwd": 2 * per,
+                                    "flash_bwd_dkdv": per,
+                                    "flash_bwd_dq": per}
+    runner.eval_pass(x, y, w)
+    for rep in runner.last_eval_reports:
+        assert rep.launches == {"flash_fwd": per, "flash_bwd_dkdv": 0,
+                                "flash_bwd_dq": 0}
+
+
+def test_mpmd_stage_slice_of_two_cards_names_item_17c(card):
+    from dct_tpu_torch.parallel import mpmd
+    from dct_tpu_torch.train.mpmd_worker import stage_device
+
+    with pytest.raises(mpmd.MpmdSpecError, match="item 17c"):
+        mpmd.carve_stage_meshes((2, 1))
+    with pytest.raises(mpmd.MpmdSpecError, match="item 17c"):
+        mpmd.carve_stage_meshes((1, 1), model=2)
+    spec = mpmd.spec_from_env_values("2,2", 4, "1f1b", 60.0, 29600)
+    with pytest.raises(mpmd.MpmdSpecError, match="item 17c"):
+        stage_device(spec, 0)

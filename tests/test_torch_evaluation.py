@@ -30,6 +30,7 @@ from dct_tpu_torch.config import EvaluationConfig
 from dct_tpu_torch.device import DeviceError
 from dct_tpu_torch.evaluation import drift, gates, harness
 from dct_tpu_torch.tracking.client import LocalTracking
+from torch_threads import one_torch_thread  # noqa: F401
 
 FEATURES = [f"f{i}" for i in range(5)]
 SMALL_TF = dict(seq_len=256, d_model=32, n_heads=2, n_layers=2, d_ff=64)

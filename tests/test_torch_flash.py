@@ -23,6 +23,7 @@ from dct_tpu_torch.ops.attention import (
     make_attention_fn,
     select_attention_path,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, H, G, T, D = 1, 4, 2, 256, 16
 TOL = {"f32": 1e-5, "bf16": 2e-2}

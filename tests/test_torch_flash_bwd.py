@@ -18,6 +18,7 @@ import torch
 from dct_tpu.ops.pallas_attention import flash_attention as jax_flash
 from dct_tpu_torch.ops import flash_attention as fa
 from dct_tpu_torch.ops.attention import dense_attention
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, H, G, T, D = 1, 4, 2, 256, 16
 # Errors are relative to max(1, max|reference|) per output: f32 differs by

@@ -22,6 +22,7 @@ import torch
 
 from dct_tpu.ops.pallas_attention import flash_attention_lse as jax_flash_lse
 from dct_tpu_torch.ops import flash_attention as fa
+from torch_threads import one_torch_thread  # noqa: F401
 
 D = 16
 

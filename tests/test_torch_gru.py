@@ -38,6 +38,7 @@ from dct_tpu_torch.models.gru import WeatherGRU
 from dct_tpu_torch.models.registry import get_model
 from dct_tpu_torch.train import state as port_state
 from dct_tpu_torch.train import steps
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(name="weather_gru", seq_len=24, hidden_dim=16, n_layers=2)

@@ -49,6 +49,7 @@ from dct_tpu_torch.etl.preprocess import (
     read_etl_state,
 )
 from dct_tpu_torch.train.trainer import Trainer
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

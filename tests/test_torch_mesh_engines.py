@@ -55,6 +55,7 @@ from dct_tpu.parallel.sharding_rules import (
     rules_for_family,
 )
 from dct_tpu.serving.score_gen import _flatten_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = 256

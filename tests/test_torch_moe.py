@@ -39,6 +39,7 @@ from dct_tpu_torch.models.moe import MoEFFN
 from dct_tpu_torch.models.registry import get_model
 from dct_tpu_torch.train import state as port_state
 from dct_tpu_torch.train import steps
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 S = 256

@@ -29,6 +29,7 @@ from dct_tpu.config import MeshConfig as JaxMeshConfig
 from dct_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from dct_tpu.parallel.pipeline import gpipe_tick_apply, pipeline_apply
 from dct_tpu.parallel.pipeline import stack_stage_params as jax_stack
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 D, ROWS = 16, 16

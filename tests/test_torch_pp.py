@@ -42,6 +42,7 @@ from dct_tpu.ops.losses import masked_cross_entropy as jax_ce
 from dct_tpu.parallel import sharding_rules as ref
 from dct_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from dct_tpu.train.state import create_train_state as jax_state
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F_IN, BATCH = 5, 8

@@ -19,6 +19,7 @@ from dct_tpu_torch.data.synthetic import generate_weather_csv
 from dct_tpu_torch.etl.parquet import read_table
 from dct_tpu_torch.etl.preprocess import preprocess_csv_to_parquet
 from dct_tpu_torch.models.registry import config_from_meta, get_model
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 S = 256

@@ -44,6 +44,7 @@ from dct_tpu_torch.config import (
 )
 from dct_tpu_torch.data.synthetic import generate_weather_csv
 from dct_tpu_torch.observability.aggregate import aggregate_text
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -37,6 +37,7 @@ from dct_tpu_torch.serving.package import (
 from dct_tpu_torch.serving.quant import quantize_weights as port_quantize
 from dct_tpu_torch.serving.runtime import assemble_weights
 from dct_tpu_torch.serving.server import make_server
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 S = 256

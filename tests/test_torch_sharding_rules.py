@@ -31,6 +31,7 @@ from dct_tpu_torch.parallel import mesh as port_mesh
 from dct_tpu_torch.parallel import sharding_rules as port
 from dct_tpu_torch.parallel.mesh import ProcessMesh
 from dct_tpu_torch.train.state import create_train_state
+from torch_threads import one_torch_thread  # noqa: F401
 
 F_IN = 5
 FAMILIES = {

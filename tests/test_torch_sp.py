@@ -46,6 +46,7 @@ from dct_tpu.parallel.sharding_rules import shard_state_with_rules
 from dct_tpu.serving.score_gen import _flatten_params
 from dct_tpu.train.state import create_train_state as jax_create_state
 from dct_tpu.train.steps import make_train_step as jax_make_step
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)

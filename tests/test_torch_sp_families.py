@@ -48,6 +48,7 @@ from dct_tpu.parallel.mesh import batch_sharding
 from dct_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from dct_tpu.serving.score_gen import _flatten_params
 from dct_tpu.train.state import create_train_state as jax_create_state
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F_IN = 5

@@ -44,6 +44,7 @@ from dct_tpu.parallel.sharding_rules import (
 )
 from dct_tpu.serving.score_gen import _flatten_params
 from dct_tpu.train.steps import _position_weight
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F_IN = 5

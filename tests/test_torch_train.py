@@ -39,6 +39,7 @@ from dct_tpu_torch.ops import losses
 from dct_tpu_torch.parallel import sharding_rules
 from dct_tpu_torch.train import state as port_state
 from dct_tpu_torch.train import steps
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(seq_len=256, d_model=32, n_heads=2, n_layers=2, d_ff=64)
 FAMILIES = [  # (family, horizon, pos_embed, n_kv_heads, attn_window)

@@ -47,6 +47,7 @@ from dct_tpu_torch.models.registry import get_model
 from dct_tpu_torch.tracking.client import LocalTracking
 from dct_tpu_torch.train import steps
 from dct_tpu_torch.train import trainer
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL_TF = dict(seq_len=256, d_model=32, n_heads=2, n_layers=2, d_ff=64)

@@ -21,6 +21,7 @@ from dct_tpu_torch.convert import flax_shapes, load_flax_weights
 from dct_tpu_torch.models import transformer as tt
 from dct_tpu_torch.models.registry import get_model
 from dct_tpu_torch.ops import flash_attention as fa
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(seq_len=256, d_model=32, n_heads=2, n_layers=2, d_ff=64)
 
